@@ -8,15 +8,19 @@ Phases (any failure raises, and the script exits non-zero):
 1. Device: the card's name and power limit (``nvidia-smi``), then the build
    of every kernel in ``src/repro_torch/kernels/csrc`` with ``nvcc``.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
-   the main path gives them plus a ragged shape: each kernel's time, the
+   the main paths give them plus ragged shapes: each kernel's time, the
    plain version's time, one library call's time (used nowhere in the port)
    and its bound on the card.
-3. A small training run on the card against the same run on the CPU (the
-   kernels' plain versions), from the same weights and noise.
-4. The main path through ``repro_torch.launch.fgl_train.main``: SpreadFGL on
-   full-size Coauthor-CS (6 clients, 3 servers, 3 rounds, 2 imputation
-   rounds), then FedGL on full-size Cora, with the kernels' launch counters
-   set to 0 before and read after.
+3. A small training run and small serving runs (the qwen3-4b and gemma3-12b
+   smoke configs) on the card against the same runs on the CPU (the
+   kernels' plain versions), from the same weights, noise and prompts.
+4. The main paths, each with every kernel's launch counter set to 0 just
+   before it and read just after: through
+   ``repro_torch.launch.fgl_train.main``, SpreadFGL on full-size Coauthor-CS
+   (6 clients, 3 servers, 3 rounds, 2 imputation rounds), then FedGL on
+   full-size Cora; through ``repro_torch.launch.serve.main``, Qwen3-4B at full
+   width and depth serving a batch of 8 prompts of 2048 tokens for 64
+   greedy decode steps.
 5. One JSON line describing every kernel, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -25,6 +29,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -32,18 +37,23 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, and HBM3.
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense bf16 on
+# the tensor cores, and HBM3.
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 SPREAD_ARGS = ["--dataset", "coauthor_cs", "--scale", "1.0", "--method", "SpreadFGL",
                "--clients", "6", "--servers", "3", "--rounds", "3", "-K", "2"]
 FEDGL_ARGS = ["--dataset", "cora", "--scale", "1.0", "--method", "FedGL", "--rounds", "2"]
+SERVE_ARGS = ["--arch", "qwen3-4b", "--variant", "full", "--batch", "8",
+              "--prompt-len", "2048", "--steps", "64"]
 
 
 def _card_line() -> str:
@@ -65,9 +75,25 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def _bound(flops: float, nbytes: float, peak: float = F32_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _kernel_modules():
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import sage_aggregate as ksage
+    from repro_torch.kernels import sim_topk as ksim
+    return {"sage_aggregate": ksage, "sim_topk": ksim, "flash_attention": kflash}
+
+
+def _reset_launches() -> None:
+    for mod in _kernel_modules().values():
+        mod.launches = 0
+
+
+def _launches() -> dict:
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -131,7 +157,7 @@ def _check_sage(dev, gen):
     return {"name": "sage_aggregate", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sage_aggregate.cu",
             "replaces": "src/repro/kernels/sage_aggregate.py:52",
-            "max_abs_err": max(errs), "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "shape": f"[{m},{n},{n}]x[{m},{n},{d}]"}
 
@@ -201,9 +227,64 @@ def _check_sim(dev, gen):
     return {"name": "sim_topk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sim_topk.cu",
             "replaces": "src/repro/kernels/sim_topk.py:136",
-            "max_abs_err": max(errs), "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "shape": f"[{nb},{n},{c}] k={k}"}
+
+
+def _check_flash(dev, gen):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops, ref
+
+    def inputs(b, hq, hkv, sq, skv, d, dtype):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+
+    # Ragged with a window (gemma3's local layers) and GQA 2:1; a 40-token
+    # prompt, the shape the reference's ops.mha gets wrong; MQA at D = 128 in
+    # bf16; then the serving main path's prefill, Qwen3-4B as configured
+    # (32 q heads, 8 kv heads, head dim 80) at batch 8 and 2048 tokens, timed.
+    # Limits: both sides compute in f32; a bf16 output may round the other way.
+    errs = []
+    for b, hq, hkv, sq, skv, d, window, dtype in (
+            (2, 4, 2, 200, 200, 32, 64, torch.float32),
+            (2, 4, 2, 40, 40, 32, None, torch.float32),
+            (1, 8, 1, 300, 300, 128, None, torch.bfloat16),
+            (8, 32, 8, 2048, 2048, 80, None, torch.bfloat16)):
+        q, k, v = inputs(b, hq, hkv, sq, skv, d, dtype)
+        out = ops.mha(q, k, v, causal=True, window=window).float()
+        plain = ref.flash_attention(q, k, v, causal=True, window=window).float()
+        err = (out - plain).abs().max().item()
+        limit = 1e-5 if dtype == torch.float32 else 2e-2
+        print(f"[smoke] flash_attention q[{b},{hq},{sq},{d}] kv[{b},{hkv},{skv},{d}] "
+              f"window={window} {str(dtype).split('.')[-1]} max_abs_err={err:.3g} "
+              f"(limit {limit:g})")
+        if not err <= limit:
+            raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
+        errs.append(err)
+        del out, plain
+    ms = _time_ms(lambda: kflash.launch(q, k, v), 10)
+    plain_ms = _time_ms(lambda: ref.flash_attention(q, k, v), 3)
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                             enable_gqa=True), 10)
+    # Causal work only (query i sees i + 1 keys), against the bf16 tensor-core
+    # peak; bytes: q and the output at Hq heads, k and v at Hkv heads, 2 bytes each.
+    flops = 4.0 * b * hq * d * (sq * (sq + 1) / 2)
+    bound_ms, bound_by = _bound(flops, 2.0 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d),
+                                peak=BF16_FLOPS)
+    print(f"[smoke] flash_attention main-path ms={ms:.3f} plain_ms={plain_ms:.3f} "
+          f"library_ms={lib_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}, bf16 peak "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s) -> {flops / ms / 1e9:.1f} TFLOP/s")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:98",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "shape": f"q[{b},{hq},{sq},{d}] kv[{b},{hkv},{skv},{d}] bf16 causal"}
 
 
 # -- phase 3: the card's training run against the CPU's ----------------------
@@ -246,7 +327,39 @@ def _check_small_run(dev):
                                  f"{hists[dev.type][key]} vs {hists['cpu'][key]}")
 
 
-# -- phase 4: the main path ---------------------------------------------------
+def _check_small_serve(dev):
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+
+    # qwen3-4b's smoke config with a 40-token prompt (below 128 queries);
+    # gemma3-12b's, whose window-64 layer's ring buffer wraps on a 200-token
+    # prompt. Same weights on both devices (drawn on the CPU), f32.
+    for arch, prompt_len in (("qwen3-4b", 40), ("gemma3-12b", 200)):
+        cfg = configs.get_config(arch, "smoke")
+        cpu_model = transformer.init_model(cfg, seed=0, device="cpu")
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, prompt_len))
+        logits, tokens = {}, {}
+        for where in ("cpu", dev.type):
+            model = cpu_model if where == "cpu" else copy.deepcopy(cpu_model).to(dev)
+            engine = ServeEngine(model, max_len=prompt_len + 16)
+            out, cache = engine.prefill(prompts)
+            logits[where] = out.cpu()
+            tokens[where] = engine.decode(cache, out, steps=8).cpu()
+        err = (logits[dev.type] - logits["cpu"]).abs().max().item()
+        same = torch.equal(tokens[dev.type], tokens["cpu"])
+        print(f"[smoke] small {cfg.name} serving run {dev.type} vs cpu, prompt "
+              f"{prompt_len}: prefill logits max |d| = {err:.3g}, 8 greedy tokens "
+              f"identical: {same}")
+        if not err <= 1e-4:     # two layers of f32 in other orders
+            raise AssertionError(f"{cfg.name}: the card's prefill logits disagree with "
+                                 f"the CPU's by {err}")
+        if not same:
+            raise AssertionError(f"{cfg.name}: greedy tokens differ: "
+                                 f"{tokens[dev.type].tolist()} vs {tokens['cpu'].tolist()}")
+
+
+# -- phase 4: the main paths --------------------------------------------------
 
 def _main_path(args):
     from repro_torch.core.types import FGLConfig
@@ -259,8 +372,7 @@ def _main_path(args):
     flags = fgl_train._parser().parse_args(args)
     imputations = len(range(0, flags.rounds, flags.imputation_interval))
     num_layers = FGLConfig().num_layers
-    ksage.launches = 0
-    ksim.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     hist = fgl_train.main(args)
     torch.cuda.synchronize()
@@ -283,6 +395,33 @@ def _main_path(args):
     return sage_n, sim_n
 
 
+def _serve_main_path(args):
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    flags = serve._parser().parse_args(args)
+    cfg = configs.get_config(flags.arch, flags.variant)
+    _reset_launches()
+    out = serve.main(args)
+    counts = _launches()
+    logits, tokens = out["logits"], out["tokens"]
+    print(f"[smoke] main path serve {' '.join(args)}: {cfg.num_layers} layers, "
+          f"{cfg.active_params() / 1e9:.2f} B parameters ({cfg.dtype}); prefill "
+          f"{out['prefill_s']:.3f} s, decode {out['decode_s'] / flags.steps * 1e3:.2f} "
+          f"ms/step over {flags.steps} steps; launches {counts}")
+    if logits.shape != (flags.batch, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits of shape {tuple(logits.shape)} are not "
+                             f"finite [{flags.batch}, {cfg.vocab_size}]")
+    if tokens.shape != (flags.batch, flags.steps) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"generated tokens of shape {tokens.shape} out of range")
+    # One prefill: the kernel launches once per layer; decode attention is plain.
+    if counts["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"flash_attention launched {counts['flash_attention']} times, "
+                             f"expected {cfg.num_layers} (one per layer of one prefill)")
+    return counts["flash_attention"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -301,18 +440,23 @@ def main() -> int:
     print(f"[smoke] kernels built with nvcc for sm_90a in {time.perf_counter() - t0:.1f} s "
           f"-> {build.library_path().relative_to(ROOT)}")
     for log in sorted(build.library_path().parent.glob("*.ptxas.txt")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[smoke] ptxas {log.name.split('.')[0]}: {line.strip()}")
+        lines = [line.strip() for line in log.read_text().splitlines()
+                 if "registers" in line or "spill" in line]
+        for line in dict.fromkeys(lines):      # one line per distinct report
+            print(f"[smoke] ptxas {log.name.split('.')[0]}: {line}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernels = [_check_sage(dev, gen), _check_sim(dev, gen)]
+    kernels = [_check_sage(dev, gen), _check_sim(dev, gen), _check_flash(dev, gen)]
     _check_small_run(dev)
+    _check_small_serve(dev)
 
     sage_a, sim_a = _main_path(SPREAD_ARGS)
     sage_b, sim_b = _main_path(FEDGL_ARGS)
+    torch.cuda.empty_cache()
+    flash_n = _serve_main_path(SERVE_ARGS)
     kernels[0]["launches"] = sage_a + sage_b
     kernels[1]["launches"] = sim_a + sim_b
+    kernels[2]["launches"] = flash_n
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,6 +7,10 @@ stacked per-server autoencoders and assessors with theirs, the client batch
 and the round. Only attributes are read, so this module imports nothing of
 the reference. The tests use it so that both packages start from the same
 weights; the port's own random stream starts from ``seed``.
+
+``lm_params_from_jax`` does the same for a language model: the reference's
+``transformer.init_model`` pytree, fetched to numpy, becomes this package's
+``Transformer``.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import torch
 
 from repro_torch.core.fedgl import FGLState
 from repro_torch.core.types import ClientBatch
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer, group_size
 from repro_torch.optim.adam import AdamState
 from repro_torch.tree import tree_map
 
@@ -52,3 +58,38 @@ def state_from_reference(ref_state: Any, *, device="cpu", seed: int = 0) -> FGLS
                     as_opt=adam_to_torch(ref_state.as_opt, dev),
                     batch=batch_to_torch(ref_state.batch, dev),
                     gen=gen, round=int(ref_state.round))
+
+
+def _host(a: Any) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":    # numpy's bf16 extension type: widen exactly
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_jax(params: Any, cfg: ModelConfig, device="cpu") -> Transformer:
+    """The reference's LM pytree (as numpy) as this package's ``Transformer``.
+
+    ``params["blocks"]`` is a tuple of ``group_size(cfg)`` group members whose
+    leaves carry a leading ``[n_groups]`` axis; layer ``i`` is member
+    ``i % g`` at index ``i // g``. Every other key maps by name onto the
+    module's parameters (``embed.tokens``, ``final_norm.scale``, ...), and
+    the load is strict: a missing or unexpected leaf raises.
+    """
+    model = Transformer(cfg, device=device)
+    g = group_size(cfg)
+    state = {}
+
+    def put(prefix: str, tree: Any, index=None) -> None:
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                put(f"{prefix}{key}.", val, index)
+            else:
+                state[prefix + key] = _host(val if index is None else np.asarray(val)[index])
+
+    put("embed.", params["embed"])
+    put("final_norm.", params["final_norm"])
+    for i in range(cfg.num_layers):
+        put(f"blocks.{i}.", params["blocks"][i % g], i // g)
+    model.load_state_dict(state, strict=True)
+    return model

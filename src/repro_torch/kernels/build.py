@@ -23,11 +23,12 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel entry point: (argtypes, restype).
 SIGNATURES = {
     "sage_aggregate_f32": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "sim_topk_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -7,10 +7,11 @@ device is accepted.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import sage_aggregate as _sage
 from repro_torch.kernels import sim_topk as _sim
@@ -20,6 +21,28 @@ def _route(t: torch.Tensor, name: str) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no implementation for device {t.device}")
     return t.device.type
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+        window: Optional[int] = None) -> torch.Tensor:
+    """Causal multi-head attention with grouped kv heads (prefill).
+
+    q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] with Hq % Hkv == 0. Returns
+    [B, Hq, Sq, D] in q's dtype. Queries are end-aligned with the keys and
+    ``window`` keeps keys at positions > the query's minus ``window``, as
+    ``ref.flash_attention``. Counterpart of ``repro.kernels.ops.mha``, without
+    its head repeat and padding: the kernel maps heads and masks ragged
+    lengths itself.
+    """
+    if not causal:
+        raise ValueError("mha is causal only; non-causal (cross) attention takes "
+                         "the plain path, as in the reference")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"mha: q, k, v on different devices ({q.device}, {k.device}, "
+                         f"{v.device})")
+    if _route(q, "mha") == "cpu":
+        return ref.flash_attention(q, k, v, causal=True, window=window)
+    return _fa.launch(q, k, v, window=window)
 
 
 def sage_aggregate(adj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

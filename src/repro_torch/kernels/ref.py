@@ -7,9 +7,44 @@ tests and ``chip_smoke.py`` hold the kernels against it on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Masked softmax attention with f32 math; the plain flash kernel.
+
+    q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] with ``Hq % Hkv == 0`` (q head
+    h reads kv head ``h // (Hq // Hkv)``, with no copy of the kv heads).
+    Query i sits at position ``i + Skv - Sq`` (queries end-aligned with the
+    keys); with ``causal`` it sees keys at positions <= its own, and with
+    ``window`` only keys at positions > its own minus ``window``. Fully
+    masked rows give 0. The output has q's dtype. Counterpart of
+    ``repro.kernels.ref.flash_attention``, which takes kv heads already
+    repeated to Hq.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, hkv, hq // hkv, sq, d)   # q heads grouped by kv head
+    logits = (qf @ k.float()[:, :, None].transpose(-1, -2)) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, -torch.inf)
+    probs = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
+    out = probs @ v.float()[:, :, None]
+    return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
 def sage_aggregate(adj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

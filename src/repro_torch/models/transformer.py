@@ -1,0 +1,167 @@
+"""Dense transformer assembly: counterpart of ``repro.models.transformer``.
+
+The reference stacks each member of a repeating layer group along a leading
+``[n_groups]`` axis and scans over groups. Here the model is an
+``nn.Module`` with one ``Block`` per layer in ``blocks``, run by a Python
+loop; ``convert.lm_params_from_jax`` unstacks the reference's groups. Module
+and parameter names follow the reference's pytree keys (``embed.tokens``,
+``blocks.<i>.attn.wq``, ...).
+
+Only ``arch_type == "dense"`` builds. MoE, ssm, hybrid, vlm and audio raise
+``NotImplementedError`` when the model is built (ROADMAP.md, queue 1,
+item 10). ``sharding.constraints.constrain`` is a no-op on one card and has
+no counterpart here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def group_size(cfg: ModelConfig) -> int:
+    """Smallest period covering window pattern + cross-attn insertion."""
+    if cfg.arch_type == "ssm":
+        return cfg.num_layers  # unrolled
+    ws = cfg.windows
+    period = 1
+    for p in range(1, cfg.num_layers + 1):
+        if cfg.num_layers % p:
+            continue
+        if all(ws[i] == ws[i % p] for i in range(cfg.num_layers)):
+            period = p
+            break
+    if cfg.cross_attn_interval:
+        # group must end exactly where a cross block goes
+        period = period * cfg.cross_attn_interval // math.gcd(period, cfg.cross_attn_interval)
+    return period
+
+
+def _block_kind(cfg: ModelConfig, layer_idx: int) -> str:
+    if cfg.arch_type == "ssm":
+        return cfg.block_pattern[layer_idx] if cfg.block_pattern else "mlstm"
+    if cfg.arch_type == "hybrid":
+        return "hybrid"
+    if cfg.is_encdec:
+        return "encdec_dec"
+    return "attn"
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported to repro_torch yet; "
+            f"only dense transformers build (ROADMAP.md, queue 1, item 10)")
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One pre-norm layer of kind ``"attn"``: attention, then the MLP."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, device=None):
+        super().__init__()
+        if kind != "attn":
+            raise NotImplementedError(f"block kind {kind!r} is not ported yet "
+                                      f"(ROADMAP.md, queue 1, item 10)")
+        dt, d = _dtype(cfg), cfg.d_model
+        self.ln1 = L.Norm(cfg.norm_kind, d, dtype=dt, device=device)
+        self.attn = A.Attention(d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                qk_norm=cfg.qk_norm, use_bias=cfg.use_bias, dtype=dt,
+                                device=device)
+        self.ln2 = L.Norm(cfg.norm_kind, d, dtype=dt, device=device)
+        self.mlp = L.MLP(d, cfg.d_ff, cfg.act, cfg.use_bias, dtype=dt, device=device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        for m in (self.ln1, self.attn, self.ln2, self.mlp):
+            m.init_(gen)
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Block:
+    bp = Block(cfg, kind, device=gen.device)
+    bp.init_(gen)
+    return bp
+
+
+def attn_block_kv(bp: Block, x: torch.Tensor, cfg: ModelConfig, *, window: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """An ``"attn"`` block over the whole sequence, also returning its
+    (roped) k, v [B, Hkv, S, D] for the decode cache."""
+    h = bp.ln1(x)
+    attn_out, k, v = A.self_attention_kv(
+        bp.attn, h, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, window=window, rope_theta=cfg.rope_theta,
+        qk_norm=cfg.qk_norm, use_rope=not cfg.is_encdec)
+    x = x + attn_out
+    return x + bp.mlp(bp.ln2(x)), k, v
+
+
+def apply_block(bp: Block, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
+                window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux_loss); the aux loss is 0 for dense blocks."""
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    x, _, _ = attn_block_kv(bp, x, cfg, window=window)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+class Transformer(nn.Module):
+    """``embed``, ``blocks`` (one ``Block`` per layer) and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        dt = _dtype(cfg)
+        self.embed = L.Embed(cfg.vocab_size, cfg.d_model, tie=cfg.tie_embeddings,
+                             dtype=dt, device=device)
+        self.final_norm = L.Norm(cfg.norm_kind, cfg.d_model, dtype=dt, device=device)
+        self.blocks = nn.ModuleList(Block(cfg, _block_kind(cfg, i), device=device)
+                                    for i in range(cfg.num_layers))
+
+    def init_(self, gen: torch.Generator) -> None:
+        self.embed.init_(gen)
+        self.final_norm.init_(gen)
+        for bp in self.blocks:
+            bp.init_(gen)
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device="cpu") -> Transformer:
+    """A model with random weights drawn on ``device`` from a generator seeded
+    with ``seed`` (the same seed gives other weights on another device)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = Transformer(cfg, device=device)
+    model.init_(gen)
+    return model
+
+
+def forward(model: Transformer, tokens: torch.Tensor, *,
+            memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (logits [B, S, V] f32, aux loss scalar)."""
+    if memory is not None:
+        raise NotImplementedError("memory (audio / vlm) is not ported yet")
+    cfg = model.cfg
+    x = L.embed_tokens(model.embed, tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, bp in enumerate(model.blocks):
+        x, aux = apply_block(bp, x, cfg, _block_kind(cfg, i), window=cfg.windows[i])
+        aux_total = aux_total + aux
+    x = model.final_norm(x)
+    return L.unembed(model.embed, x, softcap=cfg.logit_softcap), aux_total

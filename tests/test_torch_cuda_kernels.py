@@ -9,12 +9,15 @@ kernels from ``src/repro_torch/kernels/csrc`` and run them:
 Tolerances: ``sage_aggregate`` sums up to n products per output in another
 order than cuBLAS, so values agree within 1e-5 absolute plus 1e-5 relative;
 ``sim_topk`` scores within 1e-5 and indices exact except between candidates
-whose scores lie within 1e-5 (``torch_parity.assert_topk_match``).
+whose scores lie within 1e-5 (``torch_parity.assert_topk_match``);
+``flash_attention`` within 1e-5 in f32 and 2e-2 in bf16 (both compute in
+f32; a bf16 output may round the other way by one unit in the last place).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sage_aggregate as ksage
 from repro_torch.kernels import sim_topk as ksim
@@ -114,3 +117,46 @@ def test_sim_topk_refuses_what_it_cannot_run(dev):
     with pytest.raises(ValueError, match="k"):
         ops.sim_topk(h[..., :4], torch.zeros(40, device=dev),
                      torch.ones((1, 40), device=dev), 17)
+
+
+# (b, hq, hkv, sq, skv, d, window, dtype): ragged with a window and GQA 2:1;
+# a 40-token prompt (the reference's ops.mha is wrong below 128); MQA at
+# D = 128; decode-style end alignment; more queries than keys (rows before
+# key 0 are fully masked); the serving main path's shape, Qwen3-4B as
+# configured at batch 8 and a 2048-token prompt.
+FLASH_SHAPES = [
+    (2, 4, 2, 200, 200, 32, 64, torch.float32),
+    (2, 4, 2, 40, 40, 32, None, torch.float32),
+    (1, 8, 1, 300, 300, 128, None, torch.bfloat16),
+    (1, 4, 2, 3, 77, 64, None, torch.float32),
+    (1, 4, 2, 130, 100, 80, 16, torch.bfloat16),
+    (8, 32, 8, 2048, 2048, 80, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window,dtype", FLASH_SHAPES)
+def test_flash_attention_matches_plain(dev, b, hq, hkv, sq, skv, d, window, dtype):
+    gen = torch.Generator(device=dev).manual_seed(sq + d)
+    q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
+    before = kflash.launches
+    got = ops.mha(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert kflash.launches == before + 1 and got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.flash_attention(q, k, v, window=window).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_attention_refuses_what_it_cannot_run(dev):
+    q = torch.randn((1, 2, 16, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.mha(q, q, q)
+    q = torch.randn((1, 2, 16, 32), device=dev)
+    with pytest.raises(ValueError, match="causal"):
+        ops.mha(q, q, q, causal=False)
+    with pytest.raises(ValueError, match="device"):
+        ops.mha(q, q.cpu(), q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.mha(q.half(), q.half(), q.half())
