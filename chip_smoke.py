@@ -10,10 +10,16 @@ Phases (any failure raises, and the script exits non-zero):
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them plus ragged shapes: each kernel's time, the
    plain version's time, one library call's time (used nowhere in the port)
-   and its bound on the card.
-3. A small training run and small serving runs (the qwen3-4b and gemma3-12b
-   smoke configs) on the card against the same runs on the CPU (the
-   kernels' plain versions), from the same weights, noise and prompts.
+   and its bound on the card. ``flash_attention`` has two routes, checked
+   and timed apart: bf16 on the tensor cores, f32 on the CUDA cores.
+   ``sim_block``, which no path calls, is checked and timed at the
+   Coauthor-CS server's gram.
+3. A small training run and small f32 serving runs (the qwen3-4b and
+   gemma3-12b smoke configs) on the card against the same runs on the CPU
+   (the kernels' plain versions), from the same weights, noise and prompts;
+   then the qwen3-4b smoke config in bf16 on the card, its prefill through
+   the tensor-core kernel against the same prefill with the plain version
+   patched in.
 4. The main paths, each with every kernel's launch counter set to 0 just
    before it and read just after: through
    ``repro_torch.launch.fgl_train.main``, SpreadFGL on full-size Coauthor-CS
@@ -30,8 +36,10 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -63,6 +71,33 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_attention_tc_kernel<Li80E>`` from a mangled kernel name."""
+    for i in range(len(mangled)):      # a name is its length, then its characters
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            continue
+        end = i + m.end()
+        ident = mangled[end:end + int(m.group())]
+        if ident.endswith("_kernel"):
+            args = re.match(r"I(.*?)EEv", mangled[end + len(ident):])
+            return ident + (f"<{args.group(1)}>" if args else "")
+    return mangled
+
+
+def _ptxas_report(log: str):
+    """One line per kernel instance of a ``-Xptxas -v`` log: its registers and
+    spills, named by the kernel and its template arguments."""
+    name, spill = "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = _kernel_name(line.split("'")[1]), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            yield f"{name}: {line.split(':', 1)[1].strip()}; {spill}"
+
+
 def _time_ms(fn, iters: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -80,20 +115,26 @@ def _bound(flops: float, nbytes: float, peak: float = F32_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _kernel_modules():
+def _counters():
+    """Each kernel's launch counter, as (module, attribute)."""
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import sage_aggregate as ksage
     from repro_torch.kernels import sim_topk as ksim
-    return {"sage_aggregate": ksage, "sim_topk": ksim, "flash_attention": kflash}
+    return {"sage_aggregate": (ksage, "launches"), "sim_topk": (ksim, "launches"),
+            "sim_block": (ksim, "block_launches"),
+            "flash_attention_tc": (kflash, "launches_tc"),
+            "flash_attention_simt": (kflash, "launches_simt")}
 
 
 def _reset_launches() -> None:
-    for mod in _kernel_modules().values():
-        mod.launches = 0
+    from repro_torch.kernels import flash_attention as kflash
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+    kflash.launches = 0           # the sum of both flash routes
 
 
 def _launches() -> dict:
-    return {name: mod.launches for name, mod in _kernel_modules().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -242,49 +283,120 @@ def _check_flash(dev, gen):
         return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
                      for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
 
-    # Ragged with a window (gemma3's local layers) and GQA 2:1; a 40-token
-    # prompt, the shape the reference's ops.mha gets wrong; MQA at D = 128 in
-    # bf16; then the serving main path's prefill, Qwen3-4B as configured
-    # (32 q heads, 8 kv heads, head dim 80) at batch 8 and 2048 tokens, timed.
-    # Limits: both sides compute in f32; a bf16 output may round the other way.
-    errs = []
+    # f32 (SIMT route): ragged with a window (gemma3's local layers) and GQA
+    # 2:1; a 40-token prompt, the shape the reference's ops.mha gets wrong.
+    # bf16 (tensor-core route): MQA at D = 128; one query against a ragged
+    # cache with GQA 4:1 at D = 64; more queries than keys with a window at
+    # D = 32; then the serving main path's prefill, Qwen3-4B as configured (32
+    # q heads, 8 kv heads, head dim 80) at batch 8 and 2048 tokens. Limits:
+    # f32 1e-5 (both sides compute in f32); bf16 2e-2 (P is rounded to bf16
+    # before P V, and a bf16 output may round the other way).
+    errs = {torch.float32: [], torch.bfloat16: []}
     for b, hq, hkv, sq, skv, d, window, dtype in (
             (2, 4, 2, 200, 200, 32, 64, torch.float32),
             (2, 4, 2, 40, 40, 32, None, torch.float32),
             (1, 8, 1, 300, 300, 128, None, torch.bfloat16),
+            (1, 8, 2, 1, 1000, 64, None, torch.bfloat16),
+            (1, 4, 2, 130, 100, 32, 50, torch.bfloat16),
             (8, 32, 8, 2048, 2048, 80, None, torch.bfloat16)):
         q, k, v = inputs(b, hq, hkv, sq, skv, d, dtype)
+        route = "launches_tc" if dtype == torch.bfloat16 else "launches_simt"
+        before = getattr(kflash, route)
         out = ops.mha(q, k, v, causal=True, window=window).float()
+        if getattr(kflash, route) != before + 1:
+            raise AssertionError(f"flash_attention {dtype} did not take its route ({route})")
         plain = ref.flash_attention(q, k, v, causal=True, window=window).float()
         err = (out - plain).abs().max().item()
         limit = 1e-5 if dtype == torch.float32 else 2e-2
-        print(f"[smoke] flash_attention q[{b},{hq},{sq},{d}] kv[{b},{hkv},{skv},{d}] "
-              f"window={window} {str(dtype).split('.')[-1]} max_abs_err={err:.3g} "
-              f"(limit {limit:g})")
+        print(f"[smoke] flash_attention {route[9:]} q[{b},{hq},{sq},{d}] "
+              f"kv[{b},{hkv},{skv},{d}] window={window} {str(dtype).split('.')[-1]} "
+              f"max_abs_err={err:.3g} (limit {limit:g})")
         if not err <= limit:
             raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
-        errs.append(err)
+        errs[dtype].append(err)
         del out, plain
-    ms = _time_ms(lambda: kflash.launch(q, k, v), 10)
-    plain_ms = _time_ms(lambda: ref.flash_attention(q, k, v), 3)
-    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                             enable_gqa=True), 10)
-    # Causal work only (query i sees i + 1 keys), against the bf16 tensor-core
-    # peak; bytes: q and the output at Hq heads, k and v at Hkv heads, 2 bytes each.
+    main_shape = (b, hq, hkv, sq, skv, d)
+    # Causal work only (query i sees i + 1 keys); bytes: q and the output at
+    # Hq heads, k and v at Hkv heads, in the inputs' type.
     flops = 4.0 * b * hq * d * (sq * (sq + 1) / 2)
-    bound_ms, bound_by = _bound(flops, 2.0 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d),
-                                peak=BF16_FLOPS)
-    print(f"[smoke] flash_attention main-path ms={ms:.3f} plain_ms={plain_ms:.3f} "
-          f"library_ms={lib_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}, bf16 peak "
-          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s) -> {flops / ms / 1e9:.1f} TFLOP/s")
+    io = 2 * b * hq * sq * d + 2 * b * hkv * skv * d
+    entries = []
+    for dtype, peak, source in ((torch.bfloat16, BF16_FLOPS, "flash_attention_tc.cu"),
+                                (torch.float32, F32_FLOPS, "flash_attention.cu")):
+        if dtype == torch.float32:      # the f32 route at the same shape
+            q, k, v = (t.float() for t in (q, k, v))
+        ms = _time_ms(lambda: kflash.launch(q, k, v), 10)
+        plain_ms = _time_ms(lambda: ref.flash_attention(q, k, v), 3)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                 enable_gqa=True), 10)
+        bound_ms, bound_by = _bound(flops, q.element_size() * io, peak=peak)
+        route = "tensor cores" if dtype == torch.bfloat16 else "SIMT"
+        name = str(dtype).split(".")[-1]
+        print(f"[smoke] flash_attention {route} {name} main-path ms={ms:.3f} "
+              f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}, {name} peak {peak / 1e12:.0f} TFLOP/s) -> "
+              f"{flops / ms / 1e9:.1f} TFLOP/s")
+        entries.append({"name": f"flash_attention ({name}, {route})", "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{source}",
+                        "replaces": "src/repro/kernels/flash_attention.py:98",
+                        "max_abs_err": max(errs[dtype]), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                        "shape": "q[{0},{1},{3},{5}] kv[{0},{2},{4},{5}] ".format(*main_shape)
+                                 + f"{name} causal"})
     del q, k, v
     torch.cuda.empty_cache()
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:98",
+    return entries
+
+
+def _check_sim_block(dev, gen):
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sim_topk as ksim
+
+    # Ragged f32 from a normal; then class-probability rows (softmax), the
+    # data sim_block's callers hold: ragged in bf16, and the Coauthor-CS
+    # server's gram (12246 flat slots x 15 classes, the A̅ = H Hᵀ that
+    # sim_topk fuses away) in bf16 and f32, the latter timed. The rule is the
+    # JAX tests': |d| <= tol * (1 + |plain|), tol 1e-5 (f32) or 3e-2 (bf16).
+    errs = []
+    for b, n, c, dtype, probs in ((33, 70, 7, torch.float32, False),
+                                  (1000, 1237, 15, torch.bfloat16, True),
+                                  (12246, 12246, 15, torch.bfloat16, True),
+                                  (12246, 12246, 15, torch.float32, True)):
+        rows, h = (torch.randn(shape, generator=gen, device=dev)
+                   for shape in ((b, c), (n, c)))
+        if probs:
+            rows, h = torch.softmax(3 * rows, -1), torch.softmax(3 * h, -1)
+        rows, h = rows.to(dtype), h.to(dtype)
+        before = ksim.block_launches
+        out = ops.sim_block(rows, h).float()
+        if ksim.block_launches != before + 1:
+            raise AssertionError("sim_block did not launch its kernel")
+        plain = ref.sim_block(rows, h).float()
+        diff = (out - plain).abs()
+        tol = 1e-5 if dtype == torch.float32 else 3e-2
+        excess = (diff - tol * (1 + plain.abs())).max().item()
+        err = diff.max().item()
+        print(f"[smoke] sim_block [{b},{c}]x[{n},{c}] {str(dtype).split('.')[-1]} "
+              f"max_abs_err={err:.3g} (limit {tol:g} x (1 + |plain|))")
+        if not excess <= 0:
+            raise AssertionError(f"sim_block disagrees with its plain version: {err}")
+        errs.append(err)
+        del out, plain, diff
+    ms = _time_ms(lambda: ksim.launch_block(rows, h), 20)
+    plain_ms = _time_ms(lambda: ref.sim_block(rows, h), 5)
+    lib_ms = _time_ms(lambda: rows @ h.T, 20)
+    bound_ms, bound_by = _bound(2.0 * b * n * c, 4.0 * (b * c + n * c + b * n))
+    print(f"[smoke] sim_block [{b},{c}]x[{n},{c}] f32 ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) -> "
+          f"{4.0 * b * n / ms / 1e9:.2f} TB/s of output")
+    del rows, h
+    torch.cuda.empty_cache()
+    return {"name": "sim_block", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sim_block.cu",
+            "replaces": "src/repro/kernels/sim_topk.py:184",
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "shape": f"q[{b},{hq},{sq},{d}] kv[{b},{hkv},{skv},{d}] bf16 causal"}
+            "shape": f"[{b},{c}]x[{n},{c}] f32"}
 
 
 # -- phase 3: the card's training run against the CPU's ----------------------
@@ -334,7 +446,8 @@ def _check_small_serve(dev):
 
     # qwen3-4b's smoke config with a 40-token prompt (below 128 queries);
     # gemma3-12b's, whose window-64 layer's ring buffer wraps on a 200-token
-    # prompt. Same weights on both devices (drawn on the CPU), f32.
+    # prompt. Same weights on both devices (drawn on the CPU), f32: the card's
+    # prefill takes the SIMT route, once per layer.
     for arch, prompt_len in (("qwen3-4b", 40), ("gemma3-12b", 200)):
         cfg = configs.get_config(arch, "smoke")
         cpu_model = transformer.init_model(cfg, seed=0, device="cpu")
@@ -343,14 +456,21 @@ def _check_small_serve(dev):
         for where in ("cpu", dev.type):
             model = cpu_model if where == "cpu" else copy.deepcopy(cpu_model).to(dev)
             engine = ServeEngine(model, max_len=prompt_len + 16)
+            before = _launches()
             out, cache = engine.prefill(prompts)
+            after = _launches()
             logits[where] = out.cpu()
             tokens[where] = engine.decode(cache, out, steps=8).cpu()
+        routes = {name: after[name] - before[name]
+                  for name in ("flash_attention_simt", "flash_attention_tc")}
         err = (logits[dev.type] - logits["cpu"]).abs().max().item()
         same = torch.equal(tokens[dev.type], tokens["cpu"])
         print(f"[smoke] small {cfg.name} serving run {dev.type} vs cpu, prompt "
               f"{prompt_len}: prefill logits max |d| = {err:.3g}, 8 greedy tokens "
-              f"identical: {same}")
+              f"identical: {same}; card prefill launches {routes}")
+        if routes != {"flash_attention_simt": cfg.num_layers, "flash_attention_tc": 0}:
+            raise AssertionError(f"{cfg.name} (f32): expected {cfg.num_layers} SIMT "
+                                 f"launches and no tensor-core launch, got {routes}")
         if not err <= 1e-4:     # two layers of f32 in other orders
             raise AssertionError(f"{cfg.name}: the card's prefill logits disagree with "
                                  f"the CPU's by {err}")
@@ -359,12 +479,53 @@ def _check_small_serve(dev):
                                  f"{tokens[dev.type].tolist()} vs {tokens['cpu'].tolist()}")
 
 
+def _check_bf16_serve(dev):
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+
+    # qwen3-4b's smoke config in bf16 (head dim 32), a 200-token prompt: the
+    # prefill on the card through ops.mha (the tensor-core kernel), then the
+    # same prefill with the plain version patched in here. Limit, stated
+    # before the first run: logits within 2e-2 of max |logit|; the greedy
+    # tokens of 8 decode steps from each are printed, not held.
+    cfg = dataclasses.replace(configs.get_config("qwen3-4b", "smoke"), dtype="bfloat16")
+    model = transformer.init_model(cfg, seed=0, device=dev)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 200))
+    engine = ServeEngine(model, max_len=216)
+    before = _launches()
+    out_kernel, cache = engine.prefill(prompts)
+    after = _launches()
+    tok_kernel = engine.decode(cache, out_kernel, steps=8)
+    kernel_mha = ops.mha
+    ops.mha = lambda q, k, v, *, causal=True, window=None: ref.flash_attention(  # noqa: E731
+        q, k, v, causal=causal, window=window)
+    try:
+        out_plain, cache = engine.prefill(prompts)
+        tok_plain = engine.decode(cache, out_plain, steps=8)
+    finally:
+        ops.mha = kernel_mha
+    routes = {name: after[name] - before[name]
+              for name in ("flash_attention_tc", "flash_attention_simt")}
+    err = (out_kernel.float() - out_plain.float()).abs().max().item()
+    scale = out_plain.float().abs().max().item()
+    agree = (tok_kernel == tok_plain).float().mean().item()
+    print(f"[smoke] small {cfg.name} bf16 serving run, prompt 200: prefill logits "
+          f"kernel vs plain max |d| = {err:.3g} (limit 2e-2 x max |logit| = "
+          f"{2e-2 * scale:.3g}); greedy tokens agree {agree:.3f} of 2 x 8; launches {routes}")
+    if routes != {"flash_attention_tc": cfg.num_layers, "flash_attention_simt": 0}:
+        raise AssertionError(f"{cfg.name} (bf16): expected {cfg.num_layers} tensor-core "
+                             f"launches and no SIMT launch, got {routes}")
+    if not (torch.isfinite(out_kernel).all() and err <= 2e-2 * scale):
+        raise AssertionError(f"{cfg.name} (bf16): the kernel's prefill logits disagree "
+                             f"with the plain version's by {err}")
+
+
 # -- phase 4: the main paths --------------------------------------------------
 
 def _main_path(args):
     from repro_torch.core.types import FGLConfig
-    from repro_torch.kernels import sage_aggregate as ksage
-    from repro_torch.kernels import sim_topk as ksim
     from repro_torch.launch import fgl_train
 
     # The counts the launcher's own settings imply: rounds, local steps and
@@ -377,7 +538,8 @@ def _main_path(args):
     hist = fgl_train.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    sage_n, sim_n = ksage.launches, ksim.launches
+    counts = _launches()
+    sage_n, sim_n = counts["sage_aggregate"], counts["sim_topk"]
     print(f"[smoke] main path {' '.join(args)}: {wall:.1f} s wall (data included), "
           f"round seconds {[round(s, 3) for s in hist['seconds']]}, "
           f"launches sage_aggregate={sage_n} sim_topk={sim_n}")
@@ -392,7 +554,7 @@ def _main_path(args):
     if sim_n != imputations:
         raise AssertionError(f"sim_topk launched {sim_n} times, expected "
                              f"{imputations} (one per imputation round)")
-    return sage_n, sim_n
+    return counts
 
 
 def _serve_main_path(args):
@@ -415,11 +577,13 @@ def _serve_main_path(args):
     if tokens.shape != (flags.batch, flags.steps) or not (
             (tokens >= 0) & (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"generated tokens of shape {tokens.shape} out of range")
-    # One prefill: the kernel launches once per layer; decode attention is plain.
-    if counts["flash_attention"] != cfg.num_layers:
-        raise AssertionError(f"flash_attention launched {counts['flash_attention']} times, "
-                             f"expected {cfg.num_layers} (one per layer of one prefill)")
-    return counts["flash_attention"]
+    # One bf16 prefill: the tensor-core kernel launches once per layer, the
+    # SIMT kernel never; decode attention is plain.
+    if counts["flash_attention_tc"] != cfg.num_layers or counts["flash_attention_simt"]:
+        raise AssertionError(f"flash_attention launched {counts} times, expected "
+                             f"{cfg.num_layers} on the tensor cores (one per layer of one "
+                             f"prefill) and none on the SIMT route")
+    return counts
 
 
 def main() -> int:
@@ -440,23 +604,26 @@ def main() -> int:
     print(f"[smoke] kernels built with nvcc for sm_90a in {time.perf_counter() - t0:.1f} s "
           f"-> {build.library_path().relative_to(ROOT)}")
     for log in sorted(build.library_path().parent.glob("*.ptxas.txt")):
-        lines = [line.strip() for line in log.read_text().splitlines()
-                 if "registers" in line or "spill" in line]
-        for line in dict.fromkeys(lines):      # one line per distinct report
+        for line in _ptxas_report(log.read_text()):
             print(f"[smoke] ptxas {log.name.split('.')[0]}: {line}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernels = [_check_sage(dev, gen), _check_sim(dev, gen), _check_flash(dev, gen)]
+    sage, sim = _check_sage(dev, gen), _check_sim(dev, gen)
+    flash_tc, flash_simt = _check_flash(dev, gen)
+    block = _check_sim_block(dev, gen)
     _check_small_run(dev)
     _check_small_serve(dev)
+    _check_bf16_serve(dev)
 
-    sage_a, sim_a = _main_path(SPREAD_ARGS)
-    sage_b, sim_b = _main_path(FEDGL_ARGS)
+    # Each main path's launches, counted from 0 just before it.
+    runs = [_main_path(SPREAD_ARGS), _main_path(FEDGL_ARGS)]
     torch.cuda.empty_cache()
-    flash_n = _serve_main_path(SERVE_ARGS)
-    kernels[0]["launches"] = sage_a + sage_b
-    kernels[1]["launches"] = sim_a + sim_b
-    kernels[2]["launches"] = flash_n
+    runs.append(_serve_main_path(SERVE_ARGS))
+    for entry, counter in ((sage, "sage_aggregate"), (sim, "sim_topk"),
+                           (flash_tc, "flash_attention_tc"),
+                           (flash_simt, "flash_attention_simt"), (block, "sim_block")):
+        entry["launches"] = sum(run[counter] for run in runs)
+    kernels = [sage, sim, flash_tc, flash_simt, block]
 
     print(json.dumps({"kernels": kernels}))
     print(card)

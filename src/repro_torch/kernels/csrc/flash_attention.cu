@@ -1,30 +1,30 @@
-// Causal (optionally windowed) online-softmax attention with grouped kv heads:
+// Causal (optionally windowed) online-softmax attention with grouped kv heads,
+// for float32 q, k, v:
 // out[b, h] = softmax(mask(Q[b, h] K[b, h / G]^T * scale)) V[b, h / G], with
 // G = Hq / Hkv, queries end-aligned with the keys (query i sits at key
-// position i + Skv - Sq), and fully masked rows written as 0.
+// position i + Skv - Sq), and fully masked rows written as 0. bfloat16 inputs
+// take the tensor-core kernel of flash_attention_tc.cu, with the same contract.
 //
 // Replaces the TPU kernel `flash_attention` / `_flash_kernel` in
 // src/repro/kernels/flash_attention.py (wrapper `mha` in
-// src/repro/kernels/ops.py). The Pallas kernel walks a (head, q block, kv
-// block) grid whose kv axis runs in order on one core and carries the running
-// max m, running sum l and the output accumulator in VMEM scratch from step
-// to step; `mha` repeats the kv heads and pads both sequence axes to 128. Here
-// one block owns one (batch * q head, 64-row query block) pair and the kv axis
-// is a loop inside it, with m, l and the [64, D] accumulator in registers. The
-// block maps its q head to its kv head itself (no repeated kv), masks ragged
-// Sq and Skv itself (no padded copies), and its loop runs only over the kv
-// tiles that hold a key some row of the block may see: from the window start
-// of its first row to the diagonal of its last. Skipping fully masked tiles
-// changes no result.
+// src/repro/kernels/ops.py) for float32 inputs. The Pallas kernel walks a
+// (head, q block, kv block) grid whose kv axis runs in order on one core and
+// carries the running max m, running sum l and the output accumulator in
+// VMEM scratch from step to step; `mha` repeats the kv heads and pads both
+// sequence axes to 128. Here one block owns one (batch * q head, 64-row query
+// block) pair and the kv axis is a loop inside it, with m, l and the [64, D]
+// accumulator in registers. The block maps its q head to its kv head itself
+// (no repeated kv), masks ragged Sq and Skv itself (no padded copies), and its
+// loop runs only over the kv tiles that hold a key some row of the block may
+// see: from the window start of its first row to the diagonal of its last.
+// Skipping fully masked tiles changes no result.
 //
-// What bounds it on the H100: operations. The causal work at the main path's
-// shape (8 x 32 heads, 2048 tokens, D = 80, bf16) is 4 * 8 * 32 * 80 *
-// 2048 * 2049 / 2 ~ 172 GFLOP over ~126 MB of q, k, v and output: ~1400 FLOP
-// per byte. The bound is the bf16 tensor-core peak (989 TFLOP/s), but this
-// first kernel computes in f32 on the CUDA cores (67 TFLOP/s), as the TPU
-// kernel computes in f32 from bf16 or f32 inputs, which keeps its parity with
-// the plain version tight. Tensor cores (mma.sync / wgmma with P in bf16),
-// TMA and a pipelined schedule are later work.
+// What bounds it on the H100: operations. The causal work at the serving main
+// path's shape (8 x 32 heads, 2048 tokens, D = 80) is 4 * 8 * 32 * 80 *
+// 2048 * 2049 / 2 ~ 172 GFLOP over ~252 MB of f32 q, k, v and output: ~700
+// FLOP per byte. The math stays f32 on the CUDA cores (67 TFLOP/s): tensor
+// cores would mean TF32, which breaks the f32 parity (1e-5) that the f32
+// serving runs are held to.
 //
 // What the design does about it: 128 threads (16 row groups x 8 column
 // lanes). Q and each K / V tile are staged in shared memory as f32 with rows
@@ -39,11 +39,9 @@
 // last block (the longest causal row) to the first, so the blocks dispatched
 // first are the longest ones.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
-#include <stdint.h>
 
 namespace {
 
@@ -57,19 +55,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <int D>
@@ -79,8 +66,8 @@ constexpr size_t smem_bytes() {
 
 // Rows [r0, r0 + 64) of a row-major [nrows, D] array, as f32, into a
 // [64][D + 4] shared tile; rows at or past nrows read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           int r0, int nrows) {
   constexpr int LD = D + 4;
   constexpr int VPR = D / 4;  // 4-element vectors per row
@@ -93,10 +80,10 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int hq,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out, int hq,
                        int hkv, int sq, int skv, int window, float scale) {
   constexpr int LD = D + 4;   // padded row stride of Q, K, V tiles (floats)
   constexpr int CW = D / 16;  // float2 column pairs of the output per thread
@@ -110,17 +97,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qb = gridDim.y - 1 - blockIdx.y;      // longest rows first
   const int b = bh / hq;
   const int kvh = (bh - b * hq) / (hq / hkv);
-  const T* Q = q + (size_t)bh * sq * D;
-  const T* K = k + ((size_t)b * hkv + kvh) * skv * D;
-  const T* V = v + ((size_t)b * hkv + kvh) * skv * D;
-  T* O = out + (size_t)bh * sq * D;
+  const float* Q = q + (size_t)bh * sq * D;
+  const float* K = k + ((size_t)b * hkv + kvh) * skv * D;
+  const float* V = v + ((size_t)b * hkv + kvh) * skv * D;
+  float* O = out + (size_t)bh * sq * D;
 
   const int tx = threadIdx.x & 7;   // column lane
   const int ty = threadIdx.x >> 3;  // row group: rows 4 * ty + i
   const int q0 = qb * BQ;
   const int off = skv - sq;         // query i sits at key position i + off
 
-  load_tile<T, D>(Qs, Q, q0, sq);
+  load_tile<D>(Qs, Q, q0, sq);
 
   // Keys some row of this block may see: from the window start of its first
   // row to the diagonal of its last.
@@ -138,8 +125,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kb = (k_lo / BKV) * BKV; kb <= k_hi; kb += BKV) {
     __syncthreads();  // the last tile's readers are done
-    load_tile<T, D>(Ks, K, kb, skv);
-    load_tile<T, D>(Vs, V, kb, skv);
+    load_tile<D>(Ks, K, kb, skv);
+    load_tile<D>(Vs, V, kb, skv);
     __syncthreads();
 
     float s[4][8];
@@ -237,45 +224,34 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int batch, int hq,
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* out, int batch, int hq,
            int hkv, int sq, int skv, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   const cudaError_t set = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(batch * hq, (sq + BQ - 1) / BQ);
-  flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), hq, hkv, sq, skv, window, scale);
+  flash_attention_kernel<D><<<grid, THREADS, smem, stream>>>(q, k, v, out, hq, hkv, sq, skv,
+                                                             window, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* out, int batch, int hq,
-               int hkv, int sq, int skv, int d, int window, float scale, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, batch, hq, hkv, sq, skv, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, batch, hq, hkv, sq, skv, window, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, out, batch, hq, hkv, sq, skv, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, batch, hq, hkv, sq, skv, window, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// q, out [batch, hq, sq, d]; k, v [batch, hkv, skv, d]: contiguous, 16-byte
-// aligned, all float32 (dtype 0) or all bfloat16 (dtype 1), with hq a multiple
-// of hkv and d one of 32, 64, 80, 128. window <= 0 means no window. Launches on
-// `stream` and returns the cudaError_t of the launch.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   int dtype, int batch, int hq, int hkv, int sq, int skv,
-                                   int d, int window, float scale, void* stream) {
+// q, out [batch, hq, sq, d]; k, v [batch, hkv, skv, d]: contiguous float32,
+// 16-byte aligned, with hq a multiple of hkv and d one of 32, 64, 80, 128.
+// window <= 0 means no window. Launches on `stream` and returns the
+// cudaError_t of the launch. bfloat16 inputs take flash_attention_tc.cu.
+extern "C" int flash_attention_f32(const float* q, const float* k, const float* v, float* out,
+                                   int batch, int hq, int hkv, int sq, int skv, int d,
+                                   int window, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, out, batch, hq, hkv, sq, skv, d, window, scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, sq, skv, d, window, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 32: return launch<32>(q, k, v, out, batch, hq, hkv, sq, skv, window, scale, s);
+    case 64: return launch<64>(q, k, v, out, batch, hq, hkv, sq, skv, window, scale, s);
+    case 80: return launch<80>(q, k, v, out, batch, hq, hkv, sq, skv, window, scale, s);
+    case 128: return launch<128>(q, k, v, out, batch, hq, hkv, sq, skv, window, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

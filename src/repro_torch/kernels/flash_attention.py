@@ -2,11 +2,15 @@
 
 Replaces the TPU kernel ``flash_attention`` / ``_flash_kernel`` of
 ``src/repro/kernels/flash_attention.py`` together with the head repeat and
-padding of ``repro.kernels.ops.mha``. The kernel (``csrc/flash_attention.cu``)
-takes q ``[B, Hq, Sq, D]`` and k, v ``[B, Hkv, Skv, D]`` as they are: it maps
-each q head to its kv head and masks ragged sequence lengths itself. Its
-source note says what bounds it on the H100 and what its design does about
-that. Its plain version is ``ref.flash_attention``.
+padding of ``repro.kernels.ops.mha``. Two hand-written kernels share one
+contract, chosen by the inputs' type: bfloat16 runs on the tensor cores
+(``csrc/flash_attention_tc.cu``, ``mma.sync`` with f32 accumulation and P
+rounded to bf16), float32 on the CUDA cores (``csrc/flash_attention.cu``, f32
+throughout, which keeps f32 parity at 1e-5). Neither falls back to the other.
+Both take q ``[B, Hq, Sq, D]`` and k, v ``[B, Hkv, Skv, D]`` as they are: they
+map each q head to its kv head and mask ragged sequence lengths themselves.
+Each source note says what bounds it on the H100 and what its design does
+about that. The plain version of both is ``ref.flash_attention``.
 """
 from __future__ import annotations
 
@@ -17,11 +21,14 @@ import torch
 
 from repro_torch.kernels import build
 
-launches = 0   # kernel launches made by `launch`, read by chip_smoke.py
+# Kernel launches made by `launch`, read by chip_smoke.py: per route, and
+# `launches`, their sum.
+launches = 0
+launches_tc = 0     # bfloat16, tensor cores (flash_attention_tc.cu)
+launches_simt = 0   # float32, CUDA cores (flash_attention.cu)
 
-HEAD_DIMS = (32, 64, 80, 128)   # the kernel's template instances
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_GRID_Y = 65535                 # query blocks of 64 rows ride the grid's y axis
+HEAD_DIMS = (32, 64, 80, 128)   # each kernel's template instances
+_GRID_Y = 65535                 # query blocks (64 rows f32, 128 bf16) ride the grid's y axis
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -33,11 +40,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            window: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
     """Causal attention on the card; arguments as ``ref.flash_attention``."""
-    global launches
+    global launches, launches_tc, launches_simt
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 for all of "
                         f"q, k, v, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
@@ -59,11 +66,15 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    tc = q.dtype == torch.bfloat16
     lib = build.load()
-    err = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                  _DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, d,
-                                  window or 0, scale,
-                                  torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attention")
+    fn = lib.flash_attention_tc_bf16 if tc else lib.flash_attention_f32
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,
+             window or 0, scale, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention (tensor cores)" if tc else "flash_attention (f32)")
+    if tc:
+        launches_tc += 1
+    else:
+        launches_simt += 1
     launches += 1
     return out

@@ -71,3 +71,15 @@ def sim_topk(h: torch.Tensor, client_ids: torch.Tensor, target_mask: torch.Tenso
         vals, idx = _sim.launch(h[None], client_ids, target_mask, k, col_offset)
         return vals[0], idx[0]
     return _sim.launch(h, client_ids, target_mask, k, col_offset)
+
+
+def sim_block(rows: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Gram slab ``rows @ hᵀ`` [b, n] of rows [b, c] and h [n, c], summed in f32
+    and returned in rows' type. Counterpart of ``repro.kernels.ops.sim_block``,
+    without its padding: the kernel masks ragged b and n itself."""
+    if h.device != rows.device:
+        raise ValueError(f"sim_block: rows and h on different devices ({rows.device}, "
+                         f"{h.device})")
+    if _route(rows, "sim_block") == "cpu":
+        return ref.sim_block(rows, h)
+    return _sim.launch_block(rows, h)

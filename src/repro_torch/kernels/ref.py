@@ -59,6 +59,13 @@ def sage_aggregate(adj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return (agg / torch.clamp_min(deg, 1.0)).to(h.dtype)
 
 
+def sim_block(rows: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Gram slab ``rows @ hᵀ`` in f32, returned in rows' type; the plain
+    ``sim_block`` kernel. rows: [b, c]; h: [n, c]. Counterpart of
+    ``repro.kernels.ref.sim_block``."""
+    return (rows.float() @ h.float().T).to(rows.dtype)
+
+
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis with ties going to the smallest index.
 

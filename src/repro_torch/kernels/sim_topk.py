@@ -1,13 +1,19 @@
-"""CUDA ``sim_topk``: fused masked similarity top-k over all edge servers.
+"""CUDA ``sim_topk`` and ``sim_block``: the similarity kernels of imputation.
 
-Replaces the TPU kernel ``sim_topk`` / ``_sim_topk_kernel`` (and its merge
-``topk_merge``) of ``src/repro/kernels/sim_topk.py``, wrapper in
+``launch`` replaces the TPU kernel ``sim_topk`` / ``_sim_topk_kernel`` (and
+its merge ``topk_merge``) of ``src/repro/kernels/sim_topk.py``, wrapper in
 ``src/repro/kernels/ops.py``. The kernel (``csrc/sim_topk.cu``) scores every
 row of ``h[b]`` against every candidate of the same server ``b``, keeps the
 cross-client candidates whose target mask is set, and returns the k best,
-ties to the smallest index, in one launch for all N servers; its source note
-says what bounds it on the H100 and what its design does about that. Its
-plain version is ``ref.sim_topk``.
+ties to the smallest index, in one launch for all N servers. Its plain
+version is ``ref.sim_topk``.
+
+``launch_block`` replaces the TPU kernel ``sim_block`` / ``_sim_kernel`` of
+the same module: the unfused gram slab ``rows @ hᵀ`` (``csrc/sim_block.cu``),
+which no training path calls; its plain version is ``ref.sim_block``.
+
+Each source note says what bounds its kernel on the H100 and what its design
+does about that.
 """
 from __future__ import annotations
 
@@ -17,10 +23,12 @@ import torch
 
 from repro_torch.kernels import build
 
-launches = 0   # kernel launches made by `launch`, read by chip_smoke.py
+launches = 0         # kernel launches made by `launch`, read by chip_smoke.py
+block_launches = 0   # kernel launches made by `launch_block`
 
 MAX_K = 16     # register top-k depth the kernel is instantiated for
 MAX_C = 16     # feature width of the staged candidate tile
+_BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # sim_block's type codes
 
 
 def launch(h: torch.Tensor, client_ids: torch.Tensor, target_mask: torch.Tensor,
@@ -56,3 +64,33 @@ def launch(h: torch.Tensor, client_ids: torch.Tensor, target_mask: torch.Tensor,
     build.check(err, "sim_topk")
     launches += 1
     return vals, idx
+
+
+def launch_block(rows: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Run the CUDA kernel on ``rows [b, c]`` and ``h [n, c]``, both float32 or
+    both bfloat16. Returns ``rows @ hᵀ`` [b, n] in their type, summed in f32."""
+    global block_launches
+    if rows.device.type != "cuda" or h.device != rows.device:
+        raise ValueError(f"sim_block kernel needs both tensors on one CUDA device, "
+                         f"got {rows.device} and {h.device}")
+    if rows.dtype not in _BLOCK_DTYPES or h.dtype != rows.dtype:
+        raise TypeError(f"sim_block kernel takes float32 or bfloat16 for both inputs, "
+                        f"got {rows.dtype}, {h.dtype}")
+    if rows.ndim != 2 or h.ndim != 2 or rows.shape[1] != h.shape[1]:
+        raise ValueError(f"expected rows [b, c] and h [n, c], got {tuple(rows.shape)} "
+                         f"and {tuple(h.shape)}")
+    b, c = rows.shape
+    n = h.shape[0]
+    if -(-b // 128) > 65535:
+        raise ValueError(f"b={b} exceeds the grid's y limit of {65535 * 128} rows")
+    rows, h = rows.contiguous(), h.contiguous()
+    out = torch.empty((b, n), dtype=rows.dtype, device=rows.device)
+    if out.numel() == 0:
+        return out
+    lib = build.load()
+    err = lib.sim_block_fwd(rows.data_ptr(), h.data_ptr(), out.data_ptr(),
+                            _BLOCK_DTYPES[rows.dtype], b, n, c,
+                            torch.cuda.current_stream(rows.device).cuda_stream)
+    build.check(err, "sim_block")
+    block_launches += 1
+    return out

@@ -10,8 +10,11 @@ Tolerances: ``sage_aggregate`` sums up to n products per output in another
 order than cuBLAS, so values agree within 1e-5 absolute plus 1e-5 relative;
 ``sim_topk`` scores within 1e-5 and indices exact except between candidates
 whose scores lie within 1e-5 (``torch_parity.assert_topk_match``);
-``flash_attention`` within 1e-5 in f32 and 2e-2 in bf16 (both compute in
-f32; a bf16 output may round the other way by one unit in the last place).
+``flash_attention`` within 1e-5 in f32 (the SIMT route computes in f32) and
+2e-2 in bf16 (the tensor-core route rounds P to bf16 before P V, and a bf16
+output may round the other way by one unit in the last place); ``sim_block``
+within 1e-5 in f32 and 3e-2 in bf16, absolute and relative, the JAX tests'
+own tolerances.
 """
 import numpy as np
 import pytest
@@ -123,7 +126,12 @@ def test_sim_topk_refuses_what_it_cannot_run(dev):
 # a 40-token prompt (the reference's ops.mha is wrong below 128); MQA at
 # D = 128; decode-style end alignment; more queries than keys (rows before
 # key 0 are fully masked); the serving main path's shape, Qwen3-4B as
-# configured at batch 8 and a 2048-token prompt.
+# configured at batch 8 and a 2048-token prompt. Then the bf16 (tensor-core)
+# route at every head dim: fewer than 64 queries; one query against a long
+# cache of a length that is not a multiple of the 64-key tile, with GQA 4:1;
+# more queries than keys without a window; ragged 333 tokens; a window of
+# 100, not a multiple of the tile; GQA 4:1 at D = 128. And the f32 (SIMT)
+# route at D = 80 and D = 128.
 FLASH_SHAPES = [
     (2, 4, 2, 200, 200, 32, 64, torch.float32),
     (2, 4, 2, 40, 40, 32, None, torch.float32),
@@ -131,6 +139,14 @@ FLASH_SHAPES = [
     (1, 4, 2, 3, 77, 64, None, torch.float32),
     (1, 4, 2, 130, 100, 80, 16, torch.bfloat16),
     (8, 32, 8, 2048, 2048, 80, None, torch.bfloat16),
+    (2, 4, 2, 40, 40, 32, None, torch.bfloat16),
+    (1, 8, 2, 1, 1000, 64, None, torch.bfloat16),
+    (1, 4, 1, 150, 90, 64, None, torch.bfloat16),
+    (2, 4, 2, 333, 333, 80, None, torch.bfloat16),
+    (1, 4, 2, 500, 500, 64, 100, torch.bfloat16),
+    (2, 16, 4, 256, 256, 128, None, torch.bfloat16),
+    (1, 4, 1, 200, 200, 80, None, torch.float32),
+    (1, 4, 2, 100, 100, 128, 40, torch.float32),
 ]
 
 
@@ -140,13 +156,20 @@ def test_flash_attention_matches_plain(dev, b, hq, hkv, sq, skv, d, window, dtyp
     q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
-    before = kflash.launches
+    route = "launches_tc" if dtype == torch.bfloat16 else "launches_simt"
+    other = "launches_simt" if dtype == torch.bfloat16 else "launches_tc"
+    before = {name: getattr(kflash, name) for name in ("launches", route, other)}
     got = ops.mha(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    assert kflash.launches == before + 1 and got.dtype == dtype
+    assert got.dtype == dtype
+    assert kflash.launches == before["launches"] + 1
+    assert getattr(kflash, route) == before[route] + 1
+    assert getattr(kflash, other) == before[other]
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.flash_attention(q, k, v, window=window).float(),
                                atol=tol, rtol=tol)
+    if sq > skv:                               # rows before key 0 see nothing: exact 0
+        assert (got[:, :, :sq - skv] == 0).all()
 
 
 def test_flash_attention_refuses_what_it_cannot_run(dev):
@@ -160,3 +183,36 @@ def test_flash_attention_refuses_what_it_cannot_run(dev):
         ops.mha(q, q.cpu(), q)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.mha(q.half(), q.half(), q.half())
+
+
+# (b, n, c): the JAX tests' shapes (tests/test_kernels.py, and the
+# non-multiples of tests/test_stacked_edge.py), then the Coauthor-CS
+# server's 12246 flat slots x 15 classes, the gram that sim_topk fuses away.
+SIM_BLOCK_SHAPES = [(64, 300, 7), (128, 1024, 15), (10, 33, 6), (256, 512, 10),
+                    (33, 70, 7), (5, 200, 10), (96, 96, 6), (12246, 12246, 15)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c", SIM_BLOCK_SHAPES)
+def test_sim_block_matches_plain(dev, b, n, c, dtype):
+    gen = torch.Generator(device=dev).manual_seed(b + n)
+    rows = torch.randn((b, c), generator=gen, device=dev).to(dtype)
+    h = torch.randn((n, c), generator=gen, device=dev).to(dtype)
+    before = ksim.block_launches
+    got = ops.sim_block(rows, h)
+    torch.cuda.synchronize()
+    assert ksim.block_launches == before + 1 and got.dtype == dtype and got.shape == (b, n)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), ref.sim_block(rows, h).float(), atol=tol, rtol=tol)
+
+
+def test_sim_block_refuses_what_it_cannot_run(dev):
+    x = torch.randn((4, 3), device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.sim_block(x, x.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.sim_block(x.half(), x.half())
+    with pytest.raises(ValueError, match="rows"):
+        ops.sim_block(x, x[:, :2])
+    with pytest.raises(ValueError, match="devices"):
+        ops.sim_block(x, x.cpu())

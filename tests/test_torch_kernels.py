@@ -18,6 +18,7 @@ import torch
 
 from repro.core import imputation as jimp
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.kernels import sim_topk as jsim
 from repro_torch.core import imputation as pimp
 from repro_torch.kernels import ops as pops
@@ -186,6 +187,70 @@ class TestSimTopk:
         with pytest.raises(ValueError, match="CUDA"):
             psim.launch(torch.ones(1, 3, 2), torch.zeros(3), torch.ones(1, 3), 2)
         assert psim.launches == before
+
+
+def _block_inputs(seed, b, n, c, dtype):
+    """rows [b, c], h [n, c] from one numpy seed, as (jax, torch) pairs in ``dtype``
+    (both packages round the same f32 values to bf16 to nearest even)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(b, c)).astype(np.float32)
+    h = rng.normal(size=(n, c)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                       torch.bfloat16)
+    return ((jnp.asarray(rows).astype(jdt), jnp.asarray(h).astype(jdt)),
+            (torch.from_numpy(rows).to(tdt), torch.from_numpy(h).to(tdt)))
+
+
+def _as_f32(x) -> np.ndarray:
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+class TestSimBlock:
+    """``ops.sim_block`` on the CPU (the plain version the CUDA kernel is held
+    against) against the JAX kernel in interpret mode and its oracle, with the
+    JAX tests' own tolerances: 1e-5 in f32, 3e-2 in bf16 (absolute and relative)."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,n,c", [(64, 300, 7), (128, 1024, 15), (10, 33, 6),
+                                       (256, 512, 10)])
+    def test_matches_pallas(self, b, n, c, dtype):
+        (jr, jh), (tr, th) = _block_inputs(b * 1000 + n, b, n, c, dtype)
+        got = pops.sim_block(tr, th)
+        assert got.shape == (b, n) and got.dtype == tr.dtype
+        tol = 1e-5 if dtype == "float32" else 3e-2
+        for want in (jops.sim_block(jr, jh, interpret=True), jref.sim_block(jr, jh)):
+            np.testing.assert_allclose(_as_f32(got), _as_f32(want), atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("b,n,c,bm,bn", [(33, 70, 7, 16, 32), (5, 200, 10, 8, 64),
+                                             (96, 96, 6, 128, 512)])
+    def test_non_multiple_shapes(self, b, n, c, bm, bn):
+        (jr, jh), (tr, th) = _block_inputs(b + n, b, n, c, "float32")
+        want = jops.sim_block(jr, jh, block_m=bm, block_n=bn, interpret=True)
+        np.testing.assert_allclose(pops.sim_block(tr, th).numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
+
+    def test_gram_symmetry(self):
+        h = np.random.default_rng(96).normal(size=(96, 7)).astype(np.float32)
+        gram = pops.sim_block(torch.from_numpy(h), torch.from_numpy(h)).numpy()
+        np.testing.assert_allclose(gram, gram.T, atol=1e-5, rtol=1e-5)
+        want = jops.sim_block(jnp.asarray(h), jnp.asarray(h), interpret=True)
+        np.testing.assert_allclose(gram, np.asarray(want), atol=1e-5, rtol=1e-5)
+
+    def test_cpu_tensor_takes_plain_version(self):
+        before = psim.block_launches
+        out = pops.sim_block(torch.ones(2, 3), torch.ones(4, 3))
+        assert psim.block_launches == before
+        torch.testing.assert_close(out, torch.full((2, 4), 3.0))
+
+    def test_unsupported_device_raises(self):
+        with pytest.raises(ValueError, match="no implementation"):
+            pops.sim_block(torch.ones(2, 3, device="meta"), torch.ones(4, 3, device="meta"))
+
+    def test_kernel_wrapper_refuses_cpu_tensors(self):
+        before = psim.block_launches
+        with pytest.raises(ValueError, match="CUDA"):
+            psim.launch_block(torch.ones(2, 3), torch.ones(4, 3))
+        assert psim.block_launches == before
 
 
 class TestTopkMerge:
