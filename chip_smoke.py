@@ -10,8 +10,11 @@ Phases (any failure raises, and the script exits non-zero):
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them plus ragged shapes: each kernel's time, the
    plain version's time, one library call's time (used nowhere in the port)
-   and its bound on the card. ``flash_attention`` has two routes, checked
-   and timed apart: bf16 on the tensor cores, f32 on the CUDA cores.
+   and its bound on the card. ``sage_aggregate`` is timed at both layers of
+   the Coauthor-CS classifier, against the bound of its three TF32 passes
+   and that of one f32 product on the CUDA cores. ``flash_attention`` has
+   two routes, checked and timed apart: bf16 on the tensor cores, f32 on the
+   CUDA cores.
    ``sim_block``, which no path calls, is checked and timed at the
    Coauthor-CS server's gram.
 3. A small training run and small f32 serving runs (the qwen3-4b and
@@ -51,9 +54,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense bf16 on
-# the tensor cores, and HBM3.
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
+# and bf16 on the tensor cores, and HBM3.
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
@@ -71,8 +75,35 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_TYPES = {"__nv_bfloat16": "bf16", "__half": "f16"}
+
+
+def _template_args(rest: str) -> list:
+    """The integer and type arguments of the mangled template argument list
+    that ``rest`` starts with, up to the ``Ev`` that closes it and names the
+    void return: ``IfLi4EEv...`` gives ``['f32', '4']``."""
+    out, i = [], 1
+    while i < len(rest) and not rest.startswith("Ev", i):
+        m = re.match(r"Li(-?\d+)E|(\d+)|f", rest[i:])
+        if not m:
+            i += 1
+        elif m.group(1) is not None:
+            out.append(m.group(1))
+            i += m.end()
+        elif m.group(2) is not None:    # a name: its length, then its characters
+            name = rest[i + m.end():i + m.end() + int(m.group(2))]
+            if name in _TYPES:
+                out.append(_TYPES[name])
+            i += m.end() + len(name)
+        else:
+            out.append("f32")
+            i += 1
+    return out
+
+
 def _kernel_name(mangled: str) -> str:
-    """``flash_attention_tc_kernel<Li80E>`` from a mangled kernel name."""
+    """``sim_block_kernel<bf16, 4>`` from a mangled kernel name: the kernel's
+    name and the integer and type arguments among its template arguments."""
     for i in range(len(mangled)):      # a name is its length, then its characters
         m = re.match(r"\d+", mangled[i:])
         if not m:
@@ -80,8 +111,9 @@ def _kernel_name(mangled: str) -> str:
         end = i + m.end()
         ident = mangled[end:end + int(m.group())]
         if ident.endswith("_kernel"):
-            args = re.match(r"I(.*?)EEv", mangled[end + len(ident):])
-            return ident + (f"<{args.group(1)}>" if args else "")
+            rest = mangled[end + len(ident):]
+            targs = _template_args(rest) if rest.startswith("I") else []
+            return ident + (f"<{', '.join(targs)}>" if targs else "")
     return mangled
 
 
@@ -148,11 +180,33 @@ def _check_sage(dev, gen):
         a = a / torch.clamp_min(a.sum(-1, keepdim=True), 1.0)   # the main path's a_norm
         return a, torch.randn((m, n, d), generator=gen, device=dev)
 
+    def timed(adj, h, iters):
+        """Kernel, plain and library ms, and both bounds: the kernel's three
+        TF32 passes on the tensor cores, and one f32 product on the CUDA cores
+        (with the degree sums); bytes: A and H read once, the output written."""
+        m, n, d = h.shape
+        ms = _time_ms(lambda: ksage.launch(adj, h), iters)
+        plain_ms = _time_ms(lambda: ref.sage_aggregate(adj, h), iters)
+        lib_ms = _time_ms(lambda: torch.bmm(adj, h) / torch.clamp_min(
+            adj.sum(-1, keepdim=True), 1.0), iters)
+        flops, nbytes = 2.0 * m * n * n * d, 4.0 * (m * n * n + 2 * m * n * d)
+        bound_ms, bound_by = _bound(3 * flops, nbytes, peak=TF32_FLOPS)
+        bound_f32_ms, _ = _bound(flops + m * n * n, nbytes)
+        print(f"[smoke] sage_aggregate [{m},{n},{n}]x[{m},{n},{d}] ms={ms:.3f} "
+              f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} bound_ms={bound_ms:.3f} "
+              f"({bound_by}, 3 TF32 passes) bound_f32_ms={bound_f32_ms:.3f} -> "
+              f"{flops / ms / 1e9:.1f} TFLOP/s (library {flops / lib_ms / 1e9:.1f})")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_f32_ms": bound_f32_ms,
+                "shape": f"[{m},{n},{n}]x[{m},{n},{d}]"}
+
     # Ragged, then FedGL's Cora layers 1 and 2 (n_pad = 914, 1433 features,
-    # hidden 32) and SpreadFGL's Coauthor-CS layer 2 (n_pad = 6123), with
-    # grad_h through the autograd Function where h needs a gradient on the
-    # main path (layer 2). Layer 1 of Coauthor-CS, the dominant shape, is last.
+    # hidden 32) and SpreadFGL's Coauthor-CS layer 2 (n_pad = 6123), which is
+    # timed, with grad_h through the autograd Function where h needs a
+    # gradient on the main path (layer 2). Layer 1 of Coauthor-CS, the
+    # dominant shape, is last.
     errs = []
+    layer2 = None
     for m, n, d, with_grad in ((3, 1001, 77, True), (6, 914, 1433, False),
                                (6, 914, 32, True), (6, 6123, 32, True)):
         adj, h = inputs(m, n, d)
@@ -174,6 +228,8 @@ def _check_sage(dev, gen):
                 raise AssertionError(f"sage_aggregate grad_h disagrees: {gerr}")
             errs.append(gerr)
             del g, grads
+        if n == 6123:
+            layer2 = timed(adj, h, 10)
         del adj, h
 
     m, n, d = 6, 6123, 6805
@@ -186,21 +242,13 @@ def _check_sage(dev, gen):
     print(f"[smoke] sage_aggregate [{m},{n},{n}]x[{m},{n},{d}] max_abs_err={err:.3g}")
     if not err <= 1e-4:     # f32 sums of 6123 terms in another order
         raise AssertionError(f"sage_aggregate disagrees with its plain version: {err}")
-    ms = _time_ms(lambda: ksage.launch(adj, h), 3)
-    plain_ms = _time_ms(lambda: ref.sage_aggregate(adj, h), 3)
-    lib_ms = _time_ms(lambda: torch.bmm(adj, h) / torch.clamp_min(adj.sum(-1, keepdim=True), 1.0), 3)
-    bound_ms, bound_by = _bound(2.0 * m * n * n * d + m * n * n, 4.0 * (m * n * n + 2 * m * n * d))
-    print(f"[smoke] sage_aggregate layer-1 ms={ms:.3f} plain_ms={plain_ms:.3f} "
-          f"library_ms={lib_ms:.3f} bound_ms={bound_ms:.3f} ({bound_by}) "
-          f"-> {2.0 * m * n * n * d / ms / 1e9:.1f} TFLOP/s")
+    layer1 = timed(adj, h, 3)
     del adj, h
     torch.cuda.empty_cache()
     return {"name": "sage_aggregate", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sage_aggregate.cu",
             "replaces": "src/repro/kernels/sage_aggregate.py:52",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "shape": f"[{m},{n},{n}]x[{m},{n},{d}]"}
+            "max_abs_err": max(errs), **layer1, "layer2": layer2}
 
 
 def _topk_err(h, vals, idx, rvals, ridx):

@@ -4,9 +4,13 @@ Replaces the TPU kernel ``sage_aggregate`` / ``_sage_kernel`` of
 ``src/repro/kernels/sage_aggregate.py`` and the custom VJP around it in
 ``src/repro/kernels/ops.py``. The kernel (``csrc/sage_aggregate.cu``) computes
 ``(A @ H) / max(rowsum(A), 1)`` for every client of a ``[M, n, n] x [M, n, d]``
-batch in one launch; its source note says what bounds it on the H100 and
-what its design does about that. Its plain version is
-``ref.sage_aggregate``.
+batch in one launch, on the tensor cores (``mma.sync`` TF32) with each
+operand split into two TF32 parts and three products summed in f32, which
+holds the result to float32 accuracy; NaN and ±Inf inputs give NaN and ±Inf
+where the plain version does (the source note names the one exception). It
+picks one of two tile shapes per launch by ``d`` (``d <= 64``, wider). Its
+source note says what bounds it on the H100 and what its design does about
+that. Its plain version is ``ref.sage_aggregate``.
 
 ``SageAggregate`` mirrors the reference's VJP: kernel forward, plain
 backward. ``grad_h = Aᵀ @ (g / max(deg, 1))``, with no n x n temporary, runs

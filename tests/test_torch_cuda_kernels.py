@@ -7,7 +7,8 @@ kernels from ``src/repro_torch/kernels/csrc`` and run them:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_kernels.py -q
 
 Tolerances: ``sage_aggregate`` sums up to n products per output in another
-order than cuBLAS, so values agree within 1e-5 absolute plus 1e-5 relative;
+order than cuBLAS, each from three TF32 products whose split leaves out
+~2^-22 of it, so values agree within 1e-5 absolute plus 1e-5 relative;
 ``sim_topk`` scores within 1e-5 and indices exact except between candidates
 whose scores lie within 1e-5 (``torch_parity.assert_topk_match``);
 ``flash_attention`` within 1e-5 in f32 (the SIMT route computes in f32) and
@@ -40,19 +41,50 @@ def dev():
 def _adj(gen, m, n, dev):
     a = (torch.rand((m, n, n), generator=gen, device=dev) < 0.05).float()
     a[:, 0] = 0.0                              # an isolated row: the clamp matters
-    return a * torch.rand((m, n, n), generator=gen, device=dev) * 2
+    a = a * torch.rand((m, n, n), generator=gen, device=dev) * 2
+    if n > 2:
+        # Rows the kernel's TF32 split must carry: 1/3 everywhere, and a
+        # row-normalised neighbour set (1/deg, as the main path's a_norm).
+        a[:, 1] = 1.0 / 3.0
+        nb = (torch.rand((m, n), generator=gen, device=dev) < 0.1).float()
+        a[:, 2] = nb / torch.clamp_min(nb.sum(-1, keepdim=True), 1.0)
+    return a
 
 
-@pytest.mark.parametrize("m,n,d", [(3, 1001, 77), (2, 130, 129), (1, 5, 1), (6, 257, 32)])
-def test_sage_forward_matches_plain(dev, m, n, d):
-    gen = torch.Generator(device=dev).manual_seed(n)
+# (operand, bits, (batch, row, column)): NaNs (the canonical NaN that GPU
+# arithmetic produces, torch's default, negative with a full mantissa) and
+# ±Inf, written into h or the adjacency.
+SAGE_NONFINITE = [("h", 0x7FFFFFFF, (0, 3, 2)), ("h", 0x7FC00000, (0, 7, 4)),
+                  ("h", 0xFFFFFFFF, (0, 9, 0)), ("h", 0x7F800000, (0, 700, 1)),
+                  ("h", 0xFF800000, (0, 11, 30)), ("adj", 0x7FFFFFFF, (0, 5, 3)),
+                  ("adj", 0x7F800000, (0, 6, 8)), ("adj", 0xFF800000, (0, 8, 12))]
+
+
+# Ragged shapes, then n and d with every remainder mod 4 (the kernel copies
+# rows that start off 16-byte boundaries), then the narrow instance (d <= 64)
+# and the first width past it; then each non-finite input at the wide and
+# the narrow instance, which must give NaN and ±Inf where the plain version
+# does.
+@pytest.mark.parametrize("m,n,d,nonfinite", [
+    *((m, n, d, None) for m, n, d in [
+        (3, 1001, 77), (2, 130, 129), (1, 5, 1), (6, 257, 32), (2, 1001, 77), (1, 914, 1433),
+        (2, 1002, 66), (1, 1003, 33), (2, 999, 1), (3, 517, 32), (2, 640, 64), (2, 641, 65)]),
+    *((2, 1001, d, bad) for bad in SAGE_NONFINITE for d in (77, 33))])
+def test_sage_forward_matches_plain(dev, m, n, d, nonfinite):
+    gen = torch.Generator(device=dev).manual_seed(n + d if nonfinite else n)
     adj = _adj(gen, m, n, dev)
     h = torch.randn((m, n, d), generator=gen, device=dev)
+    if nonfinite:
+        operand, bits, at = nonfinite
+        x = adj if operand == "adj" else h
+        x.view(torch.int32)[at] = bits - (1 << 32) if bits >> 31 else bits  # the bits as they are
     before = ksage.launches
     got = ops.sage_aggregate(adj, h)
     torch.cuda.synchronize()
     assert ksage.launches == before + 1
-    torch.testing.assert_close(got, ref.sage_aggregate(adj, h), atol=1e-5, rtol=1e-5)
+    want = ref.sage_aggregate(adj, h)
+    assert bool(torch.isfinite(want).all()) == (nonfinite is None)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5, equal_nan=True)
 
 
 def test_sage_grads_match_plain(dev):
