@@ -15,8 +15,10 @@ Phases (any failure raises, and the script exits non-zero):
    and that of one f32 product on the CUDA cores. ``flash_attention`` has
    two routes, checked and timed apart: bf16 on the tensor cores, f32 on the
    CUDA cores.
-   ``sim_block``, which no path calls, is checked and timed at the
-   Coauthor-CS server's gram.
+   ``sim_topk`` is checked at shapes that cross its split of the candidate
+   axis and timed at SpreadFGL's, against the bound of the full gram and
+   that of the cross-client pairs the data needs. ``sim_block``, which no
+   path calls, is checked and timed at the Coauthor-CS server's gram.
 3. A small training run and small f32 serving runs (the qwen3-4b and
    gemma3-12b smoke configs) on the card against the same runs on the CPU
    (the kernels' plain versions), from the same weights, noise and prompts;
@@ -281,26 +283,31 @@ def _check_sim(dev, gen):
         return h, cid, node * ((slot % n_pad) < n_local).float()
 
     k = 4
-    # Ragged with shifted indices, then the main path's shapes (12 aug slots
-    # per client): FedGL on Cora, one server of 6 clients, n_pad = 914, c = 7;
-    # SpreadFGL on Coauthor-CS, N = 3 servers of 2 clients, n_pad = 6123,
-    # c = 15, which is timed.
+    # Ragged with shifted indices; a shape whose candidate axis the kernel
+    # splits into chunks whose lists it merges (on an H100, 17 chunks of 256,
+    # the last holding one candidate); then the main path's shapes (12 aug
+    # slots per client): FedGL on Cora, one server of 6 clients, n_pad = 914,
+    # c = 7; SpreadFGL on Coauthor-CS, N = 3 servers of 2 clients,
+    # n_pad = 6123, c = 15, which is timed.
     errs = []
     for (nb, n, n_pad, c, n_local), off in (((2, 1237, 400, 7, 390), 100),
+                                           ((2, 4097, 1200, 15, 1190), 0),
                                            ((1, 5484, 914, 7, 902), 0),
                                            ((3, 12246, 6123, 15, 6111), 0)):
         h, cid, tmask = inputs(nb, n, n_pad, c, n_local)
+        chunks, chunk_len, depth = ksim.plan(nb, n, c, k)
         vals, idx = ops.sim_topk(h, cid, tmask, k, col_offset=off)
         rvals, ridx = ref.sim_topk(h, cid, tmask, k, col_offset=off)
         unshift = lambda i: torch.where(i >= 0, i - off, i)  # noqa: E731
         err, gap, nd = _topk_err(h, vals, unshift(idx), rvals, unshift(ridx))
-        print(f"[smoke] sim_topk [{nb},{n},{c}] k={k} col_offset={off} max_abs_err={err:.3g} "
-              f"idx_differ={nd} max_tie_gap={gap:.3g}")
+        print(f"[smoke] sim_topk [{nb},{n},{c}] k={k} col_offset={off} chunks={chunks} "
+              f"chunk_len={chunk_len} (last chunk {n - (chunks - 1) * chunk_len}) "
+              f"max_abs_err={err:.3g} idx_differ={nd} max_tie_gap={gap:.3g}")
         if not (err <= 1e-5 and gap <= 1e-5):
             raise AssertionError(f"sim_topk disagrees with its plain version: "
                                  f"err={err} tie_gap={gap}")
         errs.append(err)
-    ms = _time_ms(lambda: ksim.launch(h, cid, tmask, k), 10)
+    ms = _time_ms(lambda: ksim.launch(h, cid, tmask, k), 20)
     plain_ms = _time_ms(lambda: ref.sim_topk(h, cid, tmask, k), 3)
 
     def library():
@@ -308,9 +315,20 @@ def _check_sim(dev, gen):
         keep = (cid[:, None] != cid[None, :]) & (tmask[:, None, :] > 0)
         return torch.topk(gram.masked_fill_(~keep, -math.inf), k, dim=-1)
     lib_ms = _time_ms(library, 3)
-    bound_ms, bound_by = _bound(2.0 * nb * n * n * c, 4.0 * nb * n * (c + 2) + 8.0 * nb * n * k)
-    print(f"[smoke] sim_topk main-path ms={ms:.3f} plain_ms={plain_ms:.3f} "
-          f"library_ms={lib_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by})")
+    # Two bounds: the full gram, and the pairs this run's data needs, those of
+    # a row with a target of another client (no row takes its own client's
+    # candidates, and no row a candidate outside the mask). Bytes: h, ids and
+    # mask read once, the top-k written.
+    nbytes = 4.0 * nb * n * (c + 2) + 8.0 * nb * n * k
+    full_ms, _ = _bound(2.0 * nb * n * n * c, nbytes)
+    cids = cid.long().expand(nb, n)
+    own = torch.stack([torch.bincount(row)[row] for row in cids])  # rows of j's client
+    pairs = ((tmask > 0) * (n - own)).sum().item()
+    bound_ms, bound_by = _bound(2.0 * pairs * c, nbytes)
+    print(f"[smoke] sim_topk main-path ms={ms:.4f} plain_ms={plain_ms:.3f} "
+          f"library_ms={lib_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}, {pairs:.0f} pairs "
+          f"of a row and another client's target) bound_full_gram_ms={full_ms:.4f} "
+          f"chunks={chunks} chunk_len={chunk_len}")
     del h
     torch.cuda.empty_cache()
     return {"name": "sim_topk", "route": "cuda",
@@ -318,6 +336,7 @@ def _check_sim(dev, gen):
             "replaces": "src/repro/kernels/sim_topk.py:136",
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "bound_full_gram_ms": full_ms, "chunks": chunks,
             "shape": f"[{nb},{n},{c}] k={k}"}
 
 

@@ -27,7 +27,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel entry point: (argtypes, restype).
 SIGNATURES = {
     "sage_aggregate_f32": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "sim_topk_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "sim_topk_plan": ([_I, _I, _I, _I, _P], _I),
+    "sim_topk_f32": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "sim_block_fwd": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "flash_attention_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "flash_attention_tc_bf16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),

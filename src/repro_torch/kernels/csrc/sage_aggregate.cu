@@ -27,11 +27,18 @@
 // sign (the canonical NaN 0x7fffffff becomes -0) and a ±Inf would leave
 // NaN in lo. So a non-finite x goes whole into lo, with hi = 0: then a_lo h_hi
 // or a_hi h_lo carries the product's ±Inf or NaN, as a * h would (a_hi is 0
-// only where a is), and the other two products are 0. Outputs are NaN or ±Inf
-// where the plain version's are, except where a -Inf in A meets a ±Inf in H
-// (NaN here, ±Inf there). The degree clamp keeps a NaN, as torch.clamp_min
-// does. The finiteness test costs ~16 % at layer 1 (8 instructions per split
-// value against 5: the kernel is short of issue slots).
+// only where a is), and the other two products are 0. That fails only where
+// both operands of one product are non-finite: a_lo h_lo, the one product
+// that holds both, is left out, and the two kept pair an Inf with a 0, giving
+// NaN where a * h is ±Inf (a -Inf in A against a ±Inf in H). No placement of
+// a non-finite value in the split avoids some Inf x 0 among three products.
+// So the rule is: wherever an accumulator is NaN, the epilogue recomputes that
+// output as a plain f32 dot of A's row and H's column read from global memory,
+// which gives the IEEE result (NaN, ±Inf) the plain version gives. Finite
+// inputs never make a NaN, so on the main path this costs one compare per
+// output. The degree clamp keeps a NaN, as torch.clamp_min does. The
+// finiteness test costs ~16 % at layer 1 (8 instructions per split value
+// against 5: the kernel is short of issue slots).
 //
 // What bounds it on the H100: operations. At the main path's layer-1 shape
 // (6 clients, n = 6123, d = 6805) the product is 2*6*6123^2*6805 = 3.06 TFLOP
@@ -145,6 +152,14 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = finite ? to_tf32(x) : 0u;
   const float r = x - __uint_as_float(hi);
   lo = finite ? to_tf32(r) : __float_as_uint(r);
+}
+
+// sum_k a[k] h[k * d] in f32, in order: the IEEE result for an output whose
+// split sum is NaN (see the note on non-finite inputs). Off the main path.
+__device__ __noinline__ float plain_dot(const float* a, const float* h, int n, int d) {
+  float s = 0.0f;
+  for (int k = 0; k < n; ++k) s = fmaf(a[k], h[(size_t)k * d], s);
+  return s;
 }
 
 // c += a b for one m16n8k8 tile: a 16 x 8 (row), b 8 x 8 (col), TF32 in, f32 c.
@@ -303,8 +318,13 @@ sage_aggregate_kernel(const float* __restrict__ adj, const float* __restrict__ h
 #pragma unroll
       for (int j = 0; j < T::NT; ++j) {
         const int c = col0 + wn + j * 8 + 2 * t;
-        if (c < d) o[c] = acc[i][j][2 * half] / den;
-        if (c + 1 < d) o[c + 1] = acc[i][j][2 * half + 1] / den;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (c + e >= d) continue;
+          float v = acc[i][j][2 * half + e];
+          if (isnan(v)) v = plain_dot(A + (size_t)r * n, H + c + e, n, d);
+          o[c + e] = v / den;
+        }
       }
     }
   }

@@ -7,7 +7,8 @@ Replaces the TPU kernel ``sage_aggregate`` / ``_sage_kernel`` of
 batch in one launch, on the tensor cores (``mma.sync`` TF32) with each
 operand split into two TF32 parts and three products summed in f32, which
 holds the result to float32 accuracy; NaN and ±Inf inputs give NaN and ±Inf
-where the plain version does (the source note names the one exception). It
+where the plain version does (an output whose split sum is NaN is recomputed
+as a plain f32 dot, as the source note explains). It
 picks one of two tile shapes per launch by ``d`` (``d <= 64``, wider). Its
 source note says what bounds it on the H100 and what its design does about
 that. Its plain version is ``ref.sage_aggregate``.

@@ -5,8 +5,12 @@ its merge ``topk_merge``) of ``src/repro/kernels/sim_topk.py``, wrapper in
 ``src/repro/kernels/ops.py``. The kernel (``csrc/sim_topk.cu``) scores every
 row of ``h[b]`` against every candidate of the same server ``b``, keeps the
 cross-client candidates whose target mask is set, and returns the k best,
-ties to the smallest index, in one launch for all N servers. Its plain
-version is ``ref.sim_topk``.
+ties to the smallest index, for all N servers in one call. It splits the
+candidate axis into chunks (``plan``), keeps a partial top-k per row and
+chunk in a workspace that ``launch`` allocates (with a per-row bound that
+the chunks share, below which no score is kept), and folds the chunks' lists
+in a second kernel by ``topk_merge``'s rule, so the result does not depend on
+the split. Its plain version is ``ref.sim_topk``.
 
 ``launch_block`` replaces the TPU kernel ``sim_block`` / ``_sim_kernel`` of
 the same module: the unfused gram slab ``rows @ hᵀ`` (``csrc/sim_block.cu``),
@@ -17,6 +21,7 @@ does about that.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -29,6 +34,16 @@ block_launches = 0   # kernel launches made by `launch_block`
 MAX_K = 16     # register top-k depth the kernel is instantiated for
 MAX_C = 16     # feature width of the staged candidate tile
 _BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # sim_block's type codes
+
+
+def plan(nb: int, n: int, c: int, k: int) -> Tuple[int, int, int]:
+    """How the kernel splits the candidate axis of ``h [nb, n, c]`` for a top-k
+    on this device: (chunks, candidates per chunk, depth of each partial
+    list); candidate j lies in chunk ``j // chunk_len``. Chosen from the
+    shape, the SM count and the kernel's occupancy."""
+    out = (ctypes.c_int * 3)()
+    build.check(build.load().sim_topk_plan(nb, n, c, k, ctypes.addressof(out)), "sim_topk plan")
+    return out[0], out[1], out[2]
 
 
 def launch(h: torch.Tensor, client_ids: torch.Tensor, target_mask: torch.Tensor,
@@ -56,11 +71,15 @@ def launch(h: torch.Tensor, client_ids: torch.Tensor, target_mask: torch.Tensor,
     h = h.contiguous()
     vals = torch.empty((nb, n, k), dtype=torch.float32, device=h.device)
     idx = torch.empty((nb, n, k), dtype=torch.int32, device=h.device)
-    lib = build.load()
-    err = lib.sim_topk_f32(h.data_ptr(), cid.data_ptr(), mask.data_ptr(),
-                           vals.data_ptr(), idx.data_ptr(), nb, n, c, k,
-                           int(col_offset),
-                           torch.cuda.current_stream(h.device).cuda_stream)
+    chunks, chunk_len, depth = plan(nb, n, c, k)
+    part_v = torch.empty((nb, chunks, n, depth), dtype=torch.float32, device=h.device)
+    part_i = torch.empty((nb, chunks, n, depth), dtype=torch.int32, device=h.device)
+    bound = torch.full((nb, n), -2**31, dtype=torch.int32, device=h.device)
+    err = build.load().sim_topk_f32(
+        h.data_ptr(), cid.data_ptr(), mask.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
+        bound.data_ptr(), vals.data_ptr(), idx.data_ptr(), nb, n, c, k, chunks, chunk_len,
+        int(col_offset),
+        torch.cuda.current_stream(h.device).cuda_stream)
     build.check(err, "sim_topk")
     launches += 1
     return vals, idx

@@ -58,24 +58,31 @@ SAGE_NONFINITE = [("h", 0x7FFFFFFF, (0, 3, 2)), ("h", 0x7FC00000, (0, 7, 4)),
                   ("h", 0xFFFFFFFF, (0, 9, 0)), ("h", 0x7F800000, (0, 700, 1)),
                   ("h", 0xFF800000, (0, 11, 30)), ("adj", 0x7FFFFFFF, (0, 5, 3)),
                   ("adj", 0x7F800000, (0, 6, 8)), ("adj", 0xFF800000, (0, 8, 12))]
+# Writes that put two non-finite operands into one product: a -Inf in the
+# adjacency against a +Inf and a -Inf in the same row of h (the split alone
+# gives NaN there, the plain version -Inf and +Inf), and against -Inf alone.
+SAGE_NONFINITE_PAIRS = [(("adj", 0xFF800000, (0, 5, 3)), ("h", 0x7F800000, (0, 3, 1)),
+                         ("h", 0xFF800000, (0, 3, 2))),
+                        (("adj", 0xFF800000, (0, 8, 12)), ("h", 0xFF800000, (0, 12, 30)))]
 
 
 # Ragged shapes, then n and d with every remainder mod 4 (the kernel copies
 # rows that start off 16-byte boundaries), then the narrow instance (d <= 64)
 # and the first width past it; then each non-finite input at the wide and
-# the narrow instance, which must give NaN and ±Inf where the plain version
-# does.
+# the narrow instance, and each pair of them, which must give NaN and ±Inf
+# where the plain version does.
 @pytest.mark.parametrize("m,n,d,nonfinite", [
     *((m, n, d, None) for m, n, d in [
         (3, 1001, 77), (2, 130, 129), (1, 5, 1), (6, 257, 32), (2, 1001, 77), (1, 914, 1433),
         (2, 1002, 66), (1, 1003, 33), (2, 999, 1), (3, 517, 32), (2, 640, 64), (2, 641, 65)]),
-    *((2, 1001, d, bad) for bad in SAGE_NONFINITE for d in (77, 33))])
+    *((2, 1001, d, bad) for bad in SAGE_NONFINITE for d in (77, 33)),
+    *((2, 1001, d, bad) for bad in SAGE_NONFINITE_PAIRS for d in (77, 33))])
 def test_sage_forward_matches_plain(dev, m, n, d, nonfinite):
     gen = torch.Generator(device=dev).manual_seed(n + d if nonfinite else n)
     adj = _adj(gen, m, n, dev)
     h = torch.randn((m, n, d), generator=gen, device=dev)
-    if nonfinite:
-        operand, bits, at = nonfinite
+    writes = (nonfinite,) if nonfinite and isinstance(nonfinite[0], str) else nonfinite or ()
+    for operand, bits, at in writes:
         x = adj if operand == "adj" else h
         x.view(torch.int32)[at] = bits - (1 << 32) if bits >> 31 else bits  # the bits as they are
     before = ksage.launches
@@ -134,6 +141,86 @@ def test_sim_topk_matches_plain(dev, nb, n, c, k, off):
     unshift = lambda i: np.where(i >= 0, i - off, -1)  # noqa: E731
     assert_topk_match(kv.cpu().numpy(), unshift(ki.cpu().numpy()), rv.cpu().numpy(),
                       unshift(ri.cpu().numpy()), gram_rows(h.cpu().numpy()), atol=1e-5)
+
+
+def _chunked_n(nb, c, k, n_min, rem):
+    """The smallest n >= n_min that the kernel splits into at least three
+    chunks of L candidates with n % L == rem % L; returns (n, L)."""
+    for n in range(n_min, n_min + 4096):
+        chunks, chunk_len, _ = ksim.plan(nb, n, c, k)
+        if chunks >= 3 and n % chunk_len == rem % chunk_len:
+            return n, chunk_len
+    raise AssertionError(f"no n >= {n_min} with n % L == {rem} % L")
+
+
+def _client_ids(kind, n, gen, dev):
+    """'blocks': contiguous runs of 1200 slots, as the main path's slot //
+    n_pad, so whole row tiles and candidate tiles hold one client (tiles
+    every row of a block must skip); 'scattered': ids that are neither
+    contiguous nor small, drawn per slot."""
+    if kind == "blocks":
+        return (torch.arange(n, device=dev) // 1200).to(torch.int32)
+    ids = torch.tensor([7, -3, 1000, 42], dtype=torch.int32, device=dev)
+    return ids[torch.randint(0, 4, (n,), generator=gen, device=dev)]
+
+
+# (nb, c, k, col_offset, rem, clients): n just above (rem 1) or just below
+# (rem -1) a multiple of the chunk length, with copies of row 3 on both sides
+# of chunk edges (exact ties across chunks), at every top-k depth and feature
+# width the kernel is instantiated for.
+@pytest.mark.parametrize("nb,c,k,off,rem,clients", [
+    (2, 15, 4, 0, 1, "blocks"), (2, 15, 4, 0, -1, "scattered"), (1, 16, 16, 300, 1, "scattered"),
+    (1, 1, 16, 0, -1, "blocks"), (3, 7, 8, 0, 1, "blocks"), (2, 3, 2, 11, -1, "scattered")])
+def test_sim_topk_across_chunks(dev, nb, c, k, off, rem, clients):
+    n, chunk_len = _chunked_n(nb, c, k, 2500, rem)
+    gen = torch.Generator(device=dev).manual_seed(n + c + k)
+    h = torch.randn((nb, n, c), generator=gen, device=dev)
+    for j in (chunk_len - 1, chunk_len, 2 * chunk_len + 3, n - 1):
+        h[:, j] = h[:, 3]
+    cid = _client_ids(clients, n, gen, dev)
+    mask = (torch.rand((nb, n), generator=gen, device=dev) < 0.8).float()
+    before = ksim.launches
+    kv, ki = ops.sim_topk(h, cid, mask, k, col_offset=off)
+    torch.cuda.synchronize()
+    assert ksim.launches == before + 1
+    rv, ri = ref.sim_topk(h, cid, mask, k, col_offset=off)
+    unshift = lambda i: np.where(i >= 0, i - off, -1)  # noqa: E731
+    assert_topk_match(kv.cpu().numpy(), unshift(ki.cpu().numpy()), rv.cpu().numpy(),
+                      unshift(ri.cpu().numpy()), gram_rows(h.cpu().numpy()), atol=1e-5)
+
+
+@pytest.mark.parametrize("c,k", [(4, 4), (3, 16)])
+def test_sim_topk_exact_ties_across_chunks(dev, c, k):
+    """Small integer features make every score an integer, exact in any
+    summation order, and most of them tied: the indices must be the plain
+    version's exactly, smallest index first, however the chunks split them."""
+    n, _ = _chunked_n(2, c, k, 2500, 5)
+    gen = torch.Generator(device=dev).manual_seed(c * k)
+    h = torch.randint(-2, 3, (2, n, c), generator=gen, device=dev).float()
+    cid = _client_ids("scattered", n, gen, dev)
+    mask = (torch.rand((2, n), generator=gen, device=dev) < 0.8).float()
+    kv, ki = ops.sim_topk(h, cid, mask, k)
+    rv, ri = ref.sim_topk(h, cid, mask, k)
+    assert torch.equal(kv, rv) and torch.equal(ki, ri)
+
+
+def test_sim_topk_targets_in_one_chunk(dev):
+    """Server 0's targets all lie in its second chunk; server 1's in its last,
+    partial one, which belongs to one client, whose own rows get none."""
+    n, chunk_len = _chunked_n(2, 15, 4, 3000, 37)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    h = torch.randn((2, n, 15), generator=gen, device=dev)
+    h[:, chunk_len + 5] = h[:, chunk_len + 2]
+    cid = _client_ids("blocks", n, gen, dev)
+    mask = torch.zeros((2, n), device=dev)
+    mask[0, chunk_len:2 * chunk_len] = 1.0
+    mask[1, n - 37:] = 1.0
+    assert (cid[n - 37:] == cid[-1]).all()
+    kv, ki = ops.sim_topk(h, cid, mask, 4)
+    rv, ri = ref.sim_topk(h, cid, mask, 4)
+    assert (ki[1, cid == cid[-1]] == -1).all()
+    assert_topk_match(kv.cpu().numpy(), ki.cpu().numpy(), rv.cpu().numpy(), ri.cpu().numpy(),
+                      gram_rows(h.cpu().numpy()), atol=1e-5)
 
 
 def test_sim_topk_fewer_targets_than_k(dev):

@@ -75,6 +75,29 @@ class TestSageAggregate:
         np.testing.assert_allclose(th.grad.numpy(), np.asarray(jh), atol=ATOL)
         np.testing.assert_allclose(ta.grad.numpy(), np.asarray(ja), atol=ATOL)
 
+    # (writes): a -Inf in A against a +Inf and a -Inf in the same row of H,
+    # then against a -Inf alone: the products the CUDA kernel's split cannot
+    # form, which its epilogue recomputes.
+    @pytest.mark.parametrize("writes", [
+        (("adj", (0, 5, 3), -np.inf), ("h", (0, 3, 1), np.inf), ("h", (0, 3, 2), -np.inf)),
+        (("adj", (1, 8, 12), -np.inf), ("h", (1, 12, 4), -np.inf)),
+    ])
+    def test_minus_inf_against_inf_matches_pallas(self, writes):
+        rng = np.random.default_rng(5)
+        adj = _adj(rng, 2, 37, normalized=False)
+        h = rng.normal(size=(2, 37, 11)).astype(np.float32)
+        for operand, at, value in writes:
+            (adj if operand == "adj" else h)[at] = value
+        want = np.stack([np.asarray(jops.sage_aggregate(jnp.asarray(adj[i]), jnp.asarray(h[i]),
+                                                        interpret=True))
+                         for i in range(2)])
+        got = pops.sage_aggregate(torch.from_numpy(adj), torch.from_numpy(h)).numpy()
+        row = writes[0][1]
+        assert np.isinf(want[row[0], row[1]]).any()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+        np.testing.assert_allclose(got, want, atol=ATOL, equal_nan=True)
+
     def test_cpu_tensor_takes_plain_version(self):
         before = psage.launches
         x = torch.ones(2, 3, 3)
@@ -269,6 +292,46 @@ class TestTopkMerge:
         pv, pi = pref.topk_merge(*map(torch.from_numpy, (run_v.copy(), run_i, slab_v, slab_i)))
         np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
         np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+
+    @pytest.mark.parametrize("chunk,order", [(64, "ascending"), (64, "shuffled"),
+                                             (100, "shuffled")])
+    def test_folding_chunk_lists_matches_unsplit(self, chunk, order):
+        """What the CUDA kernel does: a partial top-k per chunk of candidates,
+        then the chunks' lists folded by topk_merge in any order. Integer
+        features make scores exact and mostly tied, and copies of one row sit
+        on both sides of chunk edges: the indices must equal the unsplit
+        top-k's exactly, in both packages."""
+        rng = np.random.default_rng(chunk)
+        n, c, k = 300, 3, 5
+        h = rng.integers(-2, 3, size=(n, c)).astype(np.float32)
+        for j in (chunk - 1, chunk, 2 * chunk - 1, 2 * chunk, n - 1):
+            h[j] = h[7]
+        cid = np.array([7, -3, 1000])[rng.integers(0, 3, n)].astype(np.int32)
+        mask = (rng.random(n) < 0.8).astype(np.float32)
+        gram = h @ h.T
+        gram[(cid[:, None] == cid[None, :]) | (mask[None, :] <= 0)] = -np.inf
+        starts = list(range(0, n, chunk))
+        if order == "shuffled":
+            rng.shuffle(starts)
+        empty_v = np.full((n, k), -np.inf, np.float32)
+        empty_i = np.full((n, k), -1, np.int32)
+        got = {}
+        for pkg, merge, conv, back in (
+                ("jax", jsim.topk_merge, jnp.asarray, np.asarray),
+                ("torch", pref.topk_merge, torch.from_numpy, lambda t: t.numpy())):
+            run_v, run_i = conv(empty_v), conv(empty_i)
+            for j0 in starts:
+                cols = np.arange(j0, min(n, j0 + chunk), dtype=np.int32)
+                slab_i = np.ascontiguousarray(np.broadcast_to(cols, (n, len(cols))))
+                part_v, part_i = merge(conv(empty_v), conv(empty_i),
+                                       conv(np.ascontiguousarray(gram[:, cols])), conv(slab_i))
+                run_v, run_i = merge(run_v, run_i, part_v, part_i)
+            got[pkg] = back(run_v), back(run_i)
+        want_v, want_i = pref.sim_topk(torch.from_numpy(h), torch.from_numpy(cid),
+                                       torch.from_numpy(mask), k)
+        for vals, idx in got.values():
+            np.testing.assert_array_equal(vals, want_v.numpy())
+            np.testing.assert_array_equal(idx, want_i.numpy())
 
     def test_stable_topk_matches_lax_top_k(self):
         x = np.array([[1.0, 3.0, 3.0, -np.inf, 3.0, 0.5],

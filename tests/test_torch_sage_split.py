@@ -147,3 +147,36 @@ def test_nonfinite_inputs_follow_the_plain_version(operand, bits, at):
     assert np.array_equal(np.isnan(got), np.isnan(want))
     assert np.array_equal(np.isinf(got), np.isinf(want))
     np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL, equal_nan=True)
+
+
+# Two non-finite operands in one product: a -Inf in the adjacency against a
+# +Inf and a -Inf in the same row of h, then against a -Inf alone.
+NONFINITE_PAIRS = [(("adj", 0xFF800000, (0, 5, 3)), ("h", 0x7F800000, (0, 3, 1)),
+                    ("h", 0xFF800000, (0, 3, 2))),
+                   (("adj", 0xFF800000, (1, 8, 12)), ("h", 0xFF800000, (1, 12, 4)))]
+
+
+@pytest.mark.parametrize("writes", NONFINITE_PAIRS)
+def test_nan_outputs_recomputed_plain_follow_the_plain_version(writes):
+    """Where both operands of one product are non-finite, the three passes
+    pair an Inf with a 0 and give NaN where the plain formula gives ±Inf; the
+    kernel's epilogue recomputes every NaN output as a plain f32 dot, which
+    gives NaN and ±Inf exactly where the plain formula does."""
+    rng = np.random.default_rng(len(writes))
+    a = (rng.random((2, 24, 24)) < 0.3).astype(np.float32) * np.float32(1.0 / 3.0)
+    a[:, 0] = 0.0
+    h = rng.normal(size=(2, 24, 7)).astype(np.float32)
+    for operand, bits, at in writes:
+        (a if operand == "adj" else h)[at] = _bits(bits)
+    deg = np.maximum(a.sum(-1, keepdims=True), np.float32(1.0))
+    with np.errstate(invalid="ignore", over="ignore"):
+        plain = (a[..., None] * h[:, None]).sum(2)
+        (a_hi, a_lo), (h_hi, h_lo) = split(a), split(h)
+        agg = ((a_lo[..., None] * h_hi[:, None]) + (a_hi[..., None] * h_lo[:, None])
+               + (a_hi[..., None] * h_hi[:, None])).sum(2)
+        want, split_only = plain / deg, agg / deg
+        got = np.where(np.isnan(agg), plain, agg) / deg
+    assert np.isnan(split_only[np.isinf(want)]).any()   # what the recompute repairs
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL, equal_nan=True)

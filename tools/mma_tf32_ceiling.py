@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """The TF32 rate ``mma.sync`` reaches on this GPU, against ``sage_aggregate``'s.
 
-    python3 tools/mma_tf32_ceiling.py
+    python3 tools/mma_tf32_ceiling.py [--against OTHER_CHECKOUT]
 
 Builds a loop of independent ``mma.sync.m16n8k8`` TF32 products on operands
 held in registers, with nothing to load, into ``build/mma_tf32_ceiling/``, and
 prints the rate it reaches at 1, 2 and 4 blocks of 8 warps per SM: the ceiling
 of any kernel built on that instruction. Then it times the CUDA
-``sage_aggregate`` of this checkout at the SpreadFGL Coauthor-CS layers
-(``[6,6123,6123] x [6,6123,6805]`` and ``x [6,6123,32]``) and prints its rate
-in TF32 products (three per multiply-add) as a share of that ceiling. Without
-a CUDA device it exits non-zero.
+``sage_aggregate`` of this checkout at the layers of both FGL main paths
+(SpreadFGL on Coauthor-CS, ``[6,6123,6123] x [6,6123,6805]`` and
+``x [6,6123,32]``; FedGL on Cora, ``[6,914,914] x [6,914,1433]`` and
+``x [6,914,32]``) and prints its rate in TF32 products (three per
+multiply-add) as a share of that ceiling.
+
+With ``--against`` it also builds ``sage_aggregate`` from another checkout's
+sources, by that checkout's own ``kernels/build.py`` (for example the parent
+commit unpacked under ``build/``), and times both through their C entry points
+on the same inputs, in turns (this, other, other, this), at each shape.
+Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -67,7 +76,25 @@ def _build_bench():
     return fn
 
 
+# (M, n, d, timed calls) of each layer: SpreadFGL Coauthor-CS, FedGL Cora.
+SHAPES = ((6, 6123, 6805, 3), (6, 6123, 32, 10), (6, 914, 1433, 20), (6, 914, 32, 50))
+
+
+def _sage_entry(tree: Path):
+    """``sage_aggregate_f32`` of the library that checkout ``tree`` builds
+    from its own sources with its own build module."""
+    spec = importlib.util.spec_from_file_location(
+        f"build_of_{abs(hash(str(tree)))}", tree / "src" / "repro_torch" / "kernels" / "build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load().sage_aggregate_f32
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", type=Path, default=None,
+                    help="another checkout whose sage_aggregate to time in turns with this one's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("mma_tf32_ceiling: no CUDA device", file=sys.stderr)
         return 1
@@ -89,16 +116,34 @@ def main() -> int:
         ceiling = max(ceiling, rate)
         print(f"[ceiling] mma.sync m16n8k8 TF32, {per_sm} x 8 warps per SM: {rate:.1f} TFLOP/s")
 
+    entries = None
+    if args.against is not None:
+        other = args.against.resolve()
+        entries = {"this": _sage_entry(ROOT), f"other ({other})": _sage_entry(other)}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for m, n, d, reps in ((6, 6123, 6805, 3), (6, 6123, 32, 10)):
+    for m, n, d, reps in SHAPES:
         a = (torch.rand((m, n, n), generator=gen, device="cuda") < 2e-3).float()
         adj = a / torch.clamp_min(a.sum(-1, keepdim=True), 1.0)
         h = torch.randn((m, n, d), generator=gen, device="cuda")
+        shape = f"[{m},{n},{n}]x[{m},{n},{d}]"
         ms = _time_ms(lambda: ksage.launch(adj, h), reps)  # noqa: B023
         tf32 = 3 * 2.0 * m * n * n * d / ms / 1e9
-        print(f"[ceiling] sage_aggregate [{m},{n},{n}]x[{m},{n},{d}]: {ms:.3f} ms, "
+        print(f"[ceiling] sage_aggregate {shape}: {ms:.4f} ms, "
               f"{tf32:.1f} TFLOP/s of TF32 products, {100 * tf32 / ceiling:.1f} % of the "
-              f"ceiling; three passes at the ceiling: {3 * 2.0 * m * n * n * d / ceiling / 1e9:.3f} ms")
+              f"ceiling; three passes at the ceiling: {3 * 2.0 * m * n * n * d / ceiling / 1e9:.4f} ms")
+        if entries is not None:
+            out = torch.empty_like(h)
+            stream = torch.cuda.current_stream().cuda_stream
+            times = {name: [] for name in entries}
+            for name in (*entries, *reversed(entries)):
+                def call(fn=entries[name]):
+                    err = fn(adj.data_ptr(), h.data_ptr(), out.data_ptr(), m, n, d, stream)
+                    if err:
+                        raise RuntimeError(f"sage_aggregate launch failed with error {err}")
+                times[name].append(_time_ms(call, reps))
+            print(f"[ceiling] sage_aggregate {shape} in turns: " + "; ".join(
+                f"{name} {' '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items()))
+            del out
         del a, adj, h
         torch.cuda.empty_cache()
     return 0
