@@ -13,8 +13,9 @@ Phases (any failure raises, and the script exits non-zero):
    and its bound on the card. ``sage_aggregate`` is timed at both layers of
    the Coauthor-CS classifier, against the bound of its three TF32 passes
    and that of one f32 product on the CUDA cores. ``flash_attention`` has
-   two routes, checked and timed apart: bf16 on the tensor cores, f32 on the
-   CUDA cores.
+   two routes, checked and timed apart, both on the tensor cores: bf16, and
+   f32 by three TF32 passes, against the bound of those passes and that of
+   one f32 pass on the CUDA cores.
    ``sim_topk`` is checked at shapes that cross its split of the candidate
    axis and timed at SpreadFGL's, against the bound of the full gram and
    that of the cross-client pairs the data needs. ``sim_block``, which no
@@ -31,7 +32,10 @@ Phases (any failure raises, and the script exits non-zero):
    (6 clients, 3 servers, 3 rounds, 2 imputation rounds), then FedGL on
    full-size Cora; through ``repro_torch.launch.serve.main``, Qwen3-4B at full
    width and depth serving a batch of 8 prompts of 2048 tokens for 64
-   greedy decode steps.
+   greedy decode steps; then Qwen3-4B at full width and depth in float32,
+   batch 2 x 2048-token prompts, prefill and 8 greedy decode steps through
+   the f32 route, held against the same prefill with the plain version
+   patched in.
 5. One JSON line describing every kernel, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -157,7 +161,7 @@ def _counters():
     return {"sage_aggregate": (ksage, "launches"), "sim_topk": (ksim, "launches"),
             "sim_block": (ksim, "block_launches"),
             "flash_attention_tc": (kflash, "launches_tc"),
-            "flash_attention_simt": (kflash, "launches_simt")}
+            "flash_attention_f32": (kflash, "launches_f32")}
 
 
 def _reset_launches() -> None:
@@ -350,8 +354,9 @@ def _check_flash(dev, gen):
         return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
                      for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
 
-    # f32 (SIMT route): ragged with a window (gemma3's local layers) and GQA
-    # 2:1; a 40-token prompt, the shape the reference's ops.mha gets wrong.
+    # f32 (3-pass TF32 route): ragged with a window (gemma3's local layers)
+    # and GQA 2:1; a 40-token prompt, the shape the reference's ops.mha gets
+    # wrong.
     # bf16 (tensor-core route): MQA at D = 128; one query against a ragged
     # cache with GQA 4:1 at D = 64; more queries than keys with a window at
     # D = 32; then the serving main path's prefill, Qwen3-4B as configured (32
@@ -367,7 +372,7 @@ def _check_flash(dev, gen):
             (1, 4, 2, 130, 100, 32, 50, torch.bfloat16),
             (8, 32, 8, 2048, 2048, 80, None, torch.bfloat16)):
         q, k, v = inputs(b, hq, hkv, sq, skv, d, dtype)
-        route = "launches_tc" if dtype == torch.bfloat16 else "launches_simt"
+        route = "launches_tc" if dtype == torch.bfloat16 else "launches_f32"
         before = getattr(kflash, route)
         out = ops.mha(q, k, v, causal=True, window=window).float()
         if getattr(kflash, route) != before + 1:
@@ -384,30 +389,48 @@ def _check_flash(dev, gen):
         del out, plain
     main_shape = (b, hq, hkv, sq, skv, d)
     # Causal work only (query i sees i + 1 keys); bytes: q and the output at
-    # Hq heads, k and v at Hkv heads, in the inputs' type.
+    # Hq heads, k and v at Hkv heads, in the inputs' type. The f32 route runs
+    # three TF32 passes of that work: its bound is theirs at the TF32 peak,
+    # beside that of one f32 pass on the CUDA cores.
     flops = 4.0 * b * hq * d * (sq * (sq + 1) / 2)
     io = 2 * b * hq * sq * d + 2 * b * hkv * skv * d
     entries = []
-    for dtype, peak, source in ((torch.bfloat16, BF16_FLOPS, "flash_attention_tc.cu"),
-                                (torch.float32, F32_FLOPS, "flash_attention.cu")):
-        if dtype == torch.float32:      # the f32 route at the same shape
-            q, k, v = (t.float() for t in (q, k, v))
+    for dtype, source in ((torch.bfloat16, "flash_attention_tc.cu"),
+                          (torch.float32, "flash_attention.cu")):
+        name = str(dtype).split(".")[-1]
+        if dtype == torch.float32:
+            # The f32 route at the same shape, from f32 draws (bf16 values
+            # would make the split exact), held to 1e-5 before it is timed.
+            q, k, v = inputs(b, hq, hkv, sq, skv, d, dtype)
+            err = (ops.mha(q, k, v, causal=True) - ref.flash_attention(q, k, v)).abs().max().item()
+            print(f"[smoke] flash_attention f32 q[{b},{hq},{sq},{d}] kv[{b},{hkv},{skv},{d}] "
+                  f"window=None float32 max_abs_err={err:.3g} (limit 1e-05)")
+            if not err <= 1e-5:
+                raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
+            errs[dtype].append(err)
+            route = "tensor cores, 3 TF32 passes"
+            bound_ms, bound_by = _bound(3 * flops, 4 * io, peak=TF32_FLOPS)
+            extra = {"bound_f32_ms": _bound(flops, 4 * io)[0]}
+            bound_note = (f"({bound_by}, 3 TF32 passes at {TF32_FLOPS / 1e12:.0f} TFLOP/s) "
+                          f"bound_f32_ms={extra['bound_f32_ms']:.4f}")
+        else:
+            route = "tensor cores"
+            bound_ms, bound_by = _bound(flops, 2 * io, peak=BF16_FLOPS)
+            extra = {}
+            bound_note = f"({bound_by}, bf16 peak {BF16_FLOPS / 1e12:.0f} TFLOP/s)"
         ms = _time_ms(lambda: kflash.launch(q, k, v), 10)
         plain_ms = _time_ms(lambda: ref.flash_attention(q, k, v), 3)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                  enable_gqa=True), 10)
-        bound_ms, bound_by = _bound(flops, q.element_size() * io, peak=peak)
-        route = "tensor cores" if dtype == torch.bfloat16 else "SIMT"
-        name = str(dtype).split(".")[-1]
         print(f"[smoke] flash_attention {route} {name} main-path ms={ms:.3f} "
               f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} bound_ms={bound_ms:.4f} "
-              f"({bound_by}, {name} peak {peak / 1e12:.0f} TFLOP/s) -> "
-              f"{flops / ms / 1e9:.1f} TFLOP/s")
+              f"{bound_note} -> {flops / ms / 1e9:.1f} TFLOP/s")
         entries.append({"name": f"flash_attention ({name}, {route})", "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{source}",
                         "replaces": "src/repro/kernels/flash_attention.py:98",
                         "max_abs_err": max(errs[dtype]), "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                        **extra,
                         "shape": "q[{0},{1},{3},{5}] kv[{0},{2},{4},{5}] ".format(*main_shape)
                                  + f"{name} causal"})
     del q, k, v
@@ -514,7 +537,7 @@ def _check_small_serve(dev):
     # qwen3-4b's smoke config with a 40-token prompt (below 128 queries);
     # gemma3-12b's, whose window-64 layer's ring buffer wraps on a 200-token
     # prompt. Same weights on both devices (drawn on the CPU), f32: the card's
-    # prefill takes the SIMT route, once per layer.
+    # prefill takes the f32 route, once per layer.
     for arch, prompt_len in (("qwen3-4b", 40), ("gemma3-12b", 200)):
         cfg = configs.get_config(arch, "smoke")
         cpu_model = transformer.init_model(cfg, seed=0, device="cpu")
@@ -529,14 +552,14 @@ def _check_small_serve(dev):
             logits[where] = out.cpu()
             tokens[where] = engine.decode(cache, out, steps=8).cpu()
         routes = {name: after[name] - before[name]
-                  for name in ("flash_attention_simt", "flash_attention_tc")}
+                  for name in ("flash_attention_f32", "flash_attention_tc")}
         err = (logits[dev.type] - logits["cpu"]).abs().max().item()
         same = torch.equal(tokens[dev.type], tokens["cpu"])
         print(f"[smoke] small {cfg.name} serving run {dev.type} vs cpu, prompt "
               f"{prompt_len}: prefill logits max |d| = {err:.3g}, 8 greedy tokens "
               f"identical: {same}; card prefill launches {routes}")
-        if routes != {"flash_attention_simt": cfg.num_layers, "flash_attention_tc": 0}:
-            raise AssertionError(f"{cfg.name} (f32): expected {cfg.num_layers} SIMT "
+        if routes != {"flash_attention_f32": cfg.num_layers, "flash_attention_tc": 0}:
+            raise AssertionError(f"{cfg.name} (f32): expected {cfg.num_layers} f32-route "
                                  f"launches and no tensor-core launch, got {routes}")
         if not err <= 1e-4:     # two layers of f32 in other orders
             raise AssertionError(f"{cfg.name}: the card's prefill logits disagree with "
@@ -574,16 +597,16 @@ def _check_bf16_serve(dev):
     finally:
         ops.mha = kernel_mha
     routes = {name: after[name] - before[name]
-              for name in ("flash_attention_tc", "flash_attention_simt")}
+              for name in ("flash_attention_tc", "flash_attention_f32")}
     err = (out_kernel.float() - out_plain.float()).abs().max().item()
     scale = out_plain.float().abs().max().item()
     agree = (tok_kernel == tok_plain).float().mean().item()
     print(f"[smoke] small {cfg.name} bf16 serving run, prompt 200: prefill logits "
           f"kernel vs plain max |d| = {err:.3g} (limit 2e-2 x max |logit| = "
           f"{2e-2 * scale:.3g}); greedy tokens agree {agree:.3f} of 2 x 8; launches {routes}")
-    if routes != {"flash_attention_tc": cfg.num_layers, "flash_attention_simt": 0}:
-        raise AssertionError(f"{cfg.name} (bf16): expected {cfg.num_layers} tensor-core "
-                             f"launches and no SIMT launch, got {routes}")
+    if routes != {"flash_attention_tc": cfg.num_layers, "flash_attention_f32": 0}:
+        raise AssertionError(f"{cfg.name} (bf16): expected {cfg.num_layers} bf16-route "
+                             f"launches and no f32-route launch, got {routes}")
     if not (torch.isfinite(out_kernel).all() and err <= 2e-2 * scale):
         raise AssertionError(f"{cfg.name} (bf16): the kernel's prefill logits disagree "
                              f"with the plain version's by {err}")
@@ -644,12 +667,69 @@ def _serve_main_path(args):
     if tokens.shape != (flags.batch, flags.steps) or not (
             (tokens >= 0) & (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"generated tokens of shape {tokens.shape} out of range")
-    # One bf16 prefill: the tensor-core kernel launches once per layer, the
-    # SIMT kernel never; decode attention is plain.
-    if counts["flash_attention_tc"] != cfg.num_layers or counts["flash_attention_simt"]:
+    # One bf16 prefill: the bf16 route launches once per layer, the f32 route
+    # never; decode attention is plain.
+    if counts["flash_attention_tc"] != cfg.num_layers or counts["flash_attention_f32"]:
         raise AssertionError(f"flash_attention launched {counts} times, expected "
-                             f"{cfg.num_layers} on the tensor cores (one per layer of one "
-                             f"prefill) and none on the SIMT route")
+                             f"{cfg.num_layers} on the bf16 route (one per layer of one "
+                             f"prefill) and none on the f32 route")
+    return counts
+
+
+def _f32_serve_path(dev):
+    """Qwen3-4B at full width and depth in float32: batch 2 x 2048-token
+    prompts, prefill and 8 greedy decode steps through the f32 route, with the
+    launch counters set to 0 just before and read just after; then the same
+    prefill and decode with the plain version patched in. Limit, stated before
+    the first run: last-position logits within 1e-4 of max |logit|; the
+    greedy tokens' agreement is printed, not held."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(configs.get_config("qwen3-4b", "full"), dtype="float32")
+    model = transformer.init_model(cfg, seed=0, device=dev)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 2048))
+    engine = ServeEngine(model, max_len=2048 + 8)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        return logits, engine.decode(cache, logits, steps=8), prefill_s
+
+    _reset_launches()
+    out_kernel, tok_kernel, kernel_s = run()
+    counts = _launches()
+    kernel_mha = ops.mha
+    ops.mha = lambda q, k, v, *, causal=True, window=None: ref.flash_attention(  # noqa: E731
+        q, k, v, causal=causal, window=window)
+    try:
+        out_plain, tok_plain, plain_s = run()
+    finally:
+        ops.mha = kernel_mha
+    err = (out_kernel - out_plain).abs().max().item()
+    scale = out_plain.abs().max().item()
+    agree = (tok_kernel == tok_plain).float().mean().item()
+    print(f"[smoke] path serve {cfg.name} float32, batch 2 x 2048 tokens: "
+          f"{cfg.num_layers} layers, {cfg.active_params() / 1e9:.2f} B parameters; prefill "
+          f"{kernel_s:.3f} s through the f32 route, {plain_s:.3f} s through the plain version; "
+          f"last logits kernel vs plain max |d| = {err:.3g} (limit 1e-4 x max |logit| = "
+          f"{1e-4 * scale:.3g}); greedy tokens agree {agree:.3f} of 2 x 8; launches {counts}")
+    if counts["flash_attention_f32"] != cfg.num_layers or counts["flash_attention_tc"]:
+        raise AssertionError(f"{cfg.name} (f32): expected {cfg.num_layers} f32-route launches "
+                             f"and no bf16-route launch, got {counts}")
+    if out_kernel.shape != (2, cfg.vocab_size) or not torch.isfinite(out_kernel).all():
+        raise AssertionError(f"f32 prefill logits of shape {tuple(out_kernel.shape)} are not "
+                             f"finite [2, {cfg.vocab_size}]")
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"{cfg.name} (f32): the kernel's prefill logits disagree with "
+                             f"the plain version's by {err}")
+    del model, engine
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -676,21 +756,23 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     sage, sim = _check_sage(dev, gen), _check_sim(dev, gen)
-    flash_tc, flash_simt = _check_flash(dev, gen)
+    flash_tc, flash_f32 = _check_flash(dev, gen)
     block = _check_sim_block(dev, gen)
     _check_small_run(dev)
     _check_small_serve(dev)
     _check_bf16_serve(dev)
 
-    # Each main path's launches, counted from 0 just before it.
+    # Each path's launches, counted from 0 just before it.
     runs = [_main_path(SPREAD_ARGS), _main_path(FEDGL_ARGS)]
     torch.cuda.empty_cache()
     runs.append(_serve_main_path(SERVE_ARGS))
+    torch.cuda.empty_cache()
+    runs.append(_f32_serve_path(dev))
     for entry, counter in ((sage, "sage_aggregate"), (sim, "sim_topk"),
                            (flash_tc, "flash_attention_tc"),
-                           (flash_simt, "flash_attention_simt"), (block, "sim_block")):
+                           (flash_f32, "flash_attention_f32"), (block, "sim_block")):
         entry["launches"] = sum(run[counter] for run in runs)
-    kernels = [sage, sim, flash_tc, flash_simt, block]
+    kernels = [sage, sim, flash_tc, flash_f32, block]
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -92,6 +92,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace {
 
 constexpr int GROUP = 16;      // row tiles walked before the next column tile
@@ -139,37 +141,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Round a finite x to TF32 (10 mantissa bits), to nearest with ties away from
-// zero, as cvt.rna.tf32.f32 does.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, both TF32: hi = tf32(x), lo = tf32(x - hi); a non-finite x is
-// all lo.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  const bool finite = fabsf(x) < INFINITY;
-  hi = finite ? to_tf32(x) : 0u;
-  const float r = x - __uint_as_float(hi);
-  lo = finite ? to_tf32(r) : __float_as_uint(r);
-}
-
 // sum_k a[k] h[k * d] in f32, in order: the IEEE result for an output whose
 // split sum is NaN (see the note on non-finite inputs). Off the main path.
 __device__ __noinline__ float plain_dot(const float* a, const float* h, int n, int d) {
   float s = 0.0f;
   for (int k = 0; k < n; ++k) s = fmaf(a[k], h[(size_t)k * d], s);
   return s;
-}
-
-// c += a b for one m16n8k8 tile: a 16 x 8 (row), b 8 x 8 (col), TF32 in, f32 c.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <class T>

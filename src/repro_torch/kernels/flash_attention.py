@@ -3,14 +3,15 @@
 Replaces the TPU kernel ``flash_attention`` / ``_flash_kernel`` of
 ``src/repro/kernels/flash_attention.py`` together with the head repeat and
 padding of ``repro.kernels.ops.mha``. Two hand-written kernels share one
-contract, chosen by the inputs' type: bfloat16 runs on the tensor cores
-(``csrc/flash_attention_tc.cu``, ``mma.sync`` with f32 accumulation and P
-rounded to bf16), float32 on the CUDA cores (``csrc/flash_attention.cu``, f32
-throughout, which keeps f32 parity at 1e-5). Neither falls back to the other.
-Both take q ``[B, Hq, Sq, D]`` and k, v ``[B, Hkv, Skv, D]`` as they are: they
-map each q head to its kv head and mask ragged sequence lengths themselves.
-Each source note says what bounds it on the H100 and what its design does
-about that. The plain version of both is ``ref.flash_attention``.
+contract, chosen by the inputs' type, both on the tensor cores with
+``mma.sync``: bfloat16 in ``csrc/flash_attention_tc.cu`` (f32 accumulation, P
+rounded to bf16), float32 in ``csrc/flash_attention.cu`` (TF32 with the 3-pass
+split of ``csrc/tf32.cuh``, which keeps f32 parity at 1e-5). Neither falls
+back to the other. Both take q ``[B, Hq, Sq, D]`` and k, v
+``[B, Hkv, Skv, D]`` as they are: they map each q head to its kv head and
+mask ragged sequence lengths themselves. Each source note says what bounds
+it on the H100 and what its design does about that. The plain version of
+both is ``ref.flash_attention``.
 """
 from __future__ import annotations
 
@@ -25,10 +26,10 @@ from repro_torch.kernels import build
 # `launches`, their sum.
 launches = 0
 launches_tc = 0     # bfloat16, tensor cores (flash_attention_tc.cu)
-launches_simt = 0   # float32, CUDA cores (flash_attention.cu)
+launches_f32 = 0    # float32, 3-pass TF32 (flash_attention.cu)
 
 HEAD_DIMS = (32, 64, 80, 128)   # each kernel's template instances
-_GRID_Y = 65535                 # query blocks (64 rows f32, 128 bf16) ride the grid's y axis
+_GRID_Y = 65535                 # query blocks (64 or 128 rows) ride the grid's y axis
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -40,7 +41,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            window: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
     """Causal attention on the card; arguments as ``ref.flash_attention``."""
-    global launches, launches_tc, launches_simt
+    global launches, launches_tc, launches_f32
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -71,10 +72,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = lib.flash_attention_tc_bf16 if tc else lib.flash_attention_f32
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,
              window or 0, scale, torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attention (tensor cores)" if tc else "flash_attention (f32)")
+    build.check(err, "flash_attention (bf16)" if tc else "flash_attention (f32)")
     if tc:
         launches_tc += 1
     else:
-        launches_simt += 1
+        launches_f32 += 1
     launches += 1
     return out

@@ -11,8 +11,8 @@ order than cuBLAS, each from three TF32 products whose split leaves out
 ~2^-22 of it, so values agree within 1e-5 absolute plus 1e-5 relative;
 ``sim_topk`` scores within 1e-5 and indices exact except between candidates
 whose scores lie within 1e-5 (``torch_parity.assert_topk_match``);
-``flash_attention`` within 1e-5 in f32 (the SIMT route computes in f32) and
-2e-2 in bf16 (the tensor-core route rounds P to bf16 before P V, and a bf16
+``flash_attention`` within 1e-5 in f32 (the f32 route's 3-pass TF32 split
+holds each operand to ~2^-22, within f32's summation order) and 2e-2 in bf16 (the tensor-core route rounds P to bf16 before P V, and a bf16
 output may round the other way by one unit in the last place); ``sim_block``
 within 1e-5 in f32 and 3e-2 in bf16, absolute and relative, the JAX tests'
 own tolerances.
@@ -249,8 +249,12 @@ def test_sim_topk_refuses_what_it_cannot_run(dev):
 # route at every head dim: fewer than 64 queries; one query against a long
 # cache of a length that is not a multiple of the 64-key tile, with GQA 4:1;
 # more queries than keys without a window; ragged 333 tokens; a window of
-# 100, not a multiple of the tile; GQA 4:1 at D = 128. And the f32 (SIMT)
-# route at D = 80 and D = 128.
+# 100, not a multiple of the tile; GQA 4:1 at D = 128. And the f32 route at
+# D = 80 and D = 128; then more f32 rows: a 333-token prompt (Skv not a
+# multiple of 8, the key order inside each k-step of P V); a window of 100
+# that crosses tile edges; more queries than keys; one query against a
+# 1000-key cache; MQA at D = 128; ragged 77 queries against 301 keys at
+# D = 32; and the serving main path's shape in f32.
 FLASH_SHAPES = [
     (2, 4, 2, 200, 200, 32, 64, torch.float32),
     (2, 4, 2, 40, 40, 32, None, torch.float32),
@@ -266,6 +270,13 @@ FLASH_SHAPES = [
     (2, 16, 4, 256, 256, 128, None, torch.bfloat16),
     (1, 4, 1, 200, 200, 80, None, torch.float32),
     (1, 4, 2, 100, 100, 128, 40, torch.float32),
+    (2, 4, 2, 333, 333, 80, None, torch.float32),
+    (1, 4, 2, 500, 500, 80, 100, torch.float32),
+    (1, 4, 1, 150, 90, 64, None, torch.float32),
+    (1, 8, 2, 1, 1000, 80, None, torch.float32),
+    (1, 8, 1, 300, 300, 128, None, torch.float32),
+    (2, 4, 2, 77, 301, 32, None, torch.float32),
+    (8, 32, 8, 2048, 2048, 80, None, torch.float32),
 ]
 
 
@@ -275,8 +286,8 @@ def test_flash_attention_matches_plain(dev, b, hq, hkv, sq, skv, d, window, dtyp
     q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
-    route = "launches_tc" if dtype == torch.bfloat16 else "launches_simt"
-    other = "launches_simt" if dtype == torch.bfloat16 else "launches_tc"
+    route = "launches_tc" if dtype == torch.bfloat16 else "launches_f32"
+    other = "launches_f32" if dtype == torch.bfloat16 else "launches_tc"
     before = {name: getattr(kflash, name) for name in ("launches", route, other)}
     got = ops.mha(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
@@ -289,6 +300,96 @@ def test_flash_attention_matches_plain(dev, b, hq, hkv, sq, skv, d, window, dtyp
                                atol=tol, rtol=tol)
     if sq > skv:                               # rows before key 0 see nothing: exact 0
         assert (got[:, :, :sq - skv] == 0).all()
+
+
+def _attention_f64(q, k, v):
+    """Causal attention in float64, with P @ |V| beside it: the sum of the
+    magnitudes of the terms of each output, the scale of f32's error."""
+    rep = q.shape[1] // k.shape[1]
+    k, v = (x.double().repeat_interleave(rep, 1) for x in (k, v))
+    sq, skv = q.shape[2], k.shape[2]
+    logits = (q.double() @ k.transpose(-1, -2)) / q.shape[-1] ** 0.5
+    seen = torch.arange(skv, device=q.device)[None] <= torch.arange(sq, device=q.device)[:, None]
+    p = torch.softmax(logits.masked_fill(~seen, -torch.inf), -1)
+    return p @ v, p @ v.abs()
+
+
+# (b, hq, hkv, sq, skv, d, kind): inputs that make the split's error matter
+# most, held to float64. "sharp": q scaled by 20, so each softmax row is
+# dominated by a few keys and an error in a score moves the output most;
+# logits reach ~70, whose f32 rounding alone moves outputs by ~1e-5, so the
+# kernel is held to the larger of 1e-5 and the plain f32 version's own
+# error. "spread": V's values scaled by 2^u, u uniform in [-20, 20] per
+# element, held within 1e-5 of P @ |V| (sums of terms 2^40 apart cancel, so
+# no absolute limit fits every output). One TF32 pass misses either by ~50x.
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,kind", [
+    (1, 4, 2, 300, 300, 80, "sharp"), (1, 4, 1, 200, 200, 128, "sharp"),
+    (1, 4, 2, 300, 300, 80, "spread"), (1, 4, 1, 200, 200, 128, "spread")])
+def test_flash_attention_f32_hard_inputs(dev, b, hq, hkv, sq, skv, d, kind):
+    gen = torch.Generator(device=dev).manual_seed(sq + d + len(kind))
+    q = torch.randn((b, hq, sq, d), generator=gen, device=dev)
+    k = torch.randn((b, hkv, skv, d), generator=gen, device=dev)
+    v = torch.randn((b, hkv, skv, d), generator=gen, device=dev)
+    if kind == "sharp":
+        q = q * 20
+    else:
+        v = v * torch.exp2(torch.rand(v.shape, generator=gen, device=dev) * 40 - 20)
+    got = ops.mha(q, k, v, causal=True)
+    want, scale = _attention_f64(q, k, v)
+    err = (got.double() - want).abs()
+    if kind == "sharp":
+        plain = (ref.flash_attention(q, k, v).double() - want).abs().max().item()
+        assert err.max().item() <= max(1e-5, plain), (err.max().item(), plain)
+    else:
+        excess = (err - 1e-5 * scale).max().item()
+        assert excess <= 0, f"f32 route off by more than 1e-5 of P @ |V| (excess {excess:.3g})"
+
+
+_BITS = {"nan": 0x7FFFFFFF, "+inf": 0x7F800000, "-inf": 0xFF800000}
+
+
+def _nonfinite_rows(run, dev, operand, value):
+    """Write one NaN or ±Inf into q, k or v of a GQA 2:1 input (q head 1's
+    row 70, or kv head 0's key 70; column 5), run ``run(q, k, v)``, and
+    check each row of the output against IEEE arithmetic: a row is non-finite
+    exactly where it meets a NaN or +Inf score (a NaN or ±Inf in its q row,
+    or in a key it sees whose product with its q is not -Inf: a -Inf score
+    gives the key weight 0, as a mask does), or a NaN or ±Inf in a row of V
+    that it sees. Every other row is held to the plain version, except, for
+    a write into V, the rows before key 70 of the heads that read it: beside
+    the key in a tile, they take 0 x Inf there, as the plain version's
+    P @ V does for every row."""
+    gen = torch.Generator(device=dev).manual_seed(len(operand) + len(value))
+    q = torch.randn((1, 4, 200, 80), generator=gen, device=dev)
+    k, v = (torch.randn((1, 2, 200, 80), generator=gen, device=dev) for _ in range(2))
+    x = {"q": q, "k": k, "v": v}[operand]
+    head, pos, col = (1, 70, 5) if operand == "q" else (0, 70, 5)
+    bits = _BITS[value]
+    x.view(torch.int32)[0, head, pos, col] = bits - (1 << 32) if bits >> 31 else bits
+    got = run(q, k, v)
+    torch.cuda.synchronize()
+    plain = ref.flash_attention(q, k, v)
+    bad = ~torch.isfinite(got).all(-1)[0]            # [q heads, rows]
+    rows = torch.arange(200, device=dev)
+    want = torch.zeros_like(bad)
+    held = torch.ones_like(bad)                       # rows held to the plain version
+    if operand == "q":
+        want[head, pos] = True
+    elif operand == "k":                              # q heads 0 and 1 read kv head 0
+        score = q[0, :2, :, col] * x[0, head, pos, col]
+        want[:2] = (rows >= pos) & ~torch.isneginf(score)
+    else:
+        want[:2] = rows >= pos
+        held[:2] = False
+    assert torch.equal(bad[held | want], want[held | want])
+    keep = held & ~want
+    torch.testing.assert_close(got[0][keep], plain[0][keep], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+@pytest.mark.parametrize("value", ["nan", "+inf", "-inf"])
+def test_flash_attention_f32_nonfinite_inputs(dev, operand, value):
+    _nonfinite_rows(lambda q, k, v: ops.mha(q, k, v, causal=True), dev, operand, value)
 
 
 def test_flash_attention_refuses_what_it_cannot_run(dev):

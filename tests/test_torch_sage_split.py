@@ -18,22 +18,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
+from torch_parity import split, tf32
 
 TOL = 1e-5
-
-
-def tf32(x):
-    """Round float32 to TF32 (10 mantissa bits), to nearest, ties away from zero."""
-    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def split(x):
-    """The kernel's split: finite x -> (tf32(x), tf32(x - hi)); else (0, x)."""
-    x = np.asarray(x, dtype=np.float32)
-    finite = np.isfinite(x)
-    hi = np.where(finite, tf32(x), np.float32(0.0))
-    return hi, np.where(finite, tf32(x - hi), x)
 
 
 def inputs(seed, m, n, d, density):
