@@ -20,19 +20,28 @@ Phases (any failure raises, and the script exits non-zero):
    axis and timed at SpreadFGL's, against the bound of the full gram and
    that of the cross-client pairs the data needs. ``sim_block``, which no
    path calls, is checked and timed at the Coauthor-CS server's gram.
-3. A small training run and small f32 serving runs (the qwen3-4b and
-   gemma3-12b smoke configs) on the card against the same runs on the CPU
-   (the kernels' plain versions), from the same weights, noise and prompts;
-   then the qwen3-4b smoke config in bf16 on the card, its prefill through
-   the tensor-core kernel against the same prefill with the plain version
-   patched in.
+3. Small training runs of every method and option (SpreadFGL, FedSage+,
+   partial participation, async and gossip aggregation, GCN and GAT) and
+   small f32 serving runs (the qwen3-4b and gemma3-12b smoke configs) on the
+   card against the same runs on the CPU (the kernels' plain versions),
+   from the same weights, noise and prompts; the trainers draw their own
+   participation masks and async schedules on both. Then the qwen3-4b smoke
+   config in bf16 on the card, its prefill through the tensor-core kernel
+   against the same prefill with the plain version patched in.
 4. The main paths, each with every kernel's launch counter set to 0 just
    before it and read just after: through
    ``repro_torch.launch.fgl_train.main``, SpreadFGL on full-size Coauthor-CS
    (6 clients, 3 servers, 3 rounds, 2 imputation rounds), then FedGL on
-   full-size Cora; through ``repro_torch.launch.serve.main``, Qwen3-4B at full
-   width and depth serving a batch of 8 prompts of 2048 tokens for 64
-   greedy decode steps; then Qwen3-4B at full width and depth in float32,
+   full-size Cora; then, on one full-size Coauthor-CS batch built once, the
+   rest of the FGL engine: through ``fgl_train.main``, FedSage+ (2 rounds),
+   SpreadFGL with participation 0.5, ``spreadfgl_async`` (buffer 4, uniform
+   delays, dropout 0.1) and ``spreadfgl_gossip`` (exchange every 2 rounds),
+   3 rounds each; through ``registry.build``, SpreadFGL with GCN and with
+   GAT classifiers, 3 rounds each; and the async run stopped after rounds
+   0-1 with ``--save-state`` and continued for round 2 with ``--resume``,
+   whose rounds equal the unstopped run's bit for bit. Through
+   ``repro_torch.launch.serve.main``, Qwen3-4B at full width and depth
+   serving a batch of 8 prompts of 2048 tokens for 64 greedy decode steps; then Qwen3-4B at full width and depth in float32,
    batch 2 x 2048-token prompts, prefill and 8 greedy decode steps through
    the f32 route, held against the same prefill with the plain version
    patched in.
@@ -51,6 +60,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,6 +80,16 @@ HBM_BYTES_PER_S = 3.35e12
 SPREAD_ARGS = ["--dataset", "coauthor_cs", "--scale", "1.0", "--method", "SpreadFGL",
                "--clients", "6", "--servers", "3", "--rounds", "3", "-K", "2"]
 FEDGL_ARGS = ["--dataset", "cora", "--scale", "1.0", "--method", "FedGL", "--rounds", "2"]
+# The rest of the FGL engine, each run on one full-size Coauthor-CS batch at
+# the launcher's defaults (K = 2).
+ENGINE_ARGS = ["--dataset", "coauthor_cs", "--scale", "1.0", "--clients", "6",
+               "--servers", "3"]
+ENGINE_RUNS = (("fedsage_plus", ["--method", "fedsage_plus"], 2),   # (what, flags, rounds)
+               ("participation 0.5", ["--participation", "0.5"], 3),
+               ("spreadfgl_async", ["--async-buffer", "4", "--delay-dist", "uniform",
+                                    "--dropout-rate", "0.1"], 3),
+               ("spreadfgl_gossip", ["--gossip-every", "2"], 3))
+ENGINE_KINDS = ("gcn", "gat")
 SERVE_ARGS = ["--arch", "qwen3-4b", "--variant", "full", "--batch", "8",
               "--prompt-len", "2048", "--steps", "64"]
 
@@ -491,42 +511,64 @@ def _check_sim_block(dev, gen):
 
 # -- phase 3: the card's training run against the CPU's ----------------------
 
+SMALL_RUNS = (  # (what, registry method, builder keywords, FGLConfig fields)
+    ("SpreadFGL", "SpreadFGL", {"num_servers": 2}, {}),
+    ("FedSage+", "fedsage_plus", {}, {}),
+    ("SpreadFGL participation 0.5", "SpreadFGL", {"num_servers": 2}, {"participation": 0.5}),
+    ("spreadfgl_async", "spreadfgl_async", {"num_servers": 2},
+     {"async_buffer": 2, "delay_dist": "uniform", "dropout_rate": 0.1}),
+    ("spreadfgl_gossip", "spreadfgl_gossip", {"num_servers": 4, "gossip_every": 2}, {}),
+    ("SpreadFGL gcn", "SpreadFGL", {"num_servers": 2}, {"gnn_kind": "gcn"}),
+    ("SpreadFGL gat", "SpreadFGL", {"num_servers": 2}, {"gnn_kind": "gat"}),
+)
+
+
+def _state_to(state, where):
+    """``state`` with every tensor moved to ``where`` (the generator stays)."""
+    from repro_torch.tree import tree_map
+
+    def opt(o):
+        return type(o)(o.step.to(where), tree_map(lambda t: t.to(where), o.mu),
+                       tree_map(lambda t: t.to(where), o.nu))
+    return dataclasses.replace(
+        state, batch=state.batch.to(where),
+        **{f: tree_map(lambda t: t.to(where), getattr(state, f))
+           for f in ("params", "ae_params", "as_params")},
+        **{f: opt(getattr(state, f)) for f in ("opt_state", "ae_opt", "as_opt")})
+
+
 def _check_small_run(dev):
-    from repro_torch.core import imputation
+    from repro_torch.core import imputation, registry
     from repro_torch.core.partition import partition_graph
-    from repro_torch.core.spreadfgl import make_spreadfgl
     from repro_torch.core.types import FGLConfig
     from repro_torch.data.synthetic_graphs import DATASETS, make_sbm_graph
-    from repro_torch.tree import tree_map
 
     graph = make_sbm_graph(DATASETS["cora"], scale=0.1, seed=1, feature_noise=3.0,
                            signal_ratio=0.5)
     batch, _ = partition_graph(graph, 4, aug_max=8, seed=0)
-    cfg = FGLConfig(hidden_dim=16, local_rounds=2, imputation_interval=1, top_k_links=3,
-                    aug_max=8)
-    hists = {}
-    for where in ("cpu", dev.type):
-        tr = make_spreadfgl(cfg, batch, num_servers=2, device=where)
-        cpu_tr = make_spreadfgl(cfg, batch, num_servers=2, device="cpu")
-        state = cpu_tr.init(batch)                 # same weights on both devices
-        state.params, state.ae_params, state.as_params = (
-            tree_map(lambda t: t.to(where), p)
-            for p in (state.params, state.ae_params, state.as_params))
-        state.opt_state, state.ae_opt, state.as_opt = (
-            type(o)(o.step.to(where), tree_map(lambda t: t.to(where), o.mu),
-                    tree_map(lambda t: t.to(where), o.nu))
-            for o in (state.opt_state, state.ae_opt, state.as_opt))
-        state.batch = state.batch.to(where)
-        noise_gen = torch.Generator().manual_seed(1)
-        noises = [imputation.sample_noise(noise_gen, 2 * batch.n_pad, batch.num_classes,
-                                          lead=(2,)) for _ in range(3)]
-        _, hists[where] = tr.fit(state=state, rounds=3, noise=lambda r: noises[r].to(where))
-    for key in ("loss", "acc", "f1"):
-        diff = max(abs(a - b) for a, b in zip(hists[dev.type][key], hists["cpu"][key]))
-        print(f"[smoke] small SpreadFGL run {dev.type} vs cpu: max |d{key}| = {diff:.3g}")
-        if not diff <= 1e-4:    # three fitted rounds of f32 in other orders
-            raise AssertionError(f"the card's run disagrees with the CPU's on {key}: "
-                                 f"{hists[dev.type][key]} vs {hists['cpu'][key]}")
+    base = FGLConfig(hidden_dim=16, local_rounds=2, imputation_interval=1, top_k_links=3,
+                     aug_max=8)
+    for what, method, kw, fields in SMALL_RUNS:
+        cfg = dataclasses.replace(base, **fields)
+        # Same weights on both devices: drawn on the CPU.
+        state0 = registry.build(method, cfg, batch, device="cpu", **kw).init(batch)
+        hists = {}
+        for where in ("cpu", dev.type):
+            tr = registry.build(method, cfg, batch, device=where, **kw)
+            state = _state_to(state0, where)
+            noise_gen = torch.Generator().manual_seed(1)
+            noises = [imputation.sample_noise(noise_gen, tr.m_per * batch.n_pad,
+                                              batch.num_classes, lead=(tr.n_servers,))
+                      for _ in range(3)]
+            _, hists[where] = tr.fit(state=state, rounds=3,
+                                     noise=lambda r: noises[r].to(where))
+        diffs = {key: max(abs(a - b) for a, b in zip(hists[dev.type][key], hists["cpu"][key]))
+                 for key in ("loss", "acc", "f1")}
+        print(f"[smoke] small {what} run {dev.type} vs cpu: max |d| "
+              + " ".join(f"{k}={v:.3g}" for k, v in diffs.items()))
+        if not all(d <= 1e-4 for d in diffs.values()):  # three fitted rounds of f32 in other orders
+            raise AssertionError(f"{what}: the card's run disagrees with the CPU's: "
+                                 f"{hists[dev.type]} vs {hists['cpu']}")
 
 
 def _check_small_serve(dev):
@@ -614,37 +656,115 @@ def _check_bf16_serve(dev):
 
 # -- phase 4: the main paths --------------------------------------------------
 
-def _main_path(args):
-    from repro_torch.core.types import FGLConfig
+def _expected_launches(flags, start: int = 0, gnn_kind: str = "sage") -> dict:
+    """The launches a run of the launcher's flags implies, from its rounds,
+    local steps, K, method and layer count. Every classifier forward
+    launches ``sage_aggregate`` once per layer (GAT's attention launches
+    none): the local steps and the evaluation every round, and the
+    embeddings on each imputation round of the SpreadFGL generator, which
+    launches ``sim_topk`` once. FedSage+'s imputation is plain products."""
     from repro_torch.launch import fgl_train
 
-    # The counts the launcher's own settings imply: rounds, local steps and
-    # K from its parsed flags, the layer count from the config it builds.
-    flags = fgl_train._parser().parse_args(args)
-    imputations = len(range(0, flags.rounds, flags.imputation_interval))
-    num_layers = FGLConfig().num_layers
+    rounds = range(start, start + flags.rounds)
+    imputations = sum(r % flags.imputation_interval == 0 for r in rounds)
+    spread = flags.method in ("FedGL", "SpreadFGL", "spreadfgl_gossip", "spreadfgl_async")
+    forwards = flags.rounds * (flags.local_rounds + 1) + (imputations if spread else 0)
+    layers = 0 if gnn_kind == "gat" else fgl_train.config(flags).num_layers
+    return {"sage_aggregate": forwards * layers, "sim_topk": imputations if spread else 0}
+
+
+def _check_run(what, hist, counts, want, wall):
+    got = {k: counts[k] for k in want}
+    print(f"[smoke] path {what}: {wall:.1f} s wall, rounds {hist['round']}, round seconds "
+          f"{[round(s, 3) for s in hist['seconds']]}, losses "
+          f"{[round(v, 4) for v in hist['loss']]}, launches {got} (expected {want})")
+    if not all(math.isfinite(v) for v in hist["loss"]):
+        raise AssertionError(f"{what}: non-finite loss: {hist['loss']}")
+    if got != want:
+        raise AssertionError(f"{what}: launched {got}, expected {want}")
+
+
+def _main_path(args):
+    from repro_torch.launch import fgl_train
+
+    flags = fgl_train.parse(args)
     _reset_launches()
     t0 = time.perf_counter()
     hist = fgl_train.main(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _launches()
-    sage_n, sim_n = counts["sage_aggregate"], counts["sim_topk"]
-    print(f"[smoke] main path {' '.join(args)}: {wall:.1f} s wall (data included), "
-          f"round seconds {[round(s, 3) for s in hist['seconds']]}, "
-          f"launches sage_aggregate={sage_n} sim_topk={sim_n}")
-    if not all(math.isfinite(v) for v in hist["loss"]):
-        raise AssertionError(f"non-finite loss: {hist['loss']}")
-    # Every classifier forward launches the kernel once per layer: local
-    # steps and evaluation every round, embeddings on each imputation round.
-    forwards = flags.rounds * (flags.local_rounds + 1) + imputations
-    if sage_n != forwards * num_layers:
-        raise AssertionError(f"sage_aggregate launched {sage_n} times, "
-                             f"expected {forwards * num_layers}")
-    if sim_n != imputations:
-        raise AssertionError(f"sim_topk launched {sim_n} times, expected "
-                             f"{imputations} (one per imputation round)")
+    _check_run(f"fgl_train {' '.join(args)} (data included)", hist, counts,
+               _expected_launches(flags), wall)
     return counts
+
+
+def _engine_paths():
+    """The rest of the FGL engine on one full-size Coauthor-CS batch, each
+    run with the launch counters set to 0 just before it and read just
+    after: the launcher's runs, the GCN and GAT classifiers, and the async
+    run stopped after rounds 0-1 and resumed for round 2."""
+    from repro_torch.core import registry
+    from repro_torch.launch import fgl_train
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = fgl_train.build_data(fgl_train.parse(ENGINE_ARGS))
+    print(f"[smoke] Coauthor-CS graph and partition built once in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    runs, hists = [], {}
+
+    def run(what, fn, want):
+        _reset_launches()
+        t0 = time.perf_counter()
+        hist = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launches()
+        _check_run(what, hist, counts, want, wall)
+        runs.append(counts)
+        torch.cuda.empty_cache()
+        return hist
+
+    for what, extra, rounds in ENGINE_RUNS:
+        argv = ENGINE_ARGS + extra + ["--rounds", str(rounds)]
+        hists[what] = run(f"fgl_train {' '.join(argv[len(ENGINE_ARGS):])}",
+                          lambda: fgl_train.main(argv, data=data),
+                          _expected_launches(fgl_train.parse(argv)))
+    flags = fgl_train.parse(ENGINE_ARGS + ["--rounds", "3"])
+    for kind in ENGINE_KINDS:
+        def fit(kind=kind):
+            cfg = dataclasses.replace(fgl_train.config(flags), gnn_kind=kind)
+            tr = registry.build(flags.method, cfg, data[0], num_servers=flags.servers,
+                                device=flags.device)
+            return tr.fit(data[0], rounds=flags.rounds)[1]
+        hists[kind] = run(f"registry.build SpreadFGL gnn_kind={kind}", fit,
+                          _expected_launches(flags, gnn_kind=kind))
+
+    # Stop the async run after rounds 0-1 and resume it for round 2.
+    what, extra, _ = ENGINE_RUNS[2]
+    argv = ENGINE_ARGS + extra
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "state.npz")
+        first = run(f"{what}, rounds 0-1 then --save-state",
+                    lambda: fgl_train.main(argv + ["--rounds", "2", "--save-state", path],
+                                           data=data),
+                    _expected_launches(fgl_train.parse(argv + ["--rounds", "2"])))
+        second = run(f"{what}, --resume for round 2",
+                     lambda: fgl_train.main(argv + ["--rounds", "1", "--resume", path],
+                                            data=data),
+                     _expected_launches(fgl_train.parse(argv + ["--rounds", "1"]), start=2))
+    whole = hists[what]
+    for key in ("round", "loss", "acc", "f1"):
+        if first[key] + second[key] != whole[key]:
+            raise AssertionError(f"{what}: the stopped and resumed run's {key} "
+                                 f"{first[key] + second[key]} differs from the whole "
+                                 f"run's {whole[key]}")
+    print(f"[smoke] path {what} stopped after rounds 0-1 and resumed for round 2: "
+          f"rounds 0-2 equal the whole run's bit for bit")
+    print(f"[smoke] the rest of the FGL engine: {time.perf_counter() - t_phase:.1f} s wall")
+    return runs
 
 
 def _serve_main_path(args):
@@ -765,6 +885,7 @@ def main() -> int:
     # Each path's launches, counted from 0 just before it.
     runs = [_main_path(SPREAD_ARGS), _main_path(FEDGL_ARGS)]
     torch.cuda.empty_cache()
+    runs += _engine_paths()
     runs.append(_serve_main_path(SERVE_ARGS))
     torch.cuda.empty_cache()
     runs.append(_f32_serve_path(dev))

@@ -61,6 +61,8 @@ def state_from_reference(ref_state: Any, *, device="cpu", seed: int = 0) -> FGLS
 
 
 def _host(a: Any) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):     # a leaf of checkpoint.io.load
+        return a.cpu()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":    # numpy's bf16 extension type: widen exactly
         a = a.astype(np.float32)
@@ -85,7 +87,7 @@ def lm_params_from_jax(params: Any, cfg: ModelConfig, device="cpu") -> Transform
             if isinstance(val, dict):
                 put(f"{prefix}{key}.", val, index)
             else:
-                state[prefix + key] = _host(val if index is None else np.asarray(val)[index])
+                state[prefix + key] = _host(val if index is None else val[index])
 
     put("embed.", params["embed"])
     put("final_norm.", params["final_norm"])

@@ -1,10 +1,12 @@
 """Comparison algorithms of Sec. IV-A as pure strategy compositions.
 
-Counterpart of ``repro.core.baselines`` (``fedsage_plus`` is still to port):
+Counterpart of ``repro.core.baselines``:
 
 - LocalFGL: each client trains its classifier alone: identity aggregation,
   no graph fixing.
 - FedAvg-fusion: FedAvg aggregation of client GNNs, no link imputation.
+- FedSagePlus: FedAvg + a local linear neighbor generator per client
+  (Zhang et al., NeurIPS'21 style): no cross-client information flow.
 """
 from __future__ import annotations
 
@@ -28,3 +30,12 @@ def FedAvgFusion(cfg: FGLConfig, batch: ClientBatch, **kw) -> FGLTrainer:
     return FGLTrainer(cfg, batch, topology=S.StarTopology(),
                       aggregator=S.FedAvgAggregator(),
                       imputation=S.NoImputation(), **kw)
+
+
+@register("fedsage_plus")
+def FedSagePlus(cfg: FGLConfig, batch: ClientBatch, *, gen_steps: int = 20,
+                **kw) -> FGLTrainer:
+    """FedAvg + local linear neighbor generation (no global information flow)."""
+    return FGLTrainer(cfg, batch, topology=S.StarTopology(),
+                      aggregator=S.FedAvgAggregator(),
+                      imputation=S.LocalGenImputation(gen_steps=gen_steps), **kw)

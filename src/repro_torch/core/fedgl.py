@@ -10,6 +10,11 @@ Lifecycle::
     state = trainer.init(batch)             # fresh FGLState at round 0
     state, metrics = trainer.step(state)    # ONE global round of Algorithm 1
     state, history = trainer.fit(batch, rounds=30)   # thin step() loop
+    state, history = trainer.fit(state=restored, rounds=10)  # true resume
+
+``fit(state=...)`` continues at ``state.round``: the imputation, gossip,
+participation and async schedules are all functions of the absolute round,
+so a state saved with :mod:`repro_torch.checkpoint.io` continues exactly.
 
 Layout: client classifiers are stacked on a leading [M] axis, clients grouped
 contiguously per server; per-server generator state is stacked on a leading
@@ -18,7 +23,10 @@ local step over all M clients, and the imputation round over all N servers
 (one ``sim_topk`` launch per round for all of them). Where it scans, the port
 loops in Python. Randomness comes from a ``torch.Generator`` seeded from
 ``cfg.seed``; it draws the initial weights and then lives in the state, where
-each imputation round draws its noise S from it.
+each imputation round draws its noise S from it. The participation masks
+and async schedules draw from CPU generators of their own, seeded from
+``(cfg.seed, salt, round)``, so they never touch the training stream and do
+not depend on the device.
 
 The trainer runs on ``device`` ("cuda" by default; it raises when CUDA is
 missing, unless the caller passes ``device="cpu"``, where the kernels' plain
@@ -102,9 +110,16 @@ class FGLTrainer:
                  participation: Optional[float] = None,
                  use_negative_sampling: bool = True, use_assessor: bool = True,
                  edge_mesh=None, device="cuda"):
-        if participation is not None:
+        if participation is not None:     # the constructor override wins
             cfg = dataclasses.replace(cfg, participation=float(participation))
-        _reject_unported(cfg, edge_mesh)
+        if not 0.0 < cfg.participation <= 1.0:
+            raise ValueError(f"participation must be in (0, 1], got {cfg.participation}")
+        if cfg.gnn_kind not in gnn.KINDS:
+            raise ValueError(f"unknown gnn_kind {cfg.gnn_kind!r}; "
+                             f"expected one of {tuple(gnn.KINDS)}")
+        if edge_mesh is not None:
+            raise NotImplementedError("the edge mesh is not ported yet "
+                                      "(ROADMAP.md, queue 1, item 11)")
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -131,6 +146,10 @@ class FGLTrainer:
         self.n_local = batch.n_local_max
         self.use_ns = use_negative_sampling
         self.use_assessor = use_assessor
+        self.participation = float(cfg.participation)
+        # Round-scheduled aggregators (gossip) expose a `period`; the others
+        # have period 1.
+        self._agg_period = max(1, int(getattr(self.aggregator, "period", 1)))
         self.opt = Adam(lr=cfg.lr_classifier)
         self.gen_opt = Adam(lr=cfg.lr_generator)
 
@@ -143,7 +162,7 @@ class FGLTrainer:
         gen.manual_seed(cfg.seed)
         dims = [self.feature_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) + [self.num_classes]
         # Algorithm 1 line 3: all clients start from the server weights W_j.
-        base = gnn.init_sage(gen, dims)
+        base = gnn.init_classifier(gen, cfg.gnn_kind, dims)
         params = tree_map(lambda p: p.expand((self.m,) + p.shape).clone(), base)
         n = self.n_servers
         ae_params = imputation.init_autoencoder(gen, self.num_classes, self.feature_dim,
@@ -165,8 +184,12 @@ class FGLTrainer:
             losses = losses + self.cfg.trace_reg * _trace_reg(params_m)
         return losses
 
+    def _logits(self, params_m: PyTree, batch: ClientBatch) -> torch.Tensor:
+        return gnn.apply_classifier(params_m, self.cfg.gnn_kind, batch.x, batch.adj,
+                                    batch.node_mask)
+
     def _client_loss(self, params_m: PyTree, batch: ClientBatch) -> torch.Tensor:
-        logits = gnn.apply_sage(params_m, batch.x, batch.adj, batch.node_mask)
+        logits = self._logits(params_m, batch)
         # A sum over clients keeps each client's gradients its own.
         return torch.sum(self._client_losses(params_m, logits, batch))
 
@@ -178,17 +201,57 @@ class FGLTrainer:
 
     # -- aggregation (strategy) ----------------------------------------------
 
-    def aggregate(self, params: PyTree, *, round: int = 0) -> PyTree:
-        """Apply this trainer's Aggregator to stacked client classifiers."""
+    def _agg_phase(self, t: int) -> int:
+        """The aggregator's phase of round ``t``: ``period - 1`` on exchange
+        rounds and 0 otherwise, or a buffered aggregator's own 0/1 flush
+        flag (``phase(t, m)``)."""
+        hook = getattr(self.aggregator, "phase", None)
+        if hook is not None:
+            return int(hook(t, self.m))
+        p = self._agg_period
+        return p - 1 if (t + 1) % p == 0 else 0
+
+    def _participation_mask(self, t: int) -> Optional[torch.Tensor]:
+        """[M] 0/1 participation mask of round ``t`` on the device, or None
+        at rho = 1 (the aggregators' exact unmasked path). Drawn on the CPU
+        from ``(cfg.seed, PARTICIPATION_SALT, t)``."""
+        if self.participation >= 1.0:
+            return None
+        gen = strategies.keyed_generator(self.cfg.seed, strategies.PARTICIPATION_SALT, t)
+        return strategies.participation_mask(gen, self.m, self.participation).to(self.device)
+
+    def _agg_mask(self, t: int, participation: Optional[torch.Tensor] = None
+                  ) -> Optional[torch.Tensor]:
+        """The [M] weights of round ``t``'s aggregation, or None: the
+        participation mask (``participation``, or the round's own draw)
+        times a buffered aggregator's staleness weights on flush rounds."""
+        mask = participation if participation is not None else self._participation_mask(t)
+        hook = getattr(self.aggregator, "round_weights", None)
+        weights = hook(t, self.m) if hook is not None else None
+        if weights is None:
+            return mask
+        weights = weights.to(self.device)
+        return weights if mask is None else weights * mask
+
+    def aggregate(self, params: PyTree, *, round: int = 0,
+                  mask: Optional[torch.Tensor] = None) -> PyTree:
+        """Apply this trainer's Aggregator to stacked client classifiers.
+
+        ``round`` is the absolute round (reduced to the aggregator's phase);
+        ``mask`` is the [M] aggregation weights, round ``round``'s own
+        (:meth:`_agg_mask`) when None.
+        """
+        t = int(round)
+        if mask is None:
+            mask = self._agg_mask(t)
         return self.aggregator.aggregate(params, adj=self.adj_servers,
-                                         num_servers=self.n_servers,
-                                         m_per=self.m_per, round=int(round))
+                                         num_servers=self.n_servers, m_per=self.m_per,
+                                         round=self._agg_phase(t), mask=mask)
 
     # -- imputation helpers shared by the strategies --------------------------
 
     def _embeddings(self, params, batch: ClientBatch) -> torch.Tensor:
-        logits = gnn.apply_sage(params, batch.x, batch.adj, batch.node_mask)
-        return torch.softmax(logits, dim=-1)
+        return torch.softmax(self._logits(params, batch), dim=-1)
 
     def _train_generator(self, ae, ae_opt, asr, as_opt, h_real, flat_mask, s_noise):
         """Alternating AE / assessor training (Algorithm 1 lines 16-23).
@@ -265,7 +328,7 @@ class FGLTrainer:
 
     def _evaluate(self, params, batch: ClientBatch):
         """(mean client loss, accuracy, macro-F1) from one forward pass."""
-        logits = gnn.apply_sage(params, batch.x, batch.adj, batch.node_mask)
+        logits = self._logits(params, batch)
         y = batch.y
         pred = torch.argmax(logits, dim=-1)
         mask = batch.test_mask * (y >= 0)
@@ -289,13 +352,15 @@ class FGLTrainer:
 
     # -- outer loop (Algorithm 1) ----------------------------------------------
 
-    def step(self, state: FGLState, noise: Optional[torch.Tensor] = None
-             ) -> Tuple[FGLState, Dict[str, Any]]:
+    def step(self, state: FGLState, noise: Optional[torch.Tensor] = None,
+             mask: Optional[torch.Tensor] = None) -> Tuple[FGLState, Dict[str, Any]]:
         """One global round of Algorithm 1 (lines 6-26).
 
         ``noise`` is this round's S ``[N, M_per*n_pad, c]`` if it is an
-        imputation round (drawn from ``state.gen`` when None). Returns a new
-        state at ``round + 1`` and metrics as tensors.
+        imputation round (drawn from ``state.gen`` when None); ``mask`` is
+        its [M] participation mask (drawn from ``(cfg.seed, round)`` when
+        None and ``participation < 1``). Returns a new state at
+        ``round + 1`` and metrics as tensors.
         """
         t = int(state.round)
         state = dataclasses.replace(state)   # never mutate the caller's state
@@ -304,19 +369,22 @@ class FGLTrainer:
                 state.params, state.opt_state, state.batch)
             if self.imputation.active and (t % self.cfg.imputation_interval == 0):
                 state = self.imputation.impute(self, state, noise=noise)
-            state.params = self.aggregate(state.params, round=t)
+            state.params = self.aggregate(state.params, round=t,
+                                          mask=self._agg_mask(t, mask))
             loss, acc, f1 = self._evaluate(state.params, state.batch)
         state.round = t + 1
         return state, {"round": t, "loss": loss, "acc": acc, "f1": f1}
 
     def fit(self, batch: Optional[ClientBatch] = None, *,
             state: Optional[FGLState] = None, rounds: Optional[int] = None,
-            noise: Optional[Callable[[int], torch.Tensor]] = None
+            noise: Optional[Callable[[int], torch.Tensor]] = None,
+            mask: Optional[Callable[[int], torch.Tensor]] = None
             ) -> Tuple[FGLState, Dict[str, list]]:
         """Run ``rounds`` global rounds (default ``cfg.global_rounds``).
 
         Pass ``batch`` for a fresh run or ``state=`` to continue one.
-        ``noise(round)``, when given, supplies S for each imputation round.
+        ``noise(round)``, when given, supplies S for each imputation round,
+        and ``mask(round)`` each round's participation mask.
         The history also holds each round's wall time in seconds
         (``"seconds"``), taken after the device finished the round.
         """
@@ -333,7 +401,8 @@ class FGLTrainer:
             is_impute = (self.imputation.active
                          and state.round % self.cfg.imputation_interval == 0)
             s = noise(state.round) if (noise is not None and is_impute) else None
-            state, m = self.step(state, noise=s)
+            part = mask(state.round) if mask is not None else None
+            state, m = self.step(state, noise=s, mask=part)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             seconds.append(time.perf_counter() - t0)
@@ -347,17 +416,3 @@ class FGLTrainer:
         }
         return state, history
 
-
-def _reject_unported(cfg: FGLConfig, edge_mesh) -> None:
-    """Raise for configuration the port does not cover yet."""
-    if cfg.gnn_kind != "sage":
-        raise NotImplementedError(f"gnn_kind={cfg.gnn_kind!r} is not ported yet (only 'sage')")
-    if not 0.0 < cfg.participation <= 1.0:
-        raise ValueError(f"participation must be in (0, 1], got {cfg.participation}")
-    for name, default in (("participation", 1.0), ("async_buffer", 0),
-                          ("delay_dist", "zero"), ("dropout_rate", 0.0),
-                          ("gossip_every", 1)):
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(f"{name}={getattr(cfg, name)!r} is not ported yet")
-    if edge_mesh is not None:
-        raise NotImplementedError("the edge mesh is not ported yet")

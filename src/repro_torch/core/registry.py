@@ -7,7 +7,9 @@ the CLI uses::
     from repro_torch.core import registry
     trainer = registry.build("SpreadFGL", cfg, batch, num_servers=3)
 
-Ported methods: ``FedGL``, ``SpreadFGL``, ``local``, ``fedavg_fusion``.
+Methods: ``FedGL``, ``SpreadFGL``, ``spreadfgl_gossip``, ``spreadfgl_async``,
+``local``, ``fedavg_fusion``, ``fedsage_plus``: every method of the
+reference's registry.
 Resolving a name lazily imports the modules that define them, so importing
 this module alone never pulls in the engine.
 """

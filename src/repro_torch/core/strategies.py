@@ -1,30 +1,44 @@
 """Pluggable strategy components of the FGL engine.
 
-Counterpart of ``repro.core.strategies``, for the strategies on the main
-path: the three topologies, the unmasked FedAvg / Eq. 16 / identity
-aggregators, and the SpreadFGL imputation round. The masked and
-participation aggregators, gossip, async and FedSage+'s local generation
-are still to port.
+Counterpart of ``repro.core.strategies``:
 
 - :class:`Topology`: how clients map onto edge servers and how servers are
   wired (star = FedGL, ring = SpreadFGL's testbed, custom adjacency).
 - :class:`Aggregator`: how stacked [M] client classifiers are combined each
-  round.
-- :class:`ImputationStrategy`: the every-K graph-fixing round.
+  round: identity, FedAvg, Eq. 16, gossip every K rounds, or FedBuff-style
+  buffered async aggregation; each takes an optional [M] participation
+  mask.
+- :class:`ImputationStrategy`: the every-K graph-fixing round (SpreadFGL's
+  generator round, or FedSage+'s local generation).
+
+The per-round schedules (participation masks, async delays and dropouts)
+draw from CPU ``torch.Generator``s seeded from ``(seed, salt, round)``, so
+the same run on the card and on the CPU draws the same schedule, and a
+restored checkpoint replays it from its round. Only the edge mesh (the
+gossip ``mesh``) is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Protocol, runtime_checkable
+from typing import Any, Callable, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
-from repro_torch.core import imputation, patcher
+from repro_torch.core import gossip, imputation, patcher
 from repro_torch.core.partition import group_clients_by_server, ring_adjacency
+from repro_torch.core.types import ClientBatch
+from repro_torch.optim.adam import Adam
 from repro_torch.tree import tree_map
 
 PyTree = Any
+
+
+def keyed_generator(*words: int) -> torch.Generator:
+    """A CPU generator seeded from a tuple of non-negative integers (hashed
+    by numpy's ``SeedSequence``): one independent stream per tuple."""
+    seed = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed))
 
 
 # ---------------------------------------------------------------------------
@@ -94,11 +108,47 @@ class CustomTopology:
 # Aggregator: combine client classifiers once per global round.
 # ---------------------------------------------------------------------------
 
+def participation_mask(generator: torch.Generator, num_clients: int,
+                       rho: float) -> torch.Tensor:
+    """One round's participating-client mask: [M] float32 0/1 on the CPU.
+
+    Exactly ``ceil(rho * M)`` clients participate, drawn without
+    replacement from ``generator``, so at least one client always does.
+    """
+    if not 0.0 < rho <= 1.0:
+        raise ValueError(f"participation must be in (0, 1], got {rho}")
+    k = min(num_clients, max(1, int(np.ceil(rho * num_clients - 1e-9))))
+    perm = torch.randperm(num_clients, generator=generator)
+    mask = torch.zeros(num_clients, dtype=torch.float32)
+    mask[perm[:k]] = 1.0
+    return mask
+
+
+def _masked_server_mean(leaf: torch.Tensor, mask_g: torch.Tensor,
+                        num_servers: int, m_per: int) -> torch.Tensor:
+    """Participation-weighted per-server mean over a grouped leaf.
+
+    ``mask_g`` is the [N, m_per] mask. A server whose clients all sit out
+    falls back to the plain mean (it re-broadcasts what it holds).
+    """
+    tail = (1,) * (leaf.ndim - 1)
+    grouped = leaf.reshape((num_servers, m_per) + leaf.shape[1:])
+    shaped = mask_g.reshape((num_servers, m_per) + tail)
+    num = torch.sum(grouped * shaped, dim=1)
+    den = torch.sum(mask_g, dim=1).reshape((num_servers,) + tail)
+    plain = torch.sum(grouped, dim=1) / m_per
+    return torch.where(den > 0, num / torch.clamp_min(den, 1.0), plain)
+
+
 @runtime_checkable
 class Aggregator(Protocol):
     """Combine stacked [M] client classifiers once per global round.
 
-    Only full participation is ported: ``mask`` must be None.
+    ``round`` is the phase the engine derives from the absolute round
+    (``FGLTrainer._agg_phase``); aggregators without a schedule ignore it.
+    ``mask`` is the round's optional [M] weight vector (participation mask,
+    async staleness weights, or their product); ``mask=None`` takes the
+    exact unmasked code path.
     """
 
     def aggregate(self, params: PyTree, *, adj: torch.Tensor,
@@ -106,15 +156,10 @@ class Aggregator(Protocol):
                   mask: Optional[torch.Tensor] = None) -> PyTree: ...
 
 
-def _unmasked(mask) -> None:
-    if mask is not None:
-        raise NotImplementedError("masked (partial-participation) aggregation "
-                                  "is not ported yet")
-
-
 @dataclasses.dataclass(frozen=True)
 class IdentityAggregator:
-    """No aggregation: clients keep their own weights (LocalFGL, Sec. IV-A)."""
+    """No aggregation: clients keep their own weights (LocalFGL, Sec. IV-A).
+    ``mask`` is ignored: a non-participating client keeps its weights."""
 
     def aggregate(self, params, *, adj, num_servers, m_per, round=0, mask=None):
         return params
@@ -122,15 +167,21 @@ class IdentityAggregator:
 
 @dataclasses.dataclass(frozen=True)
 class FedAvgAggregator:
-    """Per-server FedAvg: mean over covered clients, broadcast back."""
+    """Per-server FedAvg: mean over covered clients (over the participating
+    ones under a mask), broadcast back."""
 
     def aggregate(self, params, *, adj, num_servers, m_per, round=0, mask=None):
-        _unmasked(mask)
+        if mask is None:
+            def agg(leaf):
+                grouped = leaf.reshape((num_servers, m_per) + leaf.shape[1:])
+                w = torch.sum(grouped, dim=1) / m_per
+                return torch.repeat_interleave(w, m_per, dim=0)
+        else:
+            mask_g = mask.reshape(num_servers, m_per)
 
-        def agg(leaf):
-            grouped = leaf.reshape((num_servers, m_per) + leaf.shape[1:])
-            w = torch.sum(grouped, dim=1) / m_per
-            return torch.repeat_interleave(w, m_per, dim=0)
+            def agg(leaf):
+                w = _masked_server_mean(leaf, mask_g, num_servers, m_per)
+                return torch.repeat_interleave(w, m_per, dim=0)
         return tree_map(agg, params)
 
 
@@ -138,18 +189,271 @@ class FedAvgAggregator:
 class NeighborAggregator:
     """Eq. 16 (Sec. III-E): each server averages itself and its topology
     neighbors densely, every round:
-    W_j = sum_r a_rj * sum_i W_(r,i) / sum_r a_rj M_r."""
+    W_j = sum_r a_rj * sum_i W_(r,i) / sum_r a_rj M_r.
+
+    Under a mask, M_r becomes the round's participating count; a
+    neighborhood that entirely sat out falls back to the plain Eq. 16 mix.
+    """
 
     def aggregate(self, params, *, adj, num_servers, m_per, round=0, mask=None):
-        _unmasked(mask)
+        if mask is None:
+            def agg(leaf):
+                grouped = leaf.reshape((num_servers, m_per) + leaf.shape[1:])
+                client_sum = torch.sum(grouped, dim=1)                 # [N, ...]
+                num = torch.einsum("rj,r...->j...", adj, client_sum)
+                den = torch.sum(adj, dim=0) * m_per                    # [N]
+                w = num / den.reshape((num_servers,) + (1,) * (leaf.ndim - 1))
+                return torch.repeat_interleave(w, m_per, dim=0)
+        else:
+            mask_g = mask.reshape(num_servers, m_per)
+            counts = torch.sum(mask_g, dim=1)                          # [N]
+
+            def agg(leaf):
+                tail = (1,) * (leaf.ndim - 1)
+                grouped = leaf.reshape((num_servers, m_per) + leaf.shape[1:])
+                shaped = mask_g.reshape((num_servers, m_per) + tail)
+                num = torch.einsum("rj,r...->j...", adj, torch.sum(grouped * shaped, dim=1))
+                den = torch.einsum("r,rj->j", counts, adj).reshape((num_servers,) + tail)
+                plain_num = torch.einsum("rj,r...->j...", adj, torch.sum(grouped, dim=1))
+                plain_den = (torch.sum(adj, dim=0) * m_per).reshape((num_servers,) + tail)
+                w = torch.where(den > 0, num / torch.clamp_min(den, 1.0),
+                                plain_num / plain_den)
+                return torch.repeat_interleave(w, m_per, dim=0)
+        return tree_map(agg, params)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GossipAggregator:
+    """Sec. III-E load balancing as gossip over the edge servers.
+
+    Each round every server FedAvg-aggregates its own clients; the
+    cross-server exchange with topology neighbors (Eq. 16 weights) happens
+    only every ``every_k`` rounds. ``topology="ring"`` exchanges through
+    :func:`gossip.block_ring_gossip` (N >= 3; N <= 2 takes the adjacency
+    path, where a 2-ring's double edge would be counted twice),
+    ``"adjacency"`` through :func:`gossip.adjacency_gossip`. With
+    ``every_k=1`` it equals :class:`NeighborAggregator`; on skip rounds,
+    per-server FedAvg. Under a mask, participation gates the edge-client
+    leg only. The exchange runs on one host: a ``mesh`` is not ported.
+    """
+
+    topology: str = "ring"        # "ring" | "adjacency"
+    every_k: int = 1
+    mesh: Any = None
+
+    def __post_init__(self):
+        if self.topology not in ("ring", "adjacency"):
+            raise ValueError(f"unknown gossip topology {self.topology!r}; "
+                             f"expected 'ring' or 'adjacency'")
+        if self.every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {self.every_k}")
+        if self.mesh is not None:
+            raise NotImplementedError("a gossip mesh (the edge mesh) is not ported "
+                                      "yet (ROADMAP.md, queue 1, item 11)")
+
+    @property
+    def period(self) -> int:
+        """Exchange schedule length; the engine passes ``round`` mod this."""
+        return self.every_k
+
+    def aggregate(self, params, *, adj, num_servers, m_per, round=0, mask=None):
+        if mask is None:
+            def server_mean(leaf):
+                grouped = leaf.reshape((num_servers, m_per) + leaf.shape[1:])
+                return torch.sum(grouped, dim=1) / m_per
+        else:
+            mask_g = mask.reshape(num_servers, m_per)
+
+            def server_mean(leaf):
+                return _masked_server_mean(leaf, mask_g, num_servers, m_per)
+
+        w = tree_map(server_mean, params)                          # [N, ...]
+        if num_servers > 1 and (round + 1) % self.every_k == 0:
+            if self.topology == "ring" and num_servers >= 3:
+                w = gossip.block_ring_gossip(w)
+            else:
+                w = gossip.adjacency_gossip(w, adj)
+        return tree_map(lambda leaf: torch.repeat_interleave(leaf, m_per, dim=0), w)
+
+
+# ---------------------------------------------------------------------------
+# Async straggler-tolerant aggregation (FedBuff-style).
+# ---------------------------------------------------------------------------
+
+ASYNC_DELAY_DISTS = ("zero", "uniform", "geometric")
+
+# Salt of the async delay/dropout stream; the participation stream has its
+# own (PARTICIPATION_SALT), and neither touches the training generator.
+ASYNC_SALT = 0xA57C
+PARTICIPATION_SALT = 0x9A57
+
+
+def async_delay_stream(seed: int, round: int, num_clients: int, *,
+                       delay_dist: str = "zero", max_delay: int = 4,
+                       dropout_rate: float = 0.0):
+    """Round ``round``'s arrival delays and dropout flags, per client.
+
+    Returns ``(delays int32 [M], drops bool [M])`` numpy arrays: how many
+    rounds client i's update stays in flight (0 = arrives this round), and
+    whether it is lost at send time (the client retries next round). The
+    delays draw from ``keyed_generator(seed, ASYNC_SALT, round, 0)`` and the
+    drops from ``(..., 1)``: a pure function of (seed, round), and the drops
+    do not depend on the delay distribution.
+
+    ``"zero"``: no delay; ``"uniform"``: uniform on {0..max_delay};
+    ``"geometric"``: p = 1/2 on {0, 1, ...} by float64 inverse transform,
+    capped at ``max_delay``.
+    """
+    if delay_dist not in ASYNC_DELAY_DISTS:
+        raise ValueError(f"unknown delay_dist {delay_dist!r}; "
+                         f"expected one of {ASYNC_DELAY_DISTS}")
+    if max_delay < 0:
+        raise ValueError(f"max_delay must be >= 0, got {max_delay}")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    kd = keyed_generator(seed, ASYNC_SALT, round, 0)
+    kx = keyed_generator(seed, ASYNC_SALT, round, 1)
+    if delay_dist == "zero":
+        delays = np.zeros(num_clients, np.int32)
+    elif delay_dist == "uniform":
+        delays = torch.randint(0, max_delay + 1, (num_clients,),
+                               generator=kd).numpy().astype(np.int32)
+    else:
+        u = torch.rand(num_clients, generator=kd).numpy().astype(np.float64)
+        delays = np.minimum(np.floor(np.log1p(-u) / np.log(0.5)),
+                            max_delay).astype(np.int32)
+    drops = torch.rand(num_clients, generator=kx).numpy() < dropout_rate
+    return delays, drops
+
+
+# (spec, stream) -> incremental replay state; see _async_schedule. Purely a
+# cache: entries are reproducible from scratch.
+_ASYNC_SCHEDULES: dict = {}
+
+
+def _async_schedule(spec: tuple, round: int, stream: Optional[Callable] = None):
+    """``(flush, weights)`` of round ``round`` for one async spec.
+
+    ``spec = (seed, num_clients, buffer_size, delay_dist, max_delay,
+    dropout_rate)``; ``stream`` is the delay/dropout draw with
+    :func:`async_delay_stream`'s signature (that function when None; the
+    cache is keyed by it too). Replays the client state machine from round
+    0, cached incrementally:
+
+    - a client with no update in flight sends one every round; the round's
+      draw gives its arrival delay, or drops it;
+    - an update arriving at round t joins the buffer with report round t
+      (one slot per client: a fresher arrival replaces a staler one);
+    - when >= buffer_size updates are buffered at the end of a round, the
+      server flushes with ``weights[i] = 1/sqrt(1 + t - report[i])`` for
+      buffered clients, 0 elsewhere, and the buffer empties.
+
+    On non-flush rounds weights is None (aggregation is identity).
+    """
+    stream = async_delay_stream if stream is None else stream
+    seed, m, buffer_size, delay_dist, max_delay, dropout_rate = spec
+    cache = _ASYNC_SCHEDULES.setdefault((spec, stream), {
+        "next": 0,
+        "arrival": np.full(m, -1, np.int64),   # in-flight arrival round
+        "report": np.full(m, -1, np.int64),    # buffered report round
+        "out": [],
+    })
+    arrival, report = cache["arrival"], cache["report"]
+    while cache["next"] <= round:
+        t = cache["next"]
+        delays, drops = stream(seed, t, m, delay_dist=delay_dist,
+                               max_delay=max_delay, dropout_rate=dropout_rate)
+        free = arrival < 0
+        send = free & ~drops
+        arrival[send] = t + delays[send]
+        arrived = arrival == t
+        report[arrived] = t
+        arrival[arrived] = -1
+        buffered = report >= 0
+        if int(buffered.sum()) >= buffer_size:
+            tau = (t - report).astype(np.float32)
+            weights = np.where(buffered,
+                               1.0 / np.sqrt(np.float32(1.0) + tau),
+                               np.float32(0.0)).astype(np.float32)
+            report[:] = -1
+            cache["out"].append((True, weights))
+        else:
+            cache["out"].append((False, None))
+        cache["next"] = t + 1
+    return cache["out"][round]
+
+
+@dataclasses.dataclass(frozen=True)
+class AsyncAggregator:
+    """Buffered straggler-tolerant aggregation (FedBuff, Nguyen et al. '22).
+
+    Client updates report with per-round arrival delays and dropouts
+    (:func:`async_delay_stream`); the server buffers them and flushes only
+    once ``buffer_size`` are buffered. On a flush each edge server takes the
+    staleness-discounted mean of its buffered clients,
+    W_j = sum_i w_i W_(j,i) / sum_i w_i with w_i = 1 / sqrt(1 + tau_i), and
+    broadcasts it; a server with nothing buffered keeps its clients'
+    weights. Non-flush rounds are identity. The schedule is a pure function
+    of (seed, round), so a resume mid-buffer replays it exactly. With
+    ``buffer_size = M``, zero delays and no dropouts every weight is 1.0 and
+    the flush is :class:`FedAvgAggregator`'s unmasked mean, bit for bit.
+    """
+
+    buffer_size: int = 1
+    delay_dist: str = "zero"      # "zero" | "uniform" | "geometric"
+    dropout_rate: float = 0.0     # P(update lost at send), per client-round
+    max_delay: int = 4            # delay cap in rounds
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.buffer_size < 1:
+            raise ValueError(f"buffer_size must be >= 1, got {self.buffer_size}")
+        if self.delay_dist not in ASYNC_DELAY_DISTS:
+            raise ValueError(f"unknown delay_dist {self.delay_dist!r}; "
+                             f"expected one of {ASYNC_DELAY_DISTS}")
+        if not 0.0 <= self.dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate must be in [0, 1), "
+                             f"got {self.dropout_rate}")
+        if self.max_delay < 0:
+            raise ValueError(f"max_delay must be >= 0, got {self.max_delay}")
+
+    def _spec(self, num_clients: int) -> tuple:
+        if self.buffer_size > num_clients:
+            raise ValueError(
+                f"buffer_size={self.buffer_size} can never fill: the buffer "
+                f"holds at most one update per client (M={num_clients})")
+        return (self.seed, num_clients, self.buffer_size, self.delay_dist,
+                self.max_delay, self.dropout_rate)
+
+    def phase(self, round: int, num_clients: int) -> int:
+        """1 on flush rounds, 0 otherwise."""
+        flush, _ = _async_schedule(self._spec(num_clients), round)
+        return int(flush)
+
+    def round_weights(self, round: int, num_clients: int) -> Optional[torch.Tensor]:
+        """[M] float32 staleness weights (CPU) on flush rounds, else None."""
+        _, weights = _async_schedule(self._spec(num_clients), round)
+        return None if weights is None else torch.from_numpy(weights.copy())
+
+    def aggregate(self, params, *, adj, num_servers, m_per, round=0, mask=None):
+        """``round`` is the flush phase (1 = flush); ``mask`` carries the
+        [M] staleness weights (zero = not buffered). ``adj`` is unused: the
+        flush is per server."""
+        if not round or mask is None:
+            return params
+        mask_g = mask.to(torch.float32).reshape(num_servers, m_per)
+        den = torch.sum(mask_g, dim=1)                       # [N] total weight
 
         def agg(leaf):
+            tail = (1,) * (leaf.ndim - 1)
             grouped = leaf.reshape((num_servers, m_per) + leaf.shape[1:])
-            client_sum = torch.sum(grouped, dim=1)                 # [N, ...]
-            num = torch.einsum("rj,r...->j...", adj, client_sum)
-            den = torch.sum(adj, dim=0) * m_per                    # [N]
-            w = num / den.reshape((num_servers,) + (1,) * (leaf.ndim - 1))
-            return torch.repeat_interleave(w, m_per, dim=0)
+            shaped = mask_g.reshape((num_servers, m_per) + tail)
+            num = torch.sum(grouped * shaped, dim=1)
+            den_s = den.reshape((num_servers,) + tail)
+            w = num / torch.where(den_s > 0, den_s, torch.ones_like(den_s))
+            keep = torch.repeat_interleave(den > 0, m_per).reshape(
+                (num_servers * m_per,) + tail)
+            return torch.where(keep, torch.repeat_interleave(w, m_per, dim=0), leaf)
         return tree_map(agg, params)
 
 
@@ -249,6 +553,70 @@ class SpreadImputation:
         return dataclasses.replace(state, batch=batch, ae_params=ae_params,
                                    ae_opt=ae_opt, as_params=as_params,
                                    as_opt=as_opt)
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalGenImputation:
+    """FedSage+-style purely local neighbor generation (Zhang et al. '21).
+
+    Per client: train a linear x -> mean(neighbor x) predictor on the
+    client's own neighborhoods, then append one synthetic neighbor to each
+    of the ``aug_max`` highest-degree nodes. No cross-client information
+    flows. Deterministic: it draws nothing from the state's generator.
+    """
+
+    gen_steps: int = 20
+
+    active = True
+
+    def impute(self, engine, state, noise=None):
+        return dataclasses.replace(state, batch=_local_generation(state.batch, self.gen_steps))
+
+
+def _local_generation(batch: ClientBatch, gen_steps: int) -> ClientBatch:
+    """FedSage+'s generator, all M clients in one batched pass: ``W [M, d, d]``
+    and ``b [M, d]`` from zero, ``gen_steps`` Adam steps (lr 1e-2) on the
+    masked squared error, then the augmented batch in new tensors."""
+    x, adj, node_mask = batch.x, batch.adj, batch.node_mask
+    m, n_pad, d = x.shape
+    n_local, aug = batch.n_local_max, batch.aug_max
+    nm = node_mask[:, :n_local]
+    a = adj[:, :n_local, :n_local] * (nm[:, :, None] * nm[:, None, :])
+    deg = torch.sum(a, dim=-1)                                    # [M, n_local]
+    xl = x[:, :n_local]
+    target = (a @ xl) / torch.clamp_min(deg[..., None], 1.0)
+    # The loss per client is sum((pred - target)^2 * mask) / max(sum(mask), 1)
+    # over nodes with a neighbor; its gradient is written out (x needs none).
+    mask = (deg > 0).to(x.dtype)
+    inv = mask / torch.clamp_min(torch.sum(mask, -1, keepdim=True), 1.0)   # [M, n_local]
+    xl_t = xl.transpose(1, 2)
+    opt = Adam(lr=1e-2)
+    p = {"w": torch.zeros((m, d, d), dtype=torch.float32, device=x.device),
+         "b": torch.zeros((m, d), dtype=torch.float32, device=x.device)}
+    st = opt.init(p, lead=(m,))
+    for _ in range(gen_steps):
+        g_pred = inv[..., None] * (2.0 * (xl @ p["w"] + p["b"][:, None, :] - target))
+        p, st = opt.update({"w": xl_t @ g_pred, "b": torch.sum(g_pred, dim=1)}, st, p)
+
+    # Highest-degree real nodes get one synthetic neighbor each; ties go to
+    # the lower index, as jax.lax.top_k breaks them.
+    score = torch.where(nm > 0, deg, torch.full_like(deg, -torch.inf))
+    src = torch.sort(score, dim=-1, descending=True, stable=True).indices[:, :aug]
+    ok = torch.isfinite(torch.gather(score, 1, src)).to(x.dtype)       # [M, aug]
+    x_src = torch.gather(xl, 1, src[..., None].expand(m, aug, d))
+    feats = x_src @ p["w"] + p["b"][:, None, :]
+    rows = torch.arange(m, device=x.device)[:, None].expand(m, aug)
+    aug_rows = (n_local + torch.arange(aug, device=x.device))[None, :].expand(m, aug)
+    x_new = x.clone()
+    x_new[:, n_local:] = feats * ok[..., None]     # aug rows are exactly [n_local, n_pad)
+    adj_new = adj.clone()
+    adj_new[:, n_local:, :] = 0.0
+    adj_new[:, :, n_local:] = 0.0
+    adj_new[rows, src, aug_rows] = ok
+    adj_new[rows, aug_rows, src] = ok
+    mask_new = node_mask.clone()
+    mask_new[:, n_local:] = ok
+    return batch.replace(x=x_new, adj=adj_new, node_mask=mask_new)
 
 
 def _take_opt(opt, j):

@@ -77,8 +77,9 @@ class ClientBatch:
     train_mask: Array  # [M, n_pad] 1.0 for labeled training nodes
     test_mask: Array   # [M, n_pad] 1.0 for held-out eval nodes
     global_id: Array   # [M, n_pad] int32 index into the global graph (-1 pad)
-    num_classes: int
-    aug_max: int
+    # Static: not leaves of a checkpoint, as in the reference.
+    num_classes: int = dataclasses.field(metadata=dict(static=True))
+    aug_max: int = dataclasses.field(metadata=dict(static=True))
 
     @property
     def num_clients(self) -> int:
@@ -106,15 +107,13 @@ class FGLConfig:
     """Hyperparameters of FedGL / SpreadFGL (Sec. III, parameter settings).
 
     The same fields and defaults as ``repro.core.types.FGLConfig`` minus
-    ``kernel_impl``. The participation, async and gossip fields are kept so a
-    configuration reads the same in both packages; ``FGLTrainer`` raises
-    ``NotImplementedError`` when any of them leaves its default.
+    ``kernel_impl``.
     """
 
     # GNN node classifier (GraphSAGE, GCN aggregator, 2 layers in the paper).
     hidden_dim: int = 64
     num_layers: int = 2
-    gnn_kind: str = "sage"            # only "sage" is ported
+    gnn_kind: str = "sage"            # "sage" | "gcn" | "gat"
     dropout: float = 0.0
 
     # Federated schedule (Algorithm 1).
@@ -123,11 +122,11 @@ class FGLConfig:
     local_rounds: int = 10             # T_l
     global_rounds: int = 30            # T_g
     imputation_interval: int = 5       # K
-    gossip_every: int = 1
-    participation: float = 1.0
-    async_buffer: int = 0
-    delay_dist: str = "zero"
-    dropout_rate: float = 0.0
+    gossip_every: int = 1              # spreadfgl_gossip's exchange interval
+    participation: float = 1.0        # fraction of clients per aggregation
+    async_buffer: int = 0              # spreadfgl_async's buffer size B
+    delay_dist: str = "zero"           # async arrival delays
+    dropout_rate: float = 0.0          # async mid-round dropouts
     async_max_delay: int = 4
     ae_iters: int = 5                  # T_ae
     assessor_iters: int = 3            # T_as

@@ -4,38 +4,46 @@
       --dataset coauthor_cs --scale 1.0 --method SpreadFGL --clients 6 \\
       --servers 3 --rounds 3 -K 2 [--device cuda]
 
-The same flags, defaults and print lines as ``repro.launch.fgl_train``, with
-``--impl`` replaced by ``--device {cuda,cpu}`` (default ``cuda``: the run
-fails without a GPU rather than falling back). Flags for what the port does
-not cover yet (partial participation, gossip, async, checkpoints, the edge
-mesh and the sharded similarity search, and the methods ``fedsage_plus``,
-``spreadfgl_gossip``, ``spreadfgl_async``) are accepted and raise
-``NotImplementedError`` when set. Each round's wall time is printed after the
-round lines.
+The same flags, defaults, validation and print lines as
+``repro.launch.fgl_train``, with ``--impl`` replaced by ``--device
+{cuda,cpu}`` (default ``cuda``: the run fails without a GPU rather than
+falling back). Every method of the reference's registry runs.
+``--gossip-every K > 1`` turns SpreadFGL into ``spreadfgl_gossip``;
+``--async-buffer B > 0`` turns FedGL into ``spreadfgl_async`` on one server
+and SpreadFGL into ``spreadfgl_async`` (delays from ``--delay-dist``,
+dropouts at ``--dropout-rate``); ``--participation R`` lets ceil(R·M)
+clients into each round's aggregation. ``--save-state`` writes the final
+``FGLState`` to an ``.npz``; ``--resume`` continues one at its round. A
+checkpoint the JAX package wrote resumes too: every leaf but its PRNG
+``key`` is taken, and the port's generator starts from ``--seed``, so its
+later imputation noise differs from the reference's. ``--edge-mesh`` and
+``--sim-shard`` need several devices and raise ``NotImplementedError``. Each
+round's wall time is printed after the round lines.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
-from typing import Dict, Optional, Sequence
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
+
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import registry
-from repro_torch.core.fedgl import resolve_device
+from repro_torch.core.fedgl import FGLState, resolve_device
 from repro_torch.core.partition import (PARTITIONERS, count_missing_links,
                                         label_skew_entropy, make_partitioner,
                                         partition_graph)
-from repro_torch.core.types import FGLConfig
+from repro_torch.core.types import ClientBatch, FGLConfig, Graph
 from repro_torch.data.synthetic_graphs import DATASETS, make_sbm_graph
-
-# Every method name of the reference launcher; the unported ones raise.
-METHODS = ("FedGL", "SpreadFGL", "fedavg_fusion", "fedsage_plus", "local",
-           "spreadfgl_async", "spreadfgl_gossip")
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", choices=tuple(DATASETS), default="cora")
-    ap.add_argument("--method", default="SpreadFGL", choices=METHODS)
+    ap.add_argument("--method", default="SpreadFGL", choices=registry.names())
     ap.add_argument("--clients", type=int, default=6)
     ap.add_argument("--servers", type=int, default=3)
     ap.add_argument("--rounds", type=int, default=12)
@@ -48,7 +56,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--alpha", type=float, default=1.0,
                     help="Dirichlet concentration for --partitioner dirichlet")
     ap.add_argument("--participation", type=float, default=1.0,
-                    help="fraction of clients per round (only 1.0 is ported)")
+                    help="fraction of clients participating in each round's "
+                         "aggregation (rho in (0,1]; 1.0 = everyone)")
     ap.add_argument("--label-ratio", type=float, default=0.3)
     ap.add_argument("--scale", type=float, default=0.15)
     ap.add_argument("--feature-noise", type=float, default=3.0)
@@ -58,46 +67,85 @@ def _parser() -> argparse.ArgumentParser:
                     help="where the trainer runs: cuda launches the CUDA "
                          "kernels, cpu runs their plain PyTorch versions")
     ap.add_argument("--gossip-every", type=int, default=1,
-                    help="gossip exchange interval (not ported yet)")
+                    help="cross-server exchange interval K for "
+                         "spreadfgl_gossip (selecting a K > 1 forces that method)")
     ap.add_argument("--async-buffer", type=int, default=0,
-                    help="FedBuff-style buffer size (not ported yet)")
+                    help="FedBuff-style buffered aggregation: flush when B "
+                         "client updates are buffered (0 = synchronous; "
+                         "selecting B forces the spreadfgl_async method)")
     ap.add_argument("--delay-dist", default="zero",
                     choices=("zero", "uniform", "geometric"),
-                    help="async arrival-delay distribution (not ported yet)")
+                    help="client arrival-delay distribution for --async-buffer")
     ap.add_argument("--dropout-rate", type=float, default=0.0,
-                    help="async mid-round dropout rate (not ported yet)")
+                    help="per-round probability a client update is lost "
+                         "mid-round (--async-buffer only; in [0, 1))")
     ap.add_argument("--json-out", default="")
-    ap.add_argument("--save-state", default="", help="not ported yet")
-    ap.add_argument("--resume", default="", help="not ported yet")
-    ap.add_argument("--edge-mesh", action="store_true", help="not ported yet")
-    ap.add_argument("--sim-shard", action="store_true", help="not ported yet")
+    ap.add_argument("--save-state", default="",
+                    help="write the final FGLState to this .npz")
+    ap.add_argument("--resume", default="",
+                    help="restore an FGLState .npz and continue at its round")
+    ap.add_argument("--edge-mesh", action="store_true",
+                    help="not ported yet (ROADMAP.md, queue 1, item 11)")
+    ap.add_argument("--sim-shard", action="store_true",
+                    help="not ported yet (ROADMAP.md, queue 1, item 10)")
     return ap
 
 
-def _reject_unported(args: argparse.Namespace) -> None:
-    unported = {
-        "--participation": args.participation != 1.0,
-        "--gossip-every": args.gossip_every != 1,
-        "--async-buffer": args.async_buffer != 0,
-        "--delay-dist": args.delay_dist != "zero",
-        "--dropout-rate": args.dropout_rate != 0.0,
-        "--save-state": bool(args.save_state),
-        "--resume": bool(args.resume),
-        "--edge-mesh": args.edge_mesh,
-        "--sim-shard": args.sim_shard,
-        f"--method {args.method}": args.method not in registry.names(),
-    }
-    hit = [flag for flag, is_set in unported.items() if is_set]
-    if hit:
-        raise NotImplementedError(f"not ported to repro_torch yet: {', '.join(hit)}")
+def _resolve_method(ap: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+    """The reference's validation, and its mapping of flags to methods."""
+    if not 0.0 < args.participation <= 1.0:
+        ap.error("--participation must be in (0, 1]")
+    if args.gossip_every < 1:
+        ap.error("--gossip-every must be >= 1 (1 == exchange every round)")
+    if args.gossip_every > 1:
+        if args.method == "SpreadFGL":
+            args.method = "spreadfgl_gossip"
+        elif args.method != "spreadfgl_gossip":
+            ap.error(f"--gossip-every applies to SpreadFGL/spreadfgl_gossip, "
+                     f"not --method {args.method}")
+    if args.async_buffer < 0:
+        ap.error("--async-buffer must be >= 0 (0 == synchronous)")
+    if args.async_buffer > args.clients:
+        ap.error(f"--async-buffer {args.async_buffer} can never fill with "
+                 f"only {args.clients} clients (one buffer slot per client)")
+    if not 0.0 <= args.dropout_rate < 1.0:
+        ap.error("--dropout-rate must be in [0, 1)")
+    if args.async_buffer > 0:
+        if args.method == "FedGL":
+            args.method, args.servers = "spreadfgl_async", 1
+        elif args.method == "SpreadFGL":
+            args.method = "spreadfgl_async"
+        elif args.method != "spreadfgl_async":
+            ap.error(f"--async-buffer applies to FedGL/SpreadFGL/"
+                     f"spreadfgl_async, not --method {args.method}")
+    elif args.method == "spreadfgl_async":
+        ap.error("--method spreadfgl_async needs --async-buffer >= 1")
+    if args.edge_mesh:
+        raise NotImplementedError("--edge-mesh is not ported to repro_torch yet "
+                                  "(ROADMAP.md, queue 1, item 11)")
+    if args.sim_shard:
+        raise NotImplementedError("--sim-shard is not ported to repro_torch yet "
+                                  "(ROADMAP.md, queue 1, item 10)")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, list]:
-    """Train from the command line; returns the history it printed."""
-    args = _parser().parse_args(argv)
-    _reject_unported(args)
-    resolve_device(args.device)   # fail before building data, not after
+def resume_state(path: str, template: FGLState) -> FGLState:
+    """The ``FGLState`` in the ``.npz`` at ``path``, on ``template``'s device.
 
+    A checkpoint of this package restores whole, its generator included. One
+    the JAX package wrote holds a PRNG ``key`` instead of a generator: every
+    other leaf is taken, and the generator stays ``template``'s.
+    """
+    with np.load(path, allow_pickle=False) as data:
+        own = "gen" in data.files
+    fields = {f.name: getattr(template, f.name) for f in dataclasses.fields(template)}
+    if not own:
+        fields.pop("gen")
+    return dataclasses.replace(template, **ckpt_io.restore(path, fields))
+
+
+def build_data(args: argparse.Namespace) -> Tuple[ClientBatch, Graph, np.ndarray]:
+    """The synthetic graph of the flags, and its partition into clients:
+    ``(batch, graph, assign)``."""
     graph = make_sbm_graph(DATASETS[args.dataset], scale=args.scale,
                            seed=args.seed + 1, feature_noise=args.feature_noise,
                            signal_ratio=args.signal_ratio)
@@ -105,26 +153,74 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, list]:
     batch, assign = partition_graph(graph, args.clients, aug_max=12,
                                     seed=args.seed, label_ratio=args.label_ratio,
                                     partitioner=part)
+    return batch, graph, assign
+
+
+def config(args: argparse.Namespace) -> FGLConfig:
+    """The ``FGLConfig`` the launcher trains with, from the flags."""
+    return FGLConfig(hidden_dim=32, local_rounds=args.local_rounds,
+                     imputation_interval=args.imputation_interval,
+                     top_k_links=args.top_k, aug_max=12,
+                     label_ratio=args.label_ratio,
+                     gossip_every=args.gossip_every,
+                     async_buffer=args.async_buffer,
+                     delay_dist=args.delay_dist,
+                     dropout_rate=args.dropout_rate,
+                     participation=args.participation, seed=args.seed)
+
+
+def parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The flags, validated, with the method they select."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    _resolve_method(ap, args)
+    return args
+
+
+def main(argv: Optional[Sequence[str]] = None, *,
+         data: Optional[Tuple[ClientBatch, Graph, np.ndarray]] = None) -> Dict[str, list]:
+    """Train from the command line; returns the history it printed.
+    ``data`` is :func:`build_data`'s result for these flags, when the caller
+    already built it."""
+    args = parse(argv)
+    resolve_device(args.device)   # fail before building data, not after
+    batch, graph, assign = data if data is not None else build_data(args)
     ent = label_skew_entropy(assign, graph.y, args.clients)
     print(f"[fgl] {args.dataset}: {graph.num_nodes} nodes, "
           f"{count_missing_links(graph, assign)} missing cross-client links")
     print(f"[fgl] partitioner={args.partitioner} "
           f"mean client label entropy={ent.mean():.3f} nats")
-    cfg = FGLConfig(hidden_dim=32, local_rounds=args.local_rounds,
-                    imputation_interval=args.imputation_interval,
-                    top_k_links=args.top_k, aug_max=12,
-                    label_ratio=args.label_ratio, seed=args.seed)
+    if args.participation < 1.0:
+        n_part = max(1, math.ceil(args.participation * args.clients))
+        print(f"[fgl] partial participation: rho={args.participation} "
+              f"({n_part} of {args.clients} clients aggregate per round)")
+    cfg = config(args)
     kw = {"device": args.device}
-    if args.method == "SpreadFGL":
+    if args.method in ("SpreadFGL", "spreadfgl_gossip", "spreadfgl_async"):
         kw["num_servers"] = args.servers
+    if args.method == "spreadfgl_gossip":
+        print(f"[fgl] gossip aggregation: cross-server exchange every "
+              f"{args.gossip_every} round(s)")
+    if args.method == "spreadfgl_async":
+        print(f"[fgl] async aggregation: buffer B={args.async_buffer} of "
+              f"M={args.clients}, delays={args.delay_dist}, "
+              f"dropout={args.dropout_rate}")
     tr = registry.build(args.method, cfg, batch, **kw)
-    state, hist = tr.fit(batch, rounds=args.rounds)
+    if args.resume:
+        state = resume_state(args.resume, tr.init(batch))
+        print(f"[fgl] resumed {args.resume} at round {state.round}")
+        state, hist = tr.fit(state=state, rounds=args.rounds)
+    else:
+        state, hist = tr.fit(batch, rounds=args.rounds)
     for i, r in enumerate(hist["round"]):
         print(f"[fgl] round {r:3d} loss={hist['loss'][i]:8.4f} "
               f"acc={hist['acc'][i]:.3f} f1={hist['f1'][i]:.3f}")
     print(f"[fgl] best acc={max(hist['acc']):.3f} f1={max(hist['f1']):.3f}")
     print("[fgl] round seconds: "
           + " ".join(f"{s:.3f}" for s in hist["seconds"]) + f" ({args.device})")
+    if args.save_state:
+        ckpt_io.save(args.save_state, state)
+        print(f"[fgl] saved FGLState (round {state.round}) to {args.save_state}")
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(hist, f)

@@ -9,7 +9,9 @@ random, drawn on the device from seed 0; prompts come from
 ``numpy.random.default_rng(0)``, as in the reference. Prefill (through the
 CUDA ``flash_attention`` kernel) and the decode loop are timed separately,
 each clock reading after ``torch.cuda.synchronize()``. Only dense
-architectures build so far; ``--checkpoint`` is not ported yet.
+architectures build so far. ``--checkpoint`` loads the weights from an
+``.npz`` of ``transformer.init_model`` parameters that the JAX package wrote
+(``repro.checkpoint.io.save``), through ``convert.lm_params_from_jax``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, convert
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core.fedgl import resolve_device
 from repro_torch.kernels import build
 from repro_torch.models import transformer
@@ -35,7 +38,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--checkpoint", default="", help="not ported yet")
+    ap.add_argument("--checkpoint", default="",
+                    help="an .npz of the JAX package's LM parameters to serve")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the model runs: cuda launches the CUDA kernels, "
                          "cpu runs their plain PyTorch versions")
@@ -52,12 +56,12 @@ def setup(args: argparse.Namespace
     """The engine with its random model on the device, the prompts, and the
     sampling generator (None when greedy), from the parsed flags; the
     kernels are built here, as set-up."""
-    if args.checkpoint:
-        raise NotImplementedError("--checkpoint: checkpoint I/O is not ported to "
-                                  "repro_torch yet (ROADMAP.md, queue 1, item 6)")
     dev = resolve_device(args.device)
     cfg = configs.get_config(args.arch, args.variant)
-    model = transformer.init_model(cfg, seed=0, device=dev)
+    if args.checkpoint:
+        model = convert.lm_params_from_jax(ckpt_io.load(args.checkpoint), cfg, device=dev)
+    else:
+        model = transformer.init_model(cfg, seed=0, device=dev)
     engine = ServeEngine(model, max_len=args.prompt_len + args.steps + 8)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len)).astype(np.int32)

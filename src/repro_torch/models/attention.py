@@ -9,7 +9,7 @@ Sliding-window layers keep a ring-buffer cache of ``window`` entries; global
 layers keep the full-sequence cache. window == 0 means global.
 
 Not ported yet: ``_sdpa_chunked`` and ``cross_attention`` (ROADMAP.md,
-queue 1, item 10).
+queue 1, item 9).
 """
 from __future__ import annotations
 

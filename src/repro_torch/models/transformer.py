@@ -9,7 +9,7 @@ and parameter names follow the reference's pytree keys (``embed.tokens``,
 
 Only ``arch_type == "dense"`` builds. MoE, ssm, hybrid, vlm and audio raise
 ``NotImplementedError`` when the model is built (ROADMAP.md, queue 1,
-item 10). ``sharding.constraints.constrain`` is a no-op on one card and has
+item 9). ``sharding.constraints.constrain`` is a no-op on one card and has
 no counterpart here.
 """
 from __future__ import annotations
@@ -57,7 +57,7 @@ def _check_ported(cfg: ModelConfig) -> None:
     if cfg.arch_type != "dense":
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported to repro_torch yet; "
-            f"only dense transformers build (ROADMAP.md, queue 1, item 10)")
+            f"only dense transformers build (ROADMAP.md, queue 1, item 9)")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -75,7 +75,7 @@ class Block(nn.Module):
         super().__init__()
         if kind != "attn":
             raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                      f"(ROADMAP.md, queue 1, item 10)")
+                                      f"(ROADMAP.md, queue 1, item 9)")
         dt, d = _dtype(cfg), cfg.d_model
         self.ln1 = L.Norm(cfg.norm_kind, d, dtype=dt, device=device)
         self.attn = A.Attention(d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,

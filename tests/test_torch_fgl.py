@@ -22,7 +22,6 @@ import pytest
 import torch
 
 from repro.core import gnn as jgnn
-from repro.core import imputation as jimp
 from repro.core.spreadfgl import make_fedgl as j_fedgl
 from repro.core.spreadfgl import make_spreadfgl as j_spreadfgl
 from repro_torch import convert
@@ -32,32 +31,16 @@ from repro_torch.core.spreadfgl import make_fedgl as p_fedgl
 from repro_torch.core.spreadfgl import make_spreadfgl as p_spreadfgl
 from repro_torch.launch import fgl_train
 from repro_torch.tree import tree_map
+from torch_fgl_parity import one_torch_thread  # noqa: F401 (autouse fixture)
+from torch_fgl_parity import FIT_TOL, OP_TOL
+from torch_fgl_parity import host as _host
+from torch_fgl_parity import jax_noise as _jax_noise
 from torch_parity import assert_topk_match, gram_rows
-
-OP_TOL = 1e-5
-FIT_TOL = 1e-4
 
 BUILDS = {
     "SpreadFGL": (j_spreadfgl, p_spreadfgl, {"num_servers": 2}),
     "FedGL": (j_fedgl, p_fedgl, {}),
 }
-
-
-def _host(jstate):
-    """The reference state on the host, without its PRNG key."""
-    return jax.device_get(dataclasses.replace(jstate, key=None))
-
-
-def _jax_noise(tr, jstate):
-    """The reference's S for the imputation round run on ``jstate``:
-    [N, M_per*n_pad, c], by the splits of server_outputs/_train_generator."""
-    keys = jax.random.split(jstate.key, tr.n_servers + 1)
-    n_flat = tr.m_per * jstate.batch.n_pad
-    out = []
-    for kj in keys[1:]:
-        _, ks = jax.random.split(kj)
-        out.append(np.asarray(jimp.sample_noise(ks, n_flat, tr.num_classes)))
-    return torch.from_numpy(np.stack(out))
 
 
 def _np(t):
@@ -186,8 +169,19 @@ def test_cli_smoke(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--participation", "0.5"], ["--gossip-every", "2"],
-                                  ["--async-buffer", "2"], ["--edge-mesh"],
+                                  ["--async-buffer", "2", "--delay-dist", "uniform",
+                                   "--dropout-rate", "0.1"],
                                   ["--method", "fedsage_plus"]])
+def test_cli_ported_flags_run(flag, capsys):
+    """The flags the port took on from the reference run on the CPU."""
+    hist = fgl_train.main(["--device", "cpu", "--dataset", "cora", "--scale", "0.06",
+                           "--clients", "4", "--servers", "2", "--rounds", "2",
+                           "--local-rounds", "1", "-K", "1", "--top-k", "3", *flag])
+    assert "[fgl] best acc=" in capsys.readouterr().out
+    assert np.isfinite(hist["loss"]).all() and len(hist["loss"]) == 2
+
+
+@pytest.mark.parametrize("flag", [["--edge-mesh"], ["--sim-shard"]])
 def test_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
         fgl_train.main(["--device", "cpu", *flag])

@@ -5,6 +5,7 @@
   package.
 - The trainer and the launcher raise without CUDA unless told to use the
   CPU.
+- Only what needs several devices (the edge mesh) still raises.
 """
 import ast
 import subprocess
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core.partition import partition_graph
-from repro_torch.core.spreadfgl import make_fedgl
+from repro_torch.core.spreadfgl import make_fedgl, make_spreadfgl_gossip
 from repro_torch.core.types import FGLConfig
 from repro_torch.data.synthetic_graphs import DATASETS, make_sbm_graph
 from repro_torch.launch import fgl_train
@@ -87,7 +88,13 @@ def test_launcher_defaults_to_cuda():
 
 @pytest.mark.parametrize("field,value", [("participation", 0.5), ("async_buffer", 2),
                                          ("gossip_every", 2), ("gnn_kind", "gcn")])
-def test_unported_config_raises(tiny_batch, field, value):
+def test_ported_config_builds(tiny_batch, field, value):
     cfg = FGLConfig(hidden_dim=4, **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        make_fedgl(cfg, tiny_batch, device="cpu")
+    assert getattr(make_fedgl(cfg, tiny_batch, device="cpu").cfg, field) == value
+
+
+@pytest.mark.parametrize("build", [make_fedgl, make_spreadfgl_gossip])
+def test_unported_config_raises(tiny_batch, build):
+    """The edge mesh (and with it a gossip mesh) needs several devices."""
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build(FGLConfig(hidden_dim=4), tiny_batch, edge_mesh=object(), device="cpu")
