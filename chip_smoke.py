@@ -20,6 +20,10 @@ Phases (any failure raises, and the script exits non-zero):
    axis and timed at SpreadFGL's, against the bound of the full gram and
    that of the cross-client pairs the data needs. ``sim_block``, which no
    path calls, is checked and timed at the Coauthor-CS server's gram.
+   ``flash_attention``'s backward kernel is held against its plain version
+   at the training shape in bf16 and f32 and in a windowed GQA case (with
+   the forward's row log-sum-exp, and two runs bit for bit), and timed
+   against SDPA's backward and the bound of its five products.
 3. Small training runs of every method and option (SpreadFGL, FedSage+,
    partial participation, async and gossip aggregation, GCN and GAT) and
    small f32 serving runs (the qwen3-4b and gemma3-12b smoke configs) on the
@@ -27,7 +31,13 @@ Phases (any failure raises, and the script exits non-zero):
    from the same weights, noise and prompts; the trainers draw their own
    participation masks and async schedules on both. Then the qwen3-4b smoke
    config in bf16 on the card, its prefill through the tensor-core kernel
-   against the same prefill with the plain version patched in.
+   against the same prefill with the plain version patched in. Small LM
+   training runs (``repro_torch.launch.train``, the qwen3-4b and gemma3-12b
+   smoke configs in f32, 3 steps, remat on and off, 2 microbatches) on the
+   card against the CPU, and a checkpoint written on the card served by
+   ``repro_torch.launch.serve --checkpoint``. One training step of Qwen3-4B
+   at full width, depth cut to 4 layers, bf16, through the kernels against
+   the same step with the plain attention patched in.
 4. The main paths, each with every kernel's launch counter set to 0 just
    before it and read just after: through
    ``repro_torch.launch.fgl_train.main``, SpreadFGL on full-size Coauthor-CS
@@ -44,7 +54,9 @@ Phases (any failure raises, and the script exits non-zero):
    serving a batch of 8 prompts of 2048 tokens for 64 greedy decode steps; then Qwen3-4B at full width and depth in float32,
    batch 2 x 2048-token prompts, prefill and 8 greedy decode steps through
    the f32 route, held against the same prefill with the plain version
-   patched in.
+   patched in. Through ``repro_torch.launch.train.main``, Qwen3-4B at full
+   width and depth training in bf16 with remat, batch 2 x 2048 tokens, 6
+   steps: 72 forward and 36 backward attention launches a step.
 5. One JSON line describing every kernel, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -92,6 +104,12 @@ ENGINE_RUNS = (("fedsage_plus", ["--method", "fedsage_plus"], 2),   # (what, fla
 ENGINE_KINDS = ("gcn", "gat")
 SERVE_ARGS = ["--arch", "qwen3-4b", "--variant", "full", "--batch", "8",
               "--prompt-len", "2048", "--steps", "64"]
+TRAIN_ARGS = ["--arch", "qwen3-4b", "--variant", "full", "--batch", "2", "--seq", "2048",
+              "--steps", "6", "--lr", "3e-4", "--log-every", "1"]
+# Small training runs, card against CPU: (arch, extra flags).
+SMALL_TRAIN_RUNS = (("qwen3-4b", ["--no-remat"]), ("qwen3-4b", ["--remat", "--microbatch", "2"]),
+                    ("gemma3-12b", ["--no-remat", "--microbatch", "2"]),
+                    ("gemma3-12b", ["--remat"]))
 
 
 def _card_line() -> str:
@@ -105,16 +123,20 @@ _TYPES = {"__nv_bfloat16": "bf16", "__half": "f16"}
 
 
 def _template_args(rest: str) -> list:
-    """The integer and type arguments of the mangled template argument list
-    that ``rest`` starts with, up to the ``Ev`` that closes it and names the
-    void return: ``IfLi4EEv...`` gives ``['f32', '4']``."""
+    """The integer, bool and type arguments of the mangled template argument
+    list that ``rest`` starts with, up to the ``Ev`` that closes it and names
+    the void return: ``IfLi4EEv...`` gives ``['f32', '4']``, ``ILi80ELb1EEv``
+    ``['80', 'true']``."""
     out, i = [], 1
     while i < len(rest) and not rest.startswith("Ev", i):
-        m = re.match(r"Li(-?\d+)E|(\d+)|f", rest[i:])
+        m = re.match(r"Li(-?\d+)E|(\d+)|f|Lb([01])E", rest[i:])
         if not m:
             i += 1
         elif m.group(1) is not None:
             out.append(m.group(1))
+            i += m.end()
+        elif m.group(3) is not None:
+            out.append("true" if m.group(3) == "1" else "false")
             i += m.end()
         elif m.group(2) is not None:    # a name: its length, then its characters
             name = rest[i + m.end():i + m.end() + int(m.group(2))]
@@ -181,14 +203,16 @@ def _counters():
     return {"sage_aggregate": (ksage, "launches"), "sim_topk": (ksim, "launches"),
             "sim_block": (ksim, "block_launches"),
             "flash_attention_tc": (kflash, "launches_tc"),
-            "flash_attention_f32": (kflash, "launches_f32")}
+            "flash_attention_tc_lse": (kflash, "launches_tc_lse"),
+            "flash_attention_f32": (kflash, "launches_f32"),
+            "flash_attention_bwd": (kflash, "launches_bwd")}
 
 
 def _reset_launches() -> None:
     from repro_torch.kernels import flash_attention as kflash
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
-    kflash.launches = 0           # the sum of both flash routes
+    kflash.launches = 0           # the sum of the flash forward kernels
 
 
 def _launches() -> dict:
@@ -439,10 +463,12 @@ def _check_flash(dev, gen):
             extra = {}
             bound_note = f"({bound_by}, bf16 peak {BF16_FLOPS / 1e12:.0f} TFLOP/s)"
         ms = _time_ms(lambda: kflash.launch(q, k, v), 10)
+        lse_ms = _time_ms(lambda: kflash.launch(q, k, v, with_lse=True), 10)
         plain_ms = _time_ms(lambda: ref.flash_attention(q, k, v), 3)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                  enable_gqa=True), 10)
         print(f"[smoke] flash_attention {route} {name} main-path ms={ms:.3f} "
+              f"(with the training path's row log-sum-exp {lse_ms:.3f}) "
               f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} bound_ms={bound_ms:.4f} "
               f"{bound_note} -> {flops / ms / 1e9:.1f} TFLOP/s")
         entries.append({"name": f"flash_attention ({name}, {route})", "route": "cuda",
@@ -450,7 +476,7 @@ def _check_flash(dev, gen):
                         "replaces": "src/repro/kernels/flash_attention.py:98",
                         "max_abs_err": max(errs[dtype]), "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-                        **extra,
+                        "ms_with_lse": lse_ms, **extra,
                         "shape": "q[{0},{1},{3},{5}] kv[{0},{2},{4},{5}] ".format(*main_shape)
                                  + f"{name} causal"})
     del q, k, v
@@ -507,6 +533,139 @@ def _check_sim_block(dev, gen):
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "shape": f"[{b},{c}]x[{n},{c}] f32"}
+
+
+def _check_flash_bwd(dev, gen):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    # The training path's two kernels: the forward keeping each row's
+    # log-sum-exp (in bf16 a kernel of its own, flash_attention_tc_lse_kernel)
+    # and the backward. A windowed GQA case, then the training shape (Qwen3-4B
+    # as configured, batch 2 x 2048), each in f32 and in bf16; the bf16
+    # training shape is the main path's, and is timed. Limits: the forward's
+    # output as _check_flash's (f32 1e-5, bf16 2e-2) and its row log-sum-exp
+    # within 1e-5 of the plain one (logsumexp of the plain logits); f32
+    # gradients within 1e-5 of each tensor's max |grad| of the plain formula
+    # in float64, or within the plain f32 version's own error against it
+    # where that is larger; bf16 within 2e-2 of max |grad| of the plain
+    # version; a second run bit for bit equal to the first.
+    errs = {"fwd": [], "bwd": []}
+    for b, hq, hkv, sq, skv, d, window, dtype in (
+            (1, 8, 2, 1000, 1000, 64, 100, torch.float32),
+            (1, 8, 2, 1000, 1000, 64, 100, torch.bfloat16),
+            (2, 32, 8, 2048, 2048, 80, None, torch.float32),
+            (2, 32, 8, 2048, 2048, 80, None, torch.bfloat16)):
+        q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        do = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
+        route = "launches_tc_lse" if dtype == torch.bfloat16 else "launches_f32"
+        before = getattr(kflash, route)
+        o, lse = kflash.launch(q, k, v, window=window, with_lse=True)
+        if getattr(kflash, route) != before + 1:
+            raise AssertionError(f"flash_attention {dtype} with its row log-sum-exp did not "
+                                 f"take its kernel ({route})")
+        o_err = (o.float() - ref.flash_attention(q, k, v, window=window).float()
+                 ).abs().max().item()
+        o_limit = 1e-5 if dtype == torch.float32 else 2e-2
+        lse_err = (lse - ref.flash_attention_lse(q, k, window=window)).abs().max().item()
+        got = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
+        again = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        plain = ref.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+        exact = (ref.flash_attention_bwd(*(t.double() for t in (q, k, v, o, do, lse)),
+                                         window=window)
+                 if dtype == torch.float32 else plain)
+        name = str(dtype).split(".")[-1]
+        line = []
+        for gname, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+            scale = e.abs().max().item()
+            err = (g.double() - e.double()).abs().max().item()
+            if dtype == torch.float32:
+                own = (p.double() - e).abs().max().item()
+                limit = max(1e-5 * scale, own)
+                line.append(f"{gname} {err:.3g} (limit {limit:.3g}: plain's own {own:.3g})")
+            else:
+                limit = 2e-2 * scale
+                line.append(f"{gname} {err:.3g} (limit {limit:.3g})")
+            if not err <= limit:
+                raise AssertionError(f"flash_attention backward {name} {gname} disagrees "
+                                     f"with its plain version: {err} > {limit}")
+            errs["bwd"].append(err)
+        print(f"[smoke] flash_attention training forward q[{b},{hq},{sq},{d}] "
+              f"kv[{b},{hkv},{skv},{d}] window={window} {name} ({route[9:]}): output "
+              f"max_abs_err {o_err:.3g} (limit {o_limit:g}); lse max_abs_err {lse_err:.3g} "
+              f"(limit 1e-05)")
+        print(f"[smoke] flash_attention backward q[{b},{hq},{sq},{d}] kv[{b},{hkv},{skv},{d}] "
+              f"window={window} {name}: max_abs_err {'; '.join(line)}; two runs bit for bit: "
+              f"{same}")
+        if not o_err <= o_limit:
+            raise AssertionError(f"flash_attention {name} with its row log-sum-exp: output "
+                                 f"disagrees with its plain version by {o_err}")
+        if not lse_err <= 1e-5:
+            raise AssertionError(f"flash_attention {name}: row log-sum-exp off by {lse_err}")
+        if not same:
+            raise AssertionError("flash_attention backward: two runs differ")
+        if dtype == torch.bfloat16:
+            errs["fwd"].append(o_err)
+        del got, plain, exact
+        torch.cuda.empty_cache()
+    shape = f"q[{b},{hq},{sq},{d}] kv[{b},{hkv},{skv},{d}] bf16 causal"
+    pairs = b * hq * (sq * (sq + 1) / 2)
+
+    # The bf16 training forward: its plain version computes the output and
+    # the row log-sum-exp; the library's is SDPA's forward on inputs that
+    # need a gradient (it keeps its own log-sum-exp for the backward). Bound:
+    # the two products over the causal pairs; q, k, v read and the output
+    # written in bf16, the log-sum-exp in f32.
+    fwd_ms = _time_ms(lambda: kflash.launch(q, k, v, with_lse=True), 10)
+    fwd_plain_ms = _time_ms(lambda: (ref.flash_attention(q, k, v),
+                                     ref.flash_attention_lse(q, k)), 3)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    fwd_lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=True, enable_gqa=True), 10)
+    fwd_flops = 4.0 * d * pairs
+    fwd_bytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d) + 4 * b * hq * sq
+    fwd_bound_ms, fwd_bound_by = _bound(fwd_flops, fwd_bytes, peak=BF16_FLOPS)
+    print(f"[smoke] flash_attention training forward bf16 {shape} ms={fwd_ms:.3f} "
+          f"plain_ms={fwd_plain_ms:.3f} library_ms={fwd_lib_ms:.3f} (SDPA forward needing a "
+          f"gradient) bound_ms={fwd_bound_ms:.4f} ({fwd_bound_by}, bf16 peak) -> "
+          f"{fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s")
+
+    ms = _time_ms(lambda: kflash.launch_bwd(q, k, v, o, do, lse), 10)
+    plain_ms = _time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, do, lse), 3)
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), do, retain_graph=True),
+                      10)
+    del sdpa
+    # Five products over the causal pairs (S, dP, dQ, dK, dV); bytes: q, k,
+    # v, O, dO and L read once, dQ, dK, dV written once, in bf16.
+    flops = 10.0 * d * pairs
+    nbytes = 2 * (4 * b * hq * sq * d + 4 * b * hkv * skv * d) + 4 * b * hq * sq
+    bound_ms, bound_by = _bound(flops, nbytes, peak=BF16_FLOPS)
+    bound_f32_ms, _ = _bound(flops, nbytes)
+    print(f"[smoke] flash_attention backward bf16 main-path ms={ms:.3f} plain_ms={plain_ms:.3f} "
+          f"library_ms={lib_ms:.3f} (SDPA backward) bound_ms={bound_ms:.4f} ({bound_by}, "
+          f"{flops / 1e9:.1f} GFLOP at the bf16 peak) bound_f32_ms={bound_f32_ms:.3f} (CUDA "
+          f"cores) -> {flops / ms / 1e9:.1f} TFLOP/s")
+    del q, k, v, o, do, lse, qg, kg, vg
+    torch.cuda.empty_cache()
+    return [{"name": "flash_attention (bf16, tensor cores, keeping the row log-sum-exp)",
+             "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:98",
+             "max_abs_err": max(errs["fwd"]), "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+             "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by, "library_ms": fwd_lib_ms,
+             "shape": shape},
+            {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:98 (no VJP: a new kernel)",
+             "max_abs_err": max(errs["bwd"]), "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+             "bound_f32_ms": bound_f32_ms, "shape": shape}]
 
 
 # -- phase 3: the card's training run against the CPU's ----------------------
@@ -594,13 +753,15 @@ def _check_small_serve(dev):
             logits[where] = out.cpu()
             tokens[where] = engine.decode(cache, out, steps=8).cpu()
         routes = {name: after[name] - before[name]
-                  for name in ("flash_attention_f32", "flash_attention_tc")}
+                  for name in ("flash_attention_f32", "flash_attention_tc",
+                               "flash_attention_tc_lse")}
         err = (logits[dev.type] - logits["cpu"]).abs().max().item()
         same = torch.equal(tokens[dev.type], tokens["cpu"])
         print(f"[smoke] small {cfg.name} serving run {dev.type} vs cpu, prompt "
               f"{prompt_len}: prefill logits max |d| = {err:.3g}, 8 greedy tokens "
               f"identical: {same}; card prefill launches {routes}")
-        if routes != {"flash_attention_f32": cfg.num_layers, "flash_attention_tc": 0}:
+        if routes != {"flash_attention_f32": cfg.num_layers, "flash_attention_tc": 0,
+                      "flash_attention_tc_lse": 0}:
             raise AssertionError(f"{cfg.name} (f32): expected {cfg.num_layers} f32-route "
                                  f"launches and no tensor-core launch, got {routes}")
         if not err <= 1e-4:     # two layers of f32 in other orders
@@ -639,19 +800,176 @@ def _check_bf16_serve(dev):
     finally:
         ops.mha = kernel_mha
     routes = {name: after[name] - before[name]
-              for name in ("flash_attention_tc", "flash_attention_f32")}
+              for name in ("flash_attention_tc", "flash_attention_f32", "flash_attention_tc_lse")}
     err = (out_kernel.float() - out_plain.float()).abs().max().item()
     scale = out_plain.float().abs().max().item()
     agree = (tok_kernel == tok_plain).float().mean().item()
     print(f"[smoke] small {cfg.name} bf16 serving run, prompt 200: prefill logits "
           f"kernel vs plain max |d| = {err:.3g} (limit 2e-2 x max |logit| = "
           f"{2e-2 * scale:.3g}); greedy tokens agree {agree:.3f} of 2 x 8; launches {routes}")
-    if routes != {"flash_attention_tc": cfg.num_layers, "flash_attention_f32": 0}:
+    if routes != {"flash_attention_tc": cfg.num_layers, "flash_attention_f32": 0,
+                  "flash_attention_tc_lse": 0}:
         raise AssertionError(f"{cfg.name} (bf16): expected {cfg.num_layers} bf16-route "
                              f"launches and no f32-route launch, got {routes}")
     if not (torch.isfinite(out_kernel).all() and err <= 2e-2 * scale):
         raise AssertionError(f"{cfg.name} (bf16): the kernel's prefill logits disagree "
                              f"with the plain version's by {err}")
+
+
+def _update_check(before, after, ref_before, ref_after, kept):
+    """The worst change of a parameter in one step against the reference
+    run's, as a share of the largest change of its leaf there, over the
+    elements ``kept``."""
+    worst = 0.0
+    for name, want in ref_after.items():
+        delta, ref_delta = after[name] - before[name], want - ref_before[name]
+        err = (delta - ref_delta).abs()[kept[name]]
+        if err.numel():
+            worst = max(worst, err.max().item() / max(ref_delta.abs().max().item(), 1e-30))
+    return worst
+
+
+def _check_small_train(dev):
+    from repro_torch import configs
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step as tstep
+
+    # Three steps of the launcher's set-up (Adam, clipped, cosine schedule)
+    # at each smoke config (f32) on the card and on the CPU, from the same
+    # weights (drawn on the CPU). Limits: losses and final parameters within
+    # 1e-4 (three steps of f32 in other orders); each step's change of each
+    # parameter within 1e-2 of the largest change of its leaf in the CPU's
+    # step, over the elements whose CPU gradient was at least 1e-5 of its
+    # leaf's largest at every step so far (Adam's first steps move a
+    # parameter by about lr whatever its gradient's size, so one within f32
+    # rounding of 0 may move either way), which must be 99 % of them. The
+    # card's launches: each layer's forward once per microbatch and step,
+    # twice with remat; its backward once. Then train --checkpoint on the
+    # card writes a file, which serve --checkpoint serves: its prefill
+    # logits equal the trained model's.
+    def params(state):
+        return {n: t.detach().cpu().double() for n, t in state.params.state_dict().items()}
+
+    for arch, extra in SMALL_TRAIN_RUNS:
+        argv = ["--arch", arch, "--variant", "smoke", "--steps", "3", "--batch", "4",
+                "--seq", "80", "--log-every", "3", *extra]
+        cpu_model = transformer.init_model(configs.get_config(arch, "smoke"), seed=0,
+                                           device="cpu")
+        runs, kept_steps = [], []
+        for i, where in enumerate(("cpu", dev.type)):
+            flags = train._parser().parse_args(argv + ["--device", where])
+            state, step_fn, data = train.setup(flags, copy.deepcopy(cpu_model))
+            cfg = state.params.cfg
+            snaps, losses, kept = [params(state)], [], None
+            before = _launches()
+            for _ in range(flags.steps):
+                batch = {k: torch.from_numpy(v).to(where) for k, v in next(data).items()}
+                if i == 0:      # the CPU's gradients: which elements each step holds
+                    grads = tstep.loss_and_grads(state.params, cfg, batch, flags.microbatch)[2]
+                    new = {n: g.abs() >= 1e-5 * g.abs().max() for n, g in grads.items()}
+                    kept = new if kept is None else {n: kept[n] & new[n] for n in new}
+                    kept_steps.append(kept)
+                state, metrics = step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+                snaps.append(params(state))
+            after = _launches()
+            runs.append((losses, snaps))
+        per = cfg.num_layers * flags.steps * flags.microbatch
+        want = {"flash_attention_f32": per * (2 if cfg.remat else 1), "flash_attention_tc": 0,
+                "flash_attention_tc_lse": 0, "flash_attention_bwd": per}
+        got = {name: after[name] - before[name] for name in want}
+        (cpu_losses, cpu_snaps), (losses, snaps) = runs
+        dloss = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+        dparam = max((t - cpu_snaps[-1][n]).abs().max().item() for n, t in snaps[-1].items())
+        dstep = [_update_check(snaps[i], snaps[i + 1], cpu_snaps[i], cpu_snaps[i + 1], kept)
+                 for i, kept in enumerate(kept_steps)]
+        kept = kept_steps[-1]
+        share = sum(k.sum().item() for k in kept.values()) / sum(k.numel() for k in kept.values())
+        print(f"[smoke] small train {arch} {' '.join(extra)} {dev.type} vs cpu: 3 steps, "
+              f"max |d| loss {dloss:.3g} params {dparam:.3g} (limit 1e-4); each step's "
+              f"change vs the cpu's {[float(f'{x:.3g}') for x in dstep]} of its leaf's "
+              f"largest (limit 1e-2, over {100 * share:.2f} % of the elements); card "
+              f"launches {got}")
+        if got != want:
+            raise AssertionError(f"small train {arch}: launched {got}, expected {want}")
+        if not (dloss <= 1e-4 and dparam <= 1e-4 and max(dstep) <= 1e-2 and share >= 0.99):
+            raise AssertionError(f"small train {arch}: the card's run disagrees with the "
+                                 f"CPU's (loss {dloss}, params {dparam}, steps {dstep}, "
+                                 f"share {share})")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "params.npz")
+        out = train.main(argv + ["--device", dev.type, "--checkpoint", path],
+                         model=copy.deepcopy(cpu_model))
+        model = out["state"].params
+        served = serve.main(["--arch", arch, "--variant", "smoke", "--checkpoint", path,
+                             "--batch", "2", "--prompt-len", "40", "--steps", "4",
+                             "--device", dev.type])
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))  # serve's
+    direct, _ = ServeEngine(model, max_len=48).prefill(prompts)
+    err = (served["logits"] - direct).abs().max().item()
+    print(f"[smoke] {arch} checkpoint written by train --checkpoint on the card, served by "
+          f"serve --checkpoint: prefill logits against the trained model's max |d| = "
+          f"{err:.3g}")
+    if not (err <= 1e-6 and torch.isfinite(direct).all()):
+        raise AssertionError(f"serve --checkpoint of a trained model's file differs by {err}")
+
+
+def _check_whole_step(dev):
+    from repro_torch import configs
+    from repro_torch.data.lm_data import token_batches
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer
+    from repro_torch.optim.adam import SGD
+    from repro_torch.train import step
+
+    # Qwen3-4B at full width, depth cut to 4 layers, bf16, remat, batch 1 x
+    # 2048: one step's loss and gradients through the kernels, then with the
+    # plain attention patched into ops.mha (autograd through it). Limits:
+    # loss within 1e-3 x loss; every leaf's gradient within 2e-2 of that
+    # leaf's max |grad|; wq's gradient not zero.
+    cfg = configs.get_config("qwen3-4b", "full", num_layers=4)
+    model = transformer.init_model(cfg, seed=0, device=dev)
+    step.init_state(cfg, SGD(), model=model)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(token_batches(cfg, batch=1, seq_len=2048)).items()}
+    before = _launches()
+    total_k, _, grads_k = step.loss_and_grads(model, cfg, batch)
+    torch.cuda.synchronize()
+    after = _launches()
+    kernel_mha = ops.mha
+    ops.mha = lambda q, k, v, *, causal=True, window=None: ref.flash_attention(  # noqa: E731
+        q, k, v, causal=causal, window=window)
+    try:
+        total_p, _, grads_p = step.loss_and_grads(model, cfg, batch)
+    finally:
+        ops.mha = kernel_mha
+    got = {name: after[name] - before[name]
+           for name in ("flash_attention_tc_lse", "flash_attention_bwd", "flash_attention_tc",
+                        "flash_attention_f32")}
+    want = {"flash_attention_tc_lse": 2 * cfg.num_layers,
+            "flash_attention_bwd": cfg.num_layers, "flash_attention_tc": 0,
+            "flash_attention_f32": 0}
+    dloss = abs(total_k.item() - total_p.item())
+    worst, worst_name = 0.0, ""
+    for name, g in grads_k.items():
+        rel = (g.float() - grads_p[name].float()).abs().max().item() / max(
+            grads_p[name].float().abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    wq = grads_k["blocks.0.attn.wq"].float().abs().max().item()
+    print(f"[smoke] whole step qwen3-4b full width, 4 layers, bf16, 1 x 2048: loss kernel "
+          f"{total_k.item():.6f} plain {total_p.item():.6f} (|d| {dloss:.3g}, limit 1e-3 x "
+          f"loss); worst gradient {worst_name} off by {worst:.3g} of its max |grad| (limit "
+          f"2e-2); max |wq grad| {wq:.3g}; launches {got}")
+    if got != want:
+        raise AssertionError(f"whole step: launched {got}, expected {want}")
+    if not (dloss <= 1e-3 * abs(total_p.item()) and worst <= 2e-2 and wq > 0):
+        raise AssertionError("whole step: the kernels' step disagrees with the plain one")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
 
 
 # -- phase 4: the main paths --------------------------------------------------
@@ -789,10 +1107,11 @@ def _serve_main_path(args):
         raise AssertionError(f"generated tokens of shape {tokens.shape} out of range")
     # One bf16 prefill: the bf16 route launches once per layer, the f32 route
     # never; decode attention is plain.
-    if counts["flash_attention_tc"] != cfg.num_layers or counts["flash_attention_f32"]:
+    if (counts["flash_attention_tc"] != cfg.num_layers or counts["flash_attention_f32"]
+            or counts["flash_attention_tc_lse"]):
         raise AssertionError(f"flash_attention launched {counts} times, expected "
                              f"{cfg.num_layers} on the bf16 route (one per layer of one "
-                             f"prefill) and none on the f32 route")
+                             f"prefill) and none on the f32 route or the training kernel")
     return counts
 
 
@@ -839,7 +1158,8 @@ def _f32_serve_path(dev):
           f"{kernel_s:.3f} s through the f32 route, {plain_s:.3f} s through the plain version; "
           f"last logits kernel vs plain max |d| = {err:.3g} (limit 1e-4 x max |logit| = "
           f"{1e-4 * scale:.3g}); greedy tokens agree {agree:.3f} of 2 x 8; launches {counts}")
-    if counts["flash_attention_f32"] != cfg.num_layers or counts["flash_attention_tc"]:
+    if (counts["flash_attention_f32"] != cfg.num_layers or counts["flash_attention_tc"]
+            or counts["flash_attention_tc_lse"]):
         raise AssertionError(f"{cfg.name} (f32): expected {cfg.num_layers} f32-route launches "
                              f"and no bf16-route launch, got {counts}")
     if out_kernel.shape != (2, cfg.vocab_size) or not torch.isfinite(out_kernel).all():
@@ -849,6 +1169,46 @@ def _f32_serve_path(dev):
         raise AssertionError(f"{cfg.name} (f32): the kernel's prefill logits disagree with "
                              f"the plain version's by {err}")
     del model, engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _train_main_path():
+    """Qwen3-4B at full width and depth training in bf16 with remat, batch
+    2 x 2048, 6 steps through ``launch.train.main``, with the launch
+    counters set to 0 just before and read just after."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+
+    flags = train._parser().parse_args(TRAIN_ARGS)
+    cfg = configs.get_config(flags.arch, flags.variant)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    out = train.main(TRAIN_ARGS)
+    counts = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses, secs = out["losses"], out["seconds"]
+    n_params = sum(p.numel() for p in out["state"].params.parameters())
+    step_s = float(np.median(secs[1:]))
+    tokens = flags.batch * flags.seq
+    share = 6.0 * n_params * tokens / step_s / BF16_FLOPS
+    per_step = {"flash_attention_tc_lse": cfg.num_layers * (2 if cfg.remat else 1),
+                "flash_attention_bwd": cfg.num_layers, "flash_attention_tc": 0,
+                "flash_attention_f32": 0}
+    want = {name: n * flags.steps for name, n in per_step.items()}
+    got = {name: counts[name] for name in want}
+    print(f"[smoke] main path train {' '.join(TRAIN_ARGS)}: {cfg.num_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters ({cfg.dtype}, remat={cfg.remat}); losses "
+          f"{[round(x, 4) for x in losses]}; step seconds {[round(x, 3) for x in secs]}; "
+          f"median of steps 1-{flags.steps - 1} {step_s:.3f} s, {tokens / step_s:.0f} tokens/s, "
+          f"{100 * share:.1f} % of the bf16 dense peak (6 N tokens); peak memory "
+          f"{peak / 1e9:.2f} GB; launches {got} (expected {want}: {per_step} a step)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if got != want:
+        raise AssertionError(f"train: launched {got}, expected {want}")
+    del out
     torch.cuda.empty_cache()
     return counts
 
@@ -878,9 +1238,12 @@ def main() -> int:
     sage, sim = _check_sage(dev, gen), _check_sim(dev, gen)
     flash_tc, flash_f32 = _check_flash(dev, gen)
     block = _check_sim_block(dev, gen)
+    flash_lse, flash_bwd = _check_flash_bwd(dev, gen)
     _check_small_run(dev)
     _check_small_serve(dev)
     _check_bf16_serve(dev)
+    _check_small_train(dev)
+    _check_whole_step(dev)
 
     # Each path's launches, counted from 0 just before it.
     runs = [_main_path(SPREAD_ARGS), _main_path(FEDGL_ARGS)]
@@ -889,11 +1252,14 @@ def main() -> int:
     runs.append(_serve_main_path(SERVE_ARGS))
     torch.cuda.empty_cache()
     runs.append(_f32_serve_path(dev))
+    runs.append(_train_main_path())
     for entry, counter in ((sage, "sage_aggregate"), (sim, "sim_topk"),
                            (flash_tc, "flash_attention_tc"),
-                           (flash_f32, "flash_attention_f32"), (block, "sim_block")):
+                           (flash_f32, "flash_attention_f32"), (block, "sim_block"),
+                           (flash_lse, "flash_attention_tc_lse"),
+                           (flash_bwd, "flash_attention_bwd")):
         entry["launches"] = sum(run[counter] for run in runs)
-    kernels = [sage, sim, flash_tc, flash_f32, block]
+    kernels = [sage, sim, flash_tc, flash_f32, block, flash_lse, flash_bwd]
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,11 +10,12 @@ weights; the port's own random stream starts from ``seed``.
 
 ``lm_params_from_jax`` does the same for a language model: the reference's
 ``transformer.init_model`` pytree, fetched to numpy, becomes this package's
-``Transformer``.
+``Transformer``; ``lm_params_to_jax`` is its inverse, the tree that
+``checkpoint.io.save`` writes in the reference's layout.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -95,3 +96,32 @@ def lm_params_from_jax(params: Any, cfg: ModelConfig, device="cpu") -> Transform
         put(f"blocks.{i}.", params["blocks"][i % g], i // g)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _nest(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``{"attn.wq": t}`` as ``{"attn": {"wq": t}}``."""
+    out: Dict[str, Any] = {}
+    for name, t in flat.items():
+        *parents, last = name.split(".")
+        node = out
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = t
+    return out
+
+
+def lm_params_to_jax(model: Transformer) -> Dict[str, Any]:
+    """``model``'s parameters as the reference's LM pytree, CPU tensors in
+    the parameters' dtype: ``embed`` and ``final_norm`` by name, and
+    ``blocks`` a list of ``group_size(cfg)`` group members whose leaves stack
+    the member's layers along a leading ``[n_groups]`` axis (layer ``i`` is
+    member ``i % g`` at index ``i // g``). The inverse of
+    ``lm_params_from_jax``."""
+    cfg = model.cfg
+    g = group_size(cfg)
+    host = lambda mod: {n: t.detach().cpu() for n, t in mod.state_dict().items()}  # noqa: E731
+    layers = [host(bp) for bp in model.blocks]
+    return {"embed": _nest(host(model.embed)), "final_norm": _nest(host(model.final_norm)),
+            "blocks": [_nest({name: torch.stack([layer[name] for layer in layers[m::g]])
+                              for name in layers[m]})
+                       for m in range(g)]}

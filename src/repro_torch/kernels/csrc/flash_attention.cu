@@ -107,6 +107,7 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // A block of WARPS warps, each owning 16 query rows, over tiles of BKV keys
 // of head dim D.
@@ -225,8 +226,9 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
 template <class T>
 __global__ void __launch_bounds__(T::THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out, int hq, int hkv,
-                       int sq, int skv, int window, float scale_log2) {
+                       const float* __restrict__ v, float* __restrict__ out,
+                       float* __restrict__ lse, int hq, int hkv, int sq, int skv, int window,
+                       float scale_log2) {
   constexpr int D = T::D, BQ = T::BQ, BKV = T::BKV, THREADS = T::THREADS;
   constexpr int LDK = T::LDK, LDV = T::LDV, LDR = T::LDR;
   constexpr int KSTEPS = D / 8;   // k-steps of S = Q K^T
@@ -444,7 +446,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // Normalise and store: l is 0 only for a fully masked row (written as 0),
-  // and NaN where the row met a NaN score.
+  // and NaN where the row met a NaN score. With `lse`, the row's log-sum-exp
+  // m + log l in natural units (-inf for a fully masked row), for the
+  // backward pass (flash_attention_bwd.cu).
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
@@ -453,6 +457,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = l == 0.0f ? 0.0f : 1.0f / l;
     const int row = q0 + warp * 16 + 8 * r + g;
     if (row >= sq) continue;
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * sq + row] = l == 0.0f ? -INFINITY : (m_run[r] + log2f(l)) * LN2;
     float* dst = O + (size_t)row * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -462,14 +468,14 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <class T>
-int launch(const float* q, const float* k, const float* v, float* out, int batch, int hq,
-           int hkv, int sq, int skv, int window, float scale_log2, cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* out, float* lse, int batch,
+           int hq, int hkv, int sq, int skv, int window, float scale_log2, cudaStream_t stream) {
   const cudaError_t set = cudaFuncSetAttribute(
       flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(batch * hq, (sq + T::BQ - 1) / T::BQ);
-  flash_attention_kernel<T><<<grid, T::THREADS, T::SMEM, stream>>>(q, k, v, out, hq, hkv, sq,
-                                                                   skv, window, scale_log2);
+  flash_attention_kernel<T><<<grid, T::THREADS, T::SMEM, stream>>>(q, k, v, out, lse, hq, hkv,
+                                                                   sq, skv, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,18 +483,20 @@ int launch(const float* q, const float* k, const float* v, float* out, int batch
 
 // q, out [batch, hq, sq, d]; k, v [batch, hkv, skv, d]: contiguous float32,
 // 16-byte aligned, with hq a multiple of hkv and d one of 32, 64, 80, 128.
-// window <= 0 means no window. Launches on `stream` and returns the
-// cudaError_t of the launch. bfloat16 inputs take flash_attention_tc.cu.
+// window <= 0 means no window. lse, if not null, is [batch, hq, sq] and gets
+// each row's log-sum-exp of its scaled scores. Launches on `stream` and
+// returns the cudaError_t of the launch. bfloat16 inputs take
+// flash_attention_tc.cu.
 extern "C" int flash_attention_f32(const float* q, const float* k, const float* v, float* out,
-                                   int batch, int hq, int hkv, int sq, int skv, int d,
-                                   int window, float scale, void* stream) {
+                                   float* lse, int batch, int hq, int hkv, int sq, int skv,
+                                   int d, int window, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * LOG2E;
   switch (d) {
-    case 32: return launch<T32>(q, k, v, out, batch, hq, hkv, sq, skv, window, sl2, s);
-    case 64: return launch<T64>(q, k, v, out, batch, hq, hkv, sq, skv, window, sl2, s);
-    case 80: return launch<T80>(q, k, v, out, batch, hq, hkv, sq, skv, window, sl2, s);
-    case 128: return launch<T128>(q, k, v, out, batch, hq, hkv, sq, skv, window, sl2, s);
+    case 32: return launch<T32>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
+    case 64: return launch<T64>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
+    case 80: return launch<T80>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
+    case 128: return launch<T128>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

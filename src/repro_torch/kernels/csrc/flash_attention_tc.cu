@@ -38,6 +38,12 @@
 // so is the compute of a tile no row of a warp may see; the grid walks the
 // query blocks longest first. The output is normalised by l, staged through
 // the warp's own rows of the Q tile and written with 16-byte stores.
+//
+// For training, a second kernel (flash_attention_tc_lse_kernel, chosen by a
+// non-null `lse`) also keeps each row's sum of P before rounding and writes
+// the row's log-sum-exp m + log l, which the backward pass
+// (flash_attention_bwd.cu) recomputes P from. The serving path passes null
+// and runs the kernel it always ran.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +61,7 @@ constexpr int BKV = 64;            // keys per shared-memory tile
 constexpr int THREADS = 32 * WARPS;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -137,11 +144,12 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ out, int hq, int hkv,
-                          int sq, int skv, int window, float scale_log2) {
+// The body of both kernels below; LSE also writes each row's log-sum-exp.
+template <int D, bool LSE>
+__device__ __forceinline__ void attend(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                                       float* __restrict__ lse, int hq, int hkv, int sq, int skv,
+                                       int window, float scale_log2) {
   constexpr int LD = D + 8;        // padded row stride of every tile (elements)
   constexpr int KSTEPS = D / 16;   // k-steps of S = Q K^T
   constexpr int NT = D / 8;        // n-tiles of O = P V
@@ -200,6 +208,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
   float m_run[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8 (log2 units)
   float l_run[2] = {0.0f, 0.0f};            // this lane's share of the running sums
+  float l_exact[2] = {0.0f, 0.0f};          // the same over P before rounding (LSE only)
 
   const int qpos0 = q0 + warp * 16 + off;   // key position of this warp's first row
   const int qpos[2] = {qpos0 + g, qpos0 + g + 8};
@@ -273,18 +282,28 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       // P in bf16 as the A fragments of four k-steps of 16 keys.
       uint32_t pa[4][4];
       float psum[2] = {0.0f, 0.0f};
+      float pex[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int n = 2 * kk + h;
-          pa[kk][2 * h] = pack_bf16(ex2(fmaf(s[n][0], scale_log2, -m_use[0])),
-                                    ex2(fmaf(s[n][1], scale_log2, -m_use[0])), psum[0]);
-          pa[kk][2 * h + 1] = pack_bf16(ex2(fmaf(s[n][2], scale_log2, -m_use[1])),
-                                        ex2(fmaf(s[n][3], scale_log2, -m_use[1])), psum[1]);
+          const float p0 = ex2(fmaf(s[n][0], scale_log2, -m_use[0]));
+          const float p1 = ex2(fmaf(s[n][1], scale_log2, -m_use[0]));
+          const float p2 = ex2(fmaf(s[n][2], scale_log2, -m_use[1]));
+          const float p3 = ex2(fmaf(s[n][3], scale_log2, -m_use[1]));
+          if (LSE) {
+            pex[0] += p0 + p1;
+            pex[1] += p2 + p3;
+          }
+          pa[kk][2 * h] = pack_bf16(p0, p1, psum[0]);
+          pa[kk][2 * h + 1] = pack_bf16(p2, p3, psum[1]);
         }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + psum[r];
+      for (int r = 0; r < 2; ++r) {
+        l_run[r] = l_run[r] * alpha[r] + psum[r];
+        if (LSE) l_exact[r] = l_exact[r] * alpha[r] + pex[r];
+      }
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         o[n][0] *= alpha[0];
@@ -318,6 +337,14 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     l += __shfl_xor_sync(FULL, l, 1);
     l += __shfl_xor_sync(FULL, l, 2);
     inv[r] = l > 0.0f ? 1.0f / l : 0.0f;           // fully masked row -> 0
+    if (LSE) {    // L = m + log l in natural units, over P before rounding; -inf if fully masked
+      float le = l_exact[r];
+      le += __shfl_xor_sync(FULL, le, 1);
+      le += __shfl_xor_sync(FULL, le, 2);
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (t == 0 && row < sq)
+        lse[(size_t)bh * sq + row] = le == 0.0f ? -INFINITY : (m_run[r] + log2f(le)) * LN2;
+    }
   }
   bf16* Ow = Qs + warp * 16 * LD;
 #pragma unroll
@@ -339,36 +366,71 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
+// The serving path's kernel, with the launch bounds it always had.
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int batch, int hq, int hkv,
-           int sq, int skv, int window, float scale_log2, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  const cudaError_t set = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(THREADS)
+flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ out, int hq, int hkv,
+                          int sq, int skv, int window, float scale_log2) {
+  attend<D, false>(q, k, v, out, nullptr, hq, hkv, sq, skv, window, scale_log2);
+}
+
+// The training path's, which keeps each row's log-sum-exp. Its extra running
+// sum takes the registers over 128 a thread, and one block of 8 warps per SM
+// ran it 36 % slower than two blocks with the registers capped (D <= 80).
+template <int D>
+__global__ void __launch_bounds__(THREADS, D <= 80 ? 2 : 1)
+flash_attention_tc_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, bf16* __restrict__ out,
+                              float* __restrict__ lse, int hq, int hkv, int sq, int skv,
+                              int window, float scale_log2) {
+  attend<D, true>(q, k, v, out, lse, hq, hkv, sq, skv, window, scale_log2);
+}
+
+template <typename Kernel, typename... Args>
+int launch_as(Kernel kernel, size_t smem, int batch, int hq, int sq, cudaStream_t stream,
+              Args... args) {
+  const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(batch * hq, (sq + BQ - 1) / BQ);
-  flash_attention_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), hq, hkv, sq, skv, window, scale_log2);
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int batch, int hq,
+           int hkv, int sq, int skv, int window, float scale_log2, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  const bf16* Q = static_cast<const bf16*>(q);
+  const bf16* K = static_cast<const bf16*>(k);
+  const bf16* V = static_cast<const bf16*>(v);
+  bf16* O = static_cast<bf16*>(out);
+  if (lse)
+    return launch_as(flash_attention_tc_lse_kernel<D>, smem, batch, hq, sq, stream, Q, K, V, O,
+                     lse, hq, hkv, sq, skv, window, scale_log2);
+  return launch_as(flash_attention_tc_kernel<D>, smem, batch, hq, sq, stream, Q, K, V, O, hq,
+                   hkv, sq, skv, window, scale_log2);
 }
 
 }  // namespace
 
 // q, out [batch, hq, sq, d]; k, v [batch, hkv, skv, d]: contiguous bfloat16,
 // 16-byte aligned, with hq a multiple of hkv and d one of 32, 64, 80, 128.
-// window <= 0 means no window. Launches on `stream` and returns the
+// window <= 0 means no window. lse, if not null, is [batch, hq, sq] float32
+// and gets each row's log-sum-exp of its scaled scores (-inf for a fully
+// masked row), for the backward pass. Launches on `stream` and returns the
 // cudaError_t of the launch.
 extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void* v, void* out,
-                                       int batch, int hq, int hkv, int sq, int skv, int d,
-                                       int window, float scale, void* stream) {
+                                       float* lse, int batch, int hq, int hkv, int sq, int skv,
+                                       int d, int window, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * LOG2E;
   switch (d) {
-    case 32: return launch<32>(q, k, v, out, batch, hq, hkv, sq, skv, window, sl2, s);
-    case 64: return launch<64>(q, k, v, out, batch, hq, hkv, sq, skv, window, sl2, s);
-    case 80: return launch<80>(q, k, v, out, batch, hq, hkv, sq, skv, window, sl2, s);
-    case 128: return launch<128>(q, k, v, out, batch, hq, hkv, sq, skv, window, sl2, s);
+    case 32: return launch<32>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
+    case 64: return launch<64>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
+    case 80: return launch<80>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
+    case 128: return launch<128>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,9 +1,10 @@
-"""CUDA ``flash_attention``: causal, optionally windowed, grouped-kv attention.
+"""CUDA ``flash_attention``: causal, optionally windowed, grouped-kv attention,
+and its backward pass.
 
 Replaces the TPU kernel ``flash_attention`` / ``_flash_kernel`` of
 ``src/repro/kernels/flash_attention.py`` together with the head repeat and
-padding of ``repro.kernels.ops.mha``. Two hand-written kernels share one
-contract, chosen by the inputs' type, both on the tensor cores with
+padding of ``repro.kernels.ops.mha``. Two hand-written forward kernels share
+one contract, chosen by the inputs' type, both on the tensor cores with
 ``mma.sync``: bfloat16 in ``csrc/flash_attention_tc.cu`` (f32 accumulation, P
 rounded to bf16), float32 in ``csrc/flash_attention.cu`` (TF32 with the 3-pass
 split of ``csrc/tf32.cuh``, which keeps f32 parity at 1e-5). Neither falls
@@ -12,21 +13,29 @@ back to the other. Both take q ``[B, Hq, Sq, D]`` and k, v
 mask ragged sequence lengths themselves. Each source note says what bounds
 it on the H100 and what its design does about that. The plain version of
 both is ``ref.flash_attention``.
+
+The JAX kernel has no VJP (the reference trains through plain attention).
+The port's backward is a kernel of its own, ``csrc/flash_attention_bwd.cu``
+(both types, f32 arithmetic on the CUDA cores), fed by the forward's row
+log-sum-exp; its plain version is ``ref.flash_attention_bwd``.
+``FlashAttention`` ties the two passes together for autograd.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
-# Kernel launches made by `launch`, read by chip_smoke.py: per route, and
-# `launches`, their sum.
+# Kernel launches, read by chip_smoke.py: each forward kernel, `launches`
+# (their sum), and the backward's.
 launches = 0
-launches_tc = 0     # bfloat16, tensor cores (flash_attention_tc.cu)
-launches_f32 = 0    # float32, 3-pass TF32 (flash_attention.cu)
+launches_tc = 0     # bfloat16, tensor cores (flash_attention_tc.cu, serving kernel)
+launches_tc_lse = 0  # bfloat16 keeping the row log-sum-exp (its training kernel)
+launches_f32 = 0    # float32, 3-pass TF32 (flash_attention.cu, either use)
+launches_bwd = 0    # backward, either type (flash_attention_bwd.cu)
 
 HEAD_DIMS = (32, 64, 80, 128)   # each kernel's template instances
 _GRID_Y = 65535                 # query blocks (64 or 128 rows) ride the grid's y axis
@@ -38,10 +47,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           window: Optional[int] = None, scale: Optional[float] = None) -> torch.Tensor:
-    """Causal attention on the card; arguments as ``ref.flash_attention``."""
-    global launches, launches_tc, launches_f32
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
+           scale: Optional[float]) -> Tuple[int, int, int, int, int, int, float]:
+    """What both passes refuse; returns (b, hq, hkv, sq, skv, d, scale)."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -63,19 +71,95 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window < 1:
         raise ValueError(f"window must be a positive number of keys, got {window}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    return b, hq, hkv, sq, skv, d, scale
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           window: Optional[int] = None, scale: Optional[float] = None,
+           with_lse: bool = False):
+    """Causal attention on the card; arguments as ``ref.flash_attention``.
+
+    Returns the output, or with ``with_lse`` the pair (output, each row's
+    log-sum-exp of its scaled scores ``[B, Hq, Sq]`` f32, -inf for a fully
+    masked row), which the backward pass needs.
+    """
+    global launches, launches_tc, launches_tc_lse, launches_f32
+    b, hq, hkv, sq, skv, d, scale = _check(q, k, v, window, scale)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() > 0:
+        tc = q.dtype == torch.bfloat16
+        lib = build.load()
+        fn = lib.flash_attention_tc_bf16 if tc else lib.flash_attention_f32
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if with_lse else None, b, hq, hkv, sq, skv, d, window or 0,
+                 scale, torch.cuda.current_stream(q.device).cuda_stream)
+        build.check(err, "flash_attention (bf16)" if tc else "flash_attention (f32)")
+        if tc and with_lse:
+            launches_tc_lse += 1
+        elif tc:
+            launches_tc += 1
+        else:
+            launches_f32 += 1
+        launches += 1
+    return (out, lse) if with_lse else out
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+               do: torch.Tensor, lse: torch.Tensor, *, window: Optional[int] = None,
+               scale: Optional[float] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) on the card; arguments as ``ref.flash_attention_bwd``."""
+    global launches_bwd
+    b, hq, hkv, sq, skv, d, scale = _check(q, k, v, window, scale)
+    if -(-skv // 64) > _GRID_Y:      # the backward's key tiles ride the y axis too
+        raise ValueError(f"Skv={skv} exceeds the grid's limit of {_GRID_Y * 64}")
+    if o.shape != q.shape or do.shape != q.shape or not o.dtype == do.dtype == q.dtype:
+        raise ValueError(f"o and do must match q {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(o.shape)} {o.dtype} and {tuple(do.shape)} {do.dtype}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be [{b}, {hq}, {sq}] float32, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if any(t.device != q.device for t in (o, do, lse)):
+        raise ValueError("flash_attention backward: o, do and lse must be on q's device")
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    if q.numel() == 0 or k.numel() == 0:     # no (row, key) pair: every gradient is 0
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    err = build.load().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d,
+        window or 0, scale, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention backward")
+    launches_bwd += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal attention with a gradient: on CUDA tensors the forward kernel
+    (keeping each row's log-sum-exp) and the backward kernel; on CPU tensors
+    their plain versions, ``ref.flash_attention`` (with
+    ``ref.flash_attention_lse``) and ``ref.flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        if q.device.type == "cuda":
+            out, lse = launch(q, k, v, window=window, with_lse=True)
+        else:
+            out = ref.flash_attention(q, k, v, causal=True, window=window)
+            lse = ref.flash_attention_lse(q, k, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
         return out
-    tc = q.dtype == torch.bfloat16
-    lib = build.load()
-    fn = lib.flash_attention_tc_bf16 if tc else lib.flash_attention_f32
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,
-             window or 0, scale, torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attention (bf16)" if tc else "flash_attention (f32)")
-    if tc:
-        launches_tc += 1
-    else:
-        launches_f32 += 1
-    launches += 1
-    return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = launch_bwd if q.device.type == "cuda" else ref.flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, out, do, lse, window=ctx.window)
+        return dq, dk, dv, None

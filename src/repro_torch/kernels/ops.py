@@ -32,7 +32,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tru
     ``window`` keeps keys at positions > the query's minus ``window``, as
     ``ref.flash_attention``. Counterpart of ``repro.kernels.ops.mha``, without
     its head repeat and padding: the kernel maps heads and masks ragged
-    lengths itself.
+    lengths itself. Where a gradient is wanted (grad mode on and one of
+    q, k, v requiring it) it runs through ``FlashAttention``: on the card the
+    forward kernel keeps each row's log-sum-exp and the backward kernel
+    gives the gradients; on the CPU their plain versions.
     """
     if not causal:
         raise ValueError("mha is causal only; non-causal (cross) attention takes "
@@ -40,7 +43,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tru
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"mha: q, k, v on different devices ({q.device}, {k.device}, "
                          f"{v.device})")
-    if _route(q, "mha") == "cpu":
+    route = _route(q, "mha")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _fa.FlashAttention.apply(q, k, v, window)
+    if route == "cpu":
         return ref.flash_attention(q, k, v, causal=True, window=window)
     return _fa.launch(q, k, v, window=window)
 

@@ -13,6 +13,36 @@ from typing import Optional, Tuple
 import torch
 
 
+def _visible(sq: int, skv: int, causal: bool, window: Optional[int], device) -> torch.Tensor:
+    """[Sq, Skv] bool: which keys each end-aligned query sees."""
+    qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _math_dtype(q: torch.Tensor) -> torch.dtype:
+    """f32, or float64 for float64 inputs (the tests' yardstick)."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
+    """Scaled scores [B, Hkv, Hq / Hkv, Sq, Skv] in ``_math_dtype``, q heads
+    grouped by kv head."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    ct = _math_dtype(q)
+    qf = q.to(ct).reshape(b, hkv, hq // hkv, sq, d)
+    return (qf @ k.to(ct)[:, :, None].transpose(-1, -2)) * scale
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -28,23 +58,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     repeated to Hq.
     """
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    if hq % hkv:
-        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qf = q.float().reshape(b, hkv, hq // hkv, sq, d)   # q heads grouped by kv head
-    logits = (qf @ k.float()[:, :, None].transpose(-1, -2)) * scale
-    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
+    logits = _scores(q, k, scale)
+    mask = _visible(sq, k.shape[2], causal, window, q.device)
     logits = logits.masked_fill(~mask, -torch.inf)
     probs = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
-    out = probs @ v.float()[:, :, None]
+    out = probs @ v.to(probs.dtype)[:, :, None]
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, *, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled causal scores, [B, Hq, Sq] f32
+    (float64 for float64 inputs; -inf for a fully masked row): what the
+    forward kernels keep for the backward pass."""
+    b, hq, sq, _ = q.shape
+    logits = _scores(q, k, scale).masked_fill(
+        ~_visible(sq, k.shape[2], True, window, q.device), -torch.inf)
+    return torch.logsumexp(logits, dim=-1).reshape(b, hq, sq)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        do: torch.Tensor, lse: torch.Tensor, *, window: Optional[int] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of causal ``flash_attention``, written out step
+    by step in f32 (float64 for float64 inputs, the tests' yardstick); the
+    plain backward kernel.
+
+    From the forward's output ``o`` and row log-sum-exp ``lse``
+    (``flash_attention_lse``) and the output's gradient ``do``, over the
+    (row, key) pairs a row sees: P = exp(S - lse), dP = dO Vᵀ,
+    D = rowsum(dO ⊙ O), dS = P ⊙ (dP − D), dq = dS K · scale,
+    dk = dSᵀ Q · scale and dv = Pᵀ dO, with dk and dv summed over the q heads
+    of each kv head's group. Pairs a row may not see give P = dS = 0, so a
+    fully masked row gets dq = 0 and adds nothing to dk or dv. Each gradient
+    has its input's dtype.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    mask = _visible(sq, skv, True, window, q.device)
+    ct = _math_dtype(q)
+    group = lambda t: t.to(ct).reshape(b, hkv, g, sq, d)  # noqa: E731
+    qf, of, dof = group(q), group(o), group(do)
+    kf, vf = k.to(ct)[:, :, None], v.to(ct)[:, :, None]
+    s = _scores(q, k, scale)
+    p = torch.where(mask, torch.exp(s - lse.to(ct).reshape(b, hkv, g, sq, 1)), 0.0)
+    dp = dof @ vf.transpose(-1, -2)
+    delta = torch.sum(dof * of, dim=-1, keepdim=True)
+    ds = torch.where(mask, p * (dp - delta), 0.0)
+    dq = (ds @ kf) * scale
+    dk = torch.sum(ds.transpose(-1, -2) @ qf, dim=2) * scale
+    dv = torch.sum(p.transpose(-1, -2) @ dof, dim=2)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 def sage_aggregate(adj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

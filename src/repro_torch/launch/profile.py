@@ -5,6 +5,8 @@
       --servers 3 --rounds 3 -K 2
   PYTHONPATH=src python -m repro_torch.launch.profile --launcher serve -- \\
       --arch qwen3-4b --variant full --batch 8 --prompt-len 2048 --steps 64
+  PYTHONPATH=src python -m repro_torch.launch.profile --launcher train -- \\
+      --arch qwen3-4b --variant full --batch 2 --seq 2048 --steps 2
 
 Runs a launcher with the arguments after ``--`` under ``torch.profiler``
 (CPU and CUDA activity), then prints the device time of every CUDA kernel
@@ -14,7 +16,10 @@ training rounds (device time, less the host-to-device upload of the batch,
 over the summed round seconds); for ``serve`` the prefill and the decode
 loop after one warm-up prefill, each profiled and reported on its own
 (device time over its host seconds, which end in
-``torch.cuda.synchronize()``). The profiler's own
+``torch.cuda.synchronize()``); for ``train`` one step after a warm-up step,
+its loss and gradients and its optimizer update profiled apart, each also
+summed by kind of kernel (GEMMs, attention forward and backward, the rest).
+The profiler's own
 cost lengthens the windows, so a busy share is a lower bound. Needs a CUDA
 device.
 """
@@ -30,10 +35,27 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.launch import fgl_train, serve
+from repro_torch.launch import fgl_train, serve, train
+from repro_torch.train import step as train_step
+
+# Kinds of kernel by name: cuBLAS's and CUTLASS's products, the port's
+# attention kernels (backward first: its names contain the forward's).
+_KINDS = (("attention backward", ("flash_attention_bwd",)),
+          ("attention forward", ("flash_attention",)),
+          ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
+          ("copies and fills", ("memcpy", "memset")))
 
 
-def _report(prof, label: str, window_s: float, top: int, *, skip_upload: bool = False) -> None:
+def _kind(name: str) -> str:
+    low = name.lower()
+    for kind, marks in _KINDS:
+        if any(m in low for m in marks):
+            return kind
+    return "elementwise and reductions"
+
+
+def _report(prof, label: str, window_s: float, top: int, *, skip_upload: bool = False,
+            kinds: bool = False) -> None:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     total_us = sum(e.self_device_time_total for e in kernels)
@@ -45,6 +67,13 @@ def _report(prof, label: str, window_s: float, top: int, *, skip_upload: bool = 
     for e in kernels[:top]:
         print(f"[profile] {e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}x "
               f"{100 * e.self_device_time_total / max(total_us, 1):5.1f}%  {e.key[:100]}")
+    if kinds:
+        by_kind = {}
+        for e in kernels:
+            by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0) + e.self_device_time_total
+        for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+            print(f"[profile] {label} by kind: {kind}: {us / 1e3:.2f} ms "
+                  f"({100 * us / max(total_us, 1):.1f}%)")
 
 
 def _profile():
@@ -56,7 +85,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     split = argv.index("--") if "--" in argv else len(argv)
     ap = argparse.ArgumentParser()
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--launcher", choices=("fgl_train", "serve"), default="fgl_train")
+    ap.add_argument("--launcher", choices=("fgl_train", "serve", "train"),
+                    default="fgl_train")
     args = ap.parse_args(argv[:split])
     run_args = argv[split + 1:]
     if "--device" in run_args and run_args[run_args.index("--device") + 1] != "cuda":
@@ -76,6 +106,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         _report(prof, "training rounds", sum(hist["seconds"]), args.top, skip_upload=True)
         return
 
+    if args.launcher == "train":
+        _profile_train(run_args, args.top)
+        return
+
     flags = serve._parser().parse_args(run_args)
     engine, prompts, gen = serve.setup(flags)
     engine.prefill(prompts)     # warm-up: cuBLAS handles, allocator growth
@@ -93,6 +127,33 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
     _report(prof, f"decode {flags.steps} steps", decode_s, args.top)
+
+
+def _profile_train(run_args, top: int) -> None:
+    """One warm-up step, then one step: its loss and gradients, and its
+    optimizer update, each profiled and reported on its own."""
+    flags = train._parser().parse_args(run_args)
+    state, step, data = train.setup(flags)
+    model = state.params
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(data).items()} for _ in range(2)]
+    state, _ = step(state, batches[0])   # warm-up: cuBLAS handles, allocator growth
+    torch.cuda.synchronize()
+    with _profile() as prof:
+        t0 = time.perf_counter()
+        _, _, grads = train_step.loss_and_grads(model, model.cfg, batches[1], flags.microbatch)
+        torch.cuda.synchronize()
+        grads_s = time.perf_counter() - t0
+    _report(prof, "loss and gradients", grads_s, top, kinds=True)
+    opt = train.optimizer(flags)
+    with _profile() as prof:
+        t0 = time.perf_counter()
+        opt.update_(grads, state.opt_state, train_step.leaves(model))
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+    _report(prof, "optimizer update", update_s, top, kinds=True)
+    print(f"[profile] step: {grads_s + update_s:.3f} s of host time "
+          f"(loss and gradients {grads_s:.3f} s, update {update_s:.3f} s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """GQA self-attention with RoPE, qk-norm, sliding windows and a KV cache.
 
-Counterpart of ``repro.models.attention``. Prefill attention goes through
-``kernels.ops.mha``: the CUDA ``flash_attention`` kernel for a CUDA tensor,
-its plain version for a CPU tensor. Decode (one token against the cache)
-stays plain PyTorch, as the reference's decode is plain jnp.
+Counterpart of ``repro.models.attention``. Prefill and training attention go
+through ``kernels.ops.mha``: the CUDA ``flash_attention`` kernels for a CUDA
+tensor (in training, the forward that keeps each row's log-sum-exp and the
+backward kernel), their plain versions for a CPU tensor. Decode (one token
+against the cache) stays plain PyTorch, as the reference's decode is plain
+jnp.
 
 Sliding-window layers keep a ring-buffer cache of ``window`` entries; global
 layers keep the full-sequence cache. window == 0 means global.

@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.models.config`` (a copy; this package imports nothing
 of the reference). ``attention_impl`` is gone: the tensors' device chooses the
-attention implementation (``kernels.ops.mha``). ``remat``, ``scan_layers`` and
+attention implementation (``kernels.ops.mha``). ``remat`` is honoured in
+training: ``transformer.forward`` recomputes each layer group in the backward
+pass (``torch.utils.checkpoint``). ``scan_layers`` and
 ``seq_parallel_activations`` are carried so that the configs read the same;
 the port runs eagerly on one card, layer by layer, and ignores them.
 

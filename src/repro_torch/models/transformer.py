@@ -7,6 +7,11 @@ loop; ``convert.lm_params_from_jax`` unstacks the reference's groups. Module
 and parameter names follow the reference's pytree keys (``embed.tokens``,
 ``blocks.<i>.attn.wq``, ...).
 
+With gradients on and ``cfg.remat``, ``forward`` recomputes each group of
+``group_size(cfg)`` blocks in the backward pass instead of keeping its
+activations (``torch.utils.checkpoint``), as the reference wraps each
+group's scan body in ``jax.checkpoint``.
+
 Only ``arch_type == "dense"`` builds. MoE, ssm, hybrid, vlm and audio raise
 ``NotImplementedError`` when the model is built (ROADMAP.md, queue 1,
 item 9). ``sharding.constraints.constrain`` is a no-op on one card and has
@@ -19,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -152,6 +158,16 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cpu") -> Transformer:
     return model
 
 
+def _group(model: Transformer, x: torch.Tensor, aux: torch.Tensor, start: int, g: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocks ``start .. start + g - 1``: the reference's scan body."""
+    cfg = model.cfg
+    for i in range(start, start + g):
+        x, a = apply_block(model.blocks[i], x, cfg, _block_kind(cfg, i), window=cfg.windows[i])
+        aux = aux + a
+    return x, aux
+
+
 def forward(model: Transformer, tokens: torch.Tensor, *,
             memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V] f32, aux loss scalar)."""
@@ -160,8 +176,13 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     cfg = model.cfg
     x = L.embed_tokens(model.embed, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, bp in enumerate(model.blocks):
-        x, aux = apply_block(bp, x, cfg, _block_kind(cfg, i), window=cfg.windows[i])
-        aux_total = aux_total + aux
+    g = group_size(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for start in range(0, cfg.num_layers, g):
+        if remat:
+            x, aux_total = checkpoint(_group, model, x, aux_total, start, g,
+                                      use_reentrant=False)
+        else:
+            x, aux_total = _group(model, x, aux_total, start, g)
     x = model.final_norm(x)
     return L.unembed(model.embed, x, softcap=cfg.logit_softcap), aux_total

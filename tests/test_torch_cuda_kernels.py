@@ -13,7 +13,12 @@ order than cuBLAS, each from three TF32 products whose split leaves out
 whose scores lie within 1e-5 (``torch_parity.assert_topk_match``);
 ``flash_attention`` within 1e-5 in f32 (the f32 route's 3-pass TF32 split
 holds each operand to ~2^-22, within f32's summation order) and 2e-2 in bf16 (the tensor-core route rounds P to bf16 before P V, and a bf16
-output may round the other way by one unit in the last place); ``sim_block``
+output may round the other way by one unit in the last place); the
+``flash_attention`` backward within 1e-5 of each gradient's max |value| in
+f32, or within the plain version's own error against float64 where that is
+larger (both sum up to Skv or Sq f32 products in other orders), and 2e-2 of
+it in bf16 (the gradients are rounded to bf16), the row log-sum-exp within
+1e-5; ``sim_block``
 within 1e-5 in f32 and 3e-2 in bf16, absolute and relative, the JAX tests'
 own tolerances.
 """
@@ -403,6 +408,165 @@ def test_flash_attention_refuses_what_it_cannot_run(dev):
         ops.mha(q, q.cpu(), q)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.mha(q.half(), q.half(), q.half())
+
+
+# The backward: every head dim in both types; ragged lengths, more queries
+# than keys (rows that see no key: dq 0), a window that crosses tiles, MQA,
+# queries at the end of a longer cache, and the training shape in bf16.
+FLASH_BWD_SHAPES = [
+    (2, 4, 2, 200, 200, 32, 64, torch.float32),
+    (1, 4, 2, 333, 333, 80, None, torch.float32),
+    (1, 4, 1, 150, 90, 64, None, torch.float32),
+    (1, 8, 1, 300, 300, 128, None, torch.float32),
+    (1, 4, 2, 500, 500, 80, 100, torch.float32),
+    (2, 4, 2, 77, 301, 32, None, torch.float32),
+    (1, 4, 2, 130, 100, 32, 50, torch.bfloat16),
+    (2, 4, 2, 333, 333, 64, None, torch.bfloat16),
+    (1, 8, 1, 300, 300, 128, 40, torch.bfloat16),
+    (1, 4, 1, 150, 90, 80, None, torch.bfloat16),
+    (2, 32, 8, 2048, 2048, 80, None, torch.bfloat16),
+]
+
+
+def _flash_bwd_inputs(dev, b, hq, hkv, sq, skv, d, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+    do = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window,dtype", FLASH_BWD_SHAPES)
+def test_flash_attention_backward_matches_plain(dev, b, hq, hkv, sq, skv, d, window, dtype):
+    q, k, v, do = _flash_bwd_inputs(dev, b, hq, hkv, sq, skv, d, dtype, seed=sq + skv + d)
+    route = "launches_tc_lse" if dtype == torch.bfloat16 else "launches_f32"
+    before = {name: getattr(kflash, name)
+              for name in ("launches_bwd", "launches_tc", "launches_tc_lse", "launches_f32")}
+    o, lse = kflash.launch(q, k, v, window=window, with_lse=True)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2       # the forward's, as above
+    torch.testing.assert_close(o.float(), ref.flash_attention(q, k, v, window=window).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref.flash_attention_lse(q, k, window=window),
+                               atol=1e-5, rtol=0)
+    got = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
+    torch.cuda.synchronize()
+    after = {name: getattr(kflash, name) for name in before}
+    assert {name: after[name] - n for name, n in before.items()} == {
+        "launches_bwd": 1, "launches_tc": 0, "launches_tc_lse": 0, "launches_f32": 0,
+        route: 1}
+    plain = ref.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    if dtype == torch.float32 and sq * skv <= 500 * 500:
+        # The same formula in float64 from the same o and lse.
+        exact = ref.flash_attention_bwd(*(t.double() for t in (q, k, v, o, do, lse)),
+                                        window=window)
+    for name, g, p in zip(("dq", "dk", "dv"), got, plain):
+        assert g.dtype == dtype and g.shape == p.shape, name
+        scale = p.float().abs().max().item()
+        if dtype == torch.bfloat16:
+            err = (g.float() - p.float()).abs().max().item()
+            assert err <= 2e-2 * scale, (name, err, scale)
+        else:
+            e = exact[("dq", "dk", "dv").index(name)]
+            err = (g.double() - e).abs().max().item()
+            own = (p.double() - e).abs().max().item()
+            assert err <= max(1e-5 * scale, own), (name, err, scale, own)
+    if sq > skv:                                  # rows before key 0: dq exactly 0
+        assert (got[0][:, :, :sq - skv] == 0).all()
+    again = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # deterministic
+
+
+def _bwd_nonfinite(dev, operand, value):
+    """A NaN or ±Inf in q, k, v or dO of a GQA 2:1 input (q head 1's row 70,
+    or kv head 0's key 70; column 5). The kernel's gradients are non-finite
+    only where the plain version's are (which also meets the value where a
+    masked pair's 0 multiplies it, on tiles the kernel skips), equal to them
+    elsewhere, and for a NaN non-finite at least where the value reaches:
+    in q, dq's row and the dk and dv of the keys it sees; in k, the dq of
+    every row that sees the key and all of the kv head's dk and dv; in v,
+    those rows' dq and the kv head's dk; in dO, the row's dq, the dk of the
+    keys it sees and their dv's column 5."""
+    q, k, v, do = _flash_bwd_inputs(dev, 1, 4, 2, 200, 200, 80, torch.float32, seed=7)
+    o, lse = kflash.launch(q, k, v, with_lse=True)
+    x = {"q": q, "k": k, "v": v, "do": do}[operand]
+    head = 1 if operand in ("q", "do") else 0
+    bits = _BITS[value]
+    x.view(torch.int32)[0, head, 70, 5] = bits - (1 << 32) if bits >> 31 else bits
+    if operand != "do":
+        o, lse = kflash.launch(q, k, v, with_lse=True)
+    got = kflash.launch_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    plain = ref.flash_attention_bwd(q, k, v, o, do, lse)
+    for g, p in zip(got, plain):
+        bad, pbad = ~torch.isfinite(g), ~torch.isfinite(p)
+        assert not (bad & ~pbad).any()
+        torch.testing.assert_close(g[~pbad], p[~pbad], atol=1e-5, rtol=1e-5)
+    if value != "nan":
+        return
+    dq, dk, dv = (~torch.isfinite(t) for t in got)
+    want = {"q": (dq[0, 1, 70], dk[0, 0, :71], dv[0, 0, :71]),
+            "k": (dq[0, :2, 70:], dk[0, 0], dv[0, 0]),
+            "v": (dq[0, :2, 70:], dk[0, 0]),
+            "do": (dq[0, 1, 70], dk[0, 0, :71], dv[0, 0, :71, 5])}[operand]
+    assert all(w.all() for w in want)
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("value", ["nan", "+inf", "-inf"])
+def test_flash_attention_backward_nonfinite_inputs(dev, operand, value):
+    _bwd_nonfinite(dev, operand, value)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_gradients_through_the_kernels(dev, dtype):
+    """``ops.mha`` inside a model's attention, differentiated by autograd on
+    the card: one forward and one backward launch, and ``wq``, ``wk``,
+    ``wv`` and ``q_norm`` get the gradients of the same attention with the
+    plain version patched in (within 1e-5 of max |grad| in f32, 2e-2 in
+    bf16)."""
+    from repro_torch.models import attention as attn
+
+    p = attn.init_attention(torch.Generator(device=dev).manual_seed(1), 128, 4, 2, 32,
+                            qk_norm=True, use_bias=False, dtype=dtype)
+    for t in p.parameters():
+        t.requires_grad_(True)
+    x = torch.randn((2, 200, 128), device=dev, generator=torch.Generator(device=dev)
+                    .manual_seed(2)).to(dtype)
+    kw = dict(num_heads=4, num_kv_heads=2, head_dim=32, qk_norm=True, rope_theta=1e6,
+              window=0)
+    grads = []
+    for route in ("kernel", "plain"):
+        p.zero_grad()
+        before = (kflash.launches, kflash.launches_bwd)
+        mha = ops.mha
+        if route == "plain":
+            ops.mha = lambda q, k, v, *, causal=True, window=None: ref.flash_attention(  # noqa
+                q, k, v, window=window)
+        try:
+            out, _, _ = attn.self_attention_kv(p, x, **kw)
+            out.float().square().sum().backward()
+        finally:
+            ops.mha = mha
+        torch.cuda.synchronize()
+        launched = (kflash.launches - before[0], kflash.launches_bwd - before[1])
+        assert launched == ((1, 1) if route == "kernel" else (0, 0))
+        grads.append({n: t.grad.float().clone() for n, t in p.named_parameters()})
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for name in ("wq", "wk", "wv", "q_norm", "k_norm", "wo"):
+        g, want = grads[0][name], grads[1][name]
+        assert g.abs().max() > 0, name
+        assert (g - want).abs().max().item() <= tol * want.abs().max().item(), name
+
+
+def test_flash_attention_backward_refuses_what_it_cannot_run(dev):
+    q = torch.randn((1, 2, 16, 32), device=dev)
+    o, lse = kflash.launch(q, q, q, with_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        kflash.launch_bwd(q, q, q, o, o, lse[:, :1])
+    with pytest.raises(ValueError, match="match q"):
+        kflash.launch_bwd(q, q, q, o.bfloat16(), o, lse)
+    with pytest.raises(ValueError, match="device"):
+        kflash.launch_bwd(q, q, q, o, o, lse.cpu())
 
 
 # (b, n, c): the JAX tests' shapes (tests/test_kernels.py, and the

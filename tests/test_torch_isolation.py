@@ -3,8 +3,8 @@
 - Every ``repro_torch`` module and ``chip_smoke.py`` import with ``jax``
   blocked, and none of their sources imports ``jax`` or the ``repro``
   package.
-- The trainer and the launcher raise without CUDA unless told to use the
-  CPU.
+- The trainer and the launchers (FGL training, LM training) raise without
+  CUDA unless told to use the CPU.
 - Only what needs several devices (the edge mesh) still raises.
 """
 import ast
@@ -20,6 +20,7 @@ from repro_torch.core.spreadfgl import make_fedgl, make_spreadfgl_gossip
 from repro_torch.core.types import FGLConfig
 from repro_torch.data.synthetic_graphs import DATASETS, make_sbm_graph
 from repro_torch.launch import fgl_train
+from repro_torch.launch import train as lm_train
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -84,6 +85,22 @@ def test_launcher_defaults_to_cuda():
         pytest.skip("a CUDA device is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         fgl_train.main(["--scale", "0.03", "--rounds", "1"])
+
+
+def test_lm_train_launcher_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_train.main(["--arch", "qwen3-4b", "--steps", "1"])
+    out = lm_train.main(["--arch", "qwen3-4b", "--device", "cpu", "--steps", "1", "--batch",
+                         "2", "--seq", "16"])
+    assert out["state"].params.embed.tokens.device.type == "cpu"
+
+
+def test_train_modules_are_covered():
+    """The LM training modules are among those imported with jax blocked."""
+    assert {"repro_torch.train", "repro_torch.train.step",
+            "repro_torch.launch.train"} <= set(_modules())
 
 
 @pytest.mark.parametrize("field,value", [("participation", 0.5), ("async_buffer", 2),

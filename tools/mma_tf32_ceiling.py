@@ -196,8 +196,10 @@ def _flash(trees, ablate, ceiling):
         stream = torch.cuda.current_stream().cuda_stream
 
         def call(fn):
-            e = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, s,
-                   d, 0, 1.0 / d ** 0.5, stream)
+            # A tree from before the entry gained its `lse` argument takes one fewer.
+            lse = (None,) if len(fn.argtypes) == 14 else ()
+            e = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse, b, hq, hkv,
+                   s, s, d, 0, 1.0 / d ** 0.5, stream)
             if e:
                 raise RuntimeError(f"flash_attention_f32 launch failed with error {e}")
         for name, fn in entries.items():
