@@ -20,10 +20,12 @@ Phases (any failure raises, and the script exits non-zero):
    axis and timed at SpreadFGL's, against the bound of the full gram and
    that of the cross-client pairs the data needs. ``sim_block``, which no
    path calls, is checked and timed at the Coauthor-CS server's gram.
-   ``flash_attention``'s backward kernel is held against its plain version
-   at the training shape in bf16 and f32 and in a windowed GQA case (with
-   the forward's row log-sum-exp, and two runs bit for bit), and timed
-   against SDPA's backward and the bound of its five products.
+   ``flash_attention``'s backward has two routes too, bf16 on the tensor
+   cores and f32 on the CUDA cores, each held against its plain version at
+   the training shape and in a windowed GQA case (with the forward's row
+   log-sum-exp, and two runs bit for bit); the bf16 route is timed against
+   SDPA's backward and the bounds of the five products the gradient needs
+   and of the seven it computes, the f32 route beside it.
 3. Small training runs of every method and option (SpreadFGL, FedSage+,
    partial participation, async and gossip aggregation, GCN and GAT) and
    small f32 serving runs (the qwen3-4b and gemma3-12b smoke configs) on the
@@ -56,7 +58,8 @@ Phases (any failure raises, and the script exits non-zero):
    the f32 route, held against the same prefill with the plain version
    patched in. Through ``repro_torch.launch.train.main``, Qwen3-4B at full
    width and depth training in bf16 with remat, batch 2 x 2048 tokens, 6
-   steps: 72 forward and 36 backward attention launches a step.
+   steps: 72 forward and 36 backward attention launches a step, every
+   backward on the tensor cores.
 5. One JSON line describing every kernel, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -205,7 +208,9 @@ def _counters():
             "flash_attention_tc": (kflash, "launches_tc"),
             "flash_attention_tc_lse": (kflash, "launches_tc_lse"),
             "flash_attention_f32": (kflash, "launches_f32"),
-            "flash_attention_bwd": (kflash, "launches_bwd")}
+            "flash_attention_bwd": (kflash, "launches_bwd"),
+            "flash_attention_bwd_tc": (kflash, "launches_bwd_tc"),
+            "flash_attention_bwd_f32": (kflash, "launches_bwd_f32")}
 
 
 def _reset_launches() -> None:
@@ -543,9 +548,10 @@ def _check_flash_bwd(dev, gen):
 
     # The training path's two kernels: the forward keeping each row's
     # log-sum-exp (in bf16 a kernel of its own, flash_attention_tc_lse_kernel)
-    # and the backward. A windowed GQA case, then the training shape (Qwen3-4B
-    # as configured, batch 2 x 2048), each in f32 and in bf16; the bf16
-    # training shape is the main path's, and is timed. Limits: the forward's
+    # and the backward (bf16 on the tensor cores, f32 on the CUDA cores). A
+    # windowed GQA case, then the training shape (Qwen3-4B as configured,
+    # batch 2 x 2048), each in f32 and in bf16; the bf16 training shape is
+    # the main path's, and is timed, and so is the f32 backward there. Limits: the forward's
     # output as _check_flash's (f32 1e-5, bf16 2e-2) and its row log-sum-exp
     # within 1e-5 of the plain one (logsumexp of the plain logits); f32
     # gradients within 1e-5 of each tensor's max |grad| of the plain formula
@@ -563,11 +569,13 @@ def _check_flash_bwd(dev, gen):
                 for _ in range(2))
         do = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
         route = "launches_tc_lse" if dtype == torch.bfloat16 else "launches_f32"
+        bwd_route = "launches_bwd_tc" if dtype == torch.bfloat16 else "launches_bwd_f32"
         before = getattr(kflash, route)
         o, lse = kflash.launch(q, k, v, window=window, with_lse=True)
         if getattr(kflash, route) != before + 1:
             raise AssertionError(f"flash_attention {dtype} with its row log-sum-exp did not "
                                  f"take its kernel ({route})")
+        bwd_before = getattr(kflash, bwd_route)
         o_err = (o.float() - ref.flash_attention(q, k, v, window=window).float()
                  ).abs().max().item()
         o_limit = 1e-5 if dtype == torch.float32 else 2e-2
@@ -576,6 +584,9 @@ def _check_flash_bwd(dev, gen):
         again = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         del again
+        if getattr(kflash, bwd_route) != bwd_before + 2:
+            raise AssertionError(f"flash_attention backward {dtype} did not take its kernel "
+                                 f"({bwd_route})")
         plain = ref.flash_attention_bwd(q, k, v, o, do, lse, window=window)
         exact = (ref.flash_attention_bwd(*(t.double() for t in (q, k, v, o, do, lse)),
                                          window=window)
@@ -601,8 +612,8 @@ def _check_flash_bwd(dev, gen):
               f"max_abs_err {o_err:.3g} (limit {o_limit:g}); lse max_abs_err {lse_err:.3g} "
               f"(limit 1e-05)")
         print(f"[smoke] flash_attention backward q[{b},{hq},{sq},{d}] kv[{b},{hkv},{skv},{d}] "
-              f"window={window} {name}: max_abs_err {'; '.join(line)}; two runs bit for bit: "
-              f"{same}")
+              f"window={window} {name} ({bwd_route[9:]}): max_abs_err {'; '.join(line)}; two "
+              f"runs bit for bit: {same}")
         if not o_err <= o_limit:
             raise AssertionError(f"flash_attention {name} with its row log-sum-exp: output "
                                  f"disagrees with its plain version by {o_err}")
@@ -612,6 +623,8 @@ def _check_flash_bwd(dev, gen):
             raise AssertionError("flash_attention backward: two runs differ")
         if dtype == torch.bfloat16:
             errs["fwd"].append(o_err)
+        elif sq == 2048:       # the f32 route at the training shape, timed beside the bf16 one
+            f32_ms = _time_ms(lambda: kflash.launch_bwd(q, k, v, o, do, lse), 10)
         del got, plain, exact
         torch.cuda.empty_cache()
     shape = f"q[{b},{hq},{sq},{d}] kv[{b},{hkv},{skv},{d}] bf16 causal"
@@ -643,15 +656,20 @@ def _check_flash_bwd(dev, gen):
                       10)
     del sdpa
     # Five products over the causal pairs (S, dP, dQ, dK, dV); bytes: q, k,
-    # v, O, dO and L read once, dQ, dK, dV written once, in bf16.
+    # v, O, dO and L read once, dQ, dK, dV written once, in bf16. The kernels
+    # compute seven (S and dP again in the dQ kernel, which needs no atomics).
     flops = 10.0 * d * pairs
     nbytes = 2 * (4 * b * hq * sq * d + 4 * b * hkv * skv * d) + 4 * b * hq * sq
     bound_ms, bound_by = _bound(flops, nbytes, peak=BF16_FLOPS)
-    bound_f32_ms, _ = _bound(flops, nbytes)
-    print(f"[smoke] flash_attention backward bf16 main-path ms={ms:.3f} plain_ms={plain_ms:.3f} "
-          f"library_ms={lib_ms:.3f} (SDPA backward) bound_ms={bound_ms:.4f} ({bound_by}, "
-          f"{flops / 1e9:.1f} GFLOP at the bf16 peak) bound_f32_ms={bound_f32_ms:.3f} (CUDA "
-          f"cores) -> {flops / ms / 1e9:.1f} TFLOP/s")
+    bound7_ms, _ = _bound(14.0 * d * pairs, nbytes, peak=BF16_FLOPS)
+    bound_f32_ms, _ = _bound(flops, 2 * nbytes)
+    print(f"[smoke] flash_attention backward bf16 (tensor cores) main-path ms={ms:.3f} "
+          f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} (SDPA backward) "
+          f"bound_ms={bound_ms:.4f} ({bound_by}, {flops / 1e9:.1f} GFLOP of five products at "
+          f"the bf16 peak) bound_7_products_ms={bound7_ms:.4f} ({14.0 * d * pairs / 1e9:.1f} "
+          f"GFLOP) -> {flops / ms / 1e9:.1f} TFLOP/s of five products, "
+          f"{14.0 * d * pairs / ms / 1e9:.1f} of seven; f32 route (CUDA cores) at the same "
+          f"shape in f32 ms={f32_ms:.3f} (bound {bound_f32_ms:.3f} at the f32 CUDA-core peak)")
     del q, k, v, o, do, lse, qg, kg, vg
     torch.cuda.empty_cache()
     return [{"name": "flash_attention (bf16, tensor cores, keeping the row log-sum-exp)",
@@ -660,12 +678,14 @@ def _check_flash_bwd(dev, gen):
              "max_abs_err": max(errs["fwd"]), "ms": fwd_ms, "plain_ms": fwd_plain_ms,
              "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by, "library_ms": fwd_lib_ms,
              "shape": shape},
-            {"name": "flash_attention_bwd", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            {"name": "flash_attention_bwd (bf16, tensor cores)", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
              "replaces": "src/repro/kernels/flash_attention.py:98 (no VJP: a new kernel)",
              "max_abs_err": max(errs["bwd"]), "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-             "bound_f32_ms": bound_f32_ms, "shape": shape}]
+             "bound_7_products_ms": bound7_ms, "f32_route_ms": f32_ms,
+             "f32_route_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "shape": shape}]
 
 
 # -- phase 3: the card's training run against the CPU's ----------------------
@@ -878,7 +898,8 @@ def _check_small_train(dev):
             runs.append((losses, snaps))
         per = cfg.num_layers * flags.steps * flags.microbatch
         want = {"flash_attention_f32": per * (2 if cfg.remat else 1), "flash_attention_tc": 0,
-                "flash_attention_tc_lse": 0, "flash_attention_bwd": per}
+                "flash_attention_tc_lse": 0, "flash_attention_bwd": per,
+                "flash_attention_bwd_f32": per, "flash_attention_bwd_tc": 0}
         got = {name: after[name] - before[name] for name in want}
         (cpu_losses, cpu_snaps), (losses, snaps) = runs
         dloss = max(abs(a - b) for a, b in zip(losses, cpu_losses))
@@ -947,11 +968,11 @@ def _check_whole_step(dev):
     finally:
         ops.mha = kernel_mha
     got = {name: after[name] - before[name]
-           for name in ("flash_attention_tc_lse", "flash_attention_bwd", "flash_attention_tc",
-                        "flash_attention_f32")}
+           for name in ("flash_attention_tc_lse", "flash_attention_bwd", "flash_attention_bwd_tc",
+                        "flash_attention_bwd_f32", "flash_attention_tc", "flash_attention_f32")}
     want = {"flash_attention_tc_lse": 2 * cfg.num_layers,
-            "flash_attention_bwd": cfg.num_layers, "flash_attention_tc": 0,
-            "flash_attention_f32": 0}
+            "flash_attention_bwd": cfg.num_layers, "flash_attention_bwd_tc": cfg.num_layers,
+            "flash_attention_bwd_f32": 0, "flash_attention_tc": 0, "flash_attention_f32": 0}
     dloss = abs(total_k.item() - total_p.item())
     worst, worst_name = 0.0, ""
     for name, g in grads_k.items():
@@ -1194,7 +1215,8 @@ def _train_main_path():
     tokens = flags.batch * flags.seq
     share = 6.0 * n_params * tokens / step_s / BF16_FLOPS
     per_step = {"flash_attention_tc_lse": cfg.num_layers * (2 if cfg.remat else 1),
-                "flash_attention_bwd": cfg.num_layers, "flash_attention_tc": 0,
+                "flash_attention_bwd": cfg.num_layers, "flash_attention_bwd_tc": cfg.num_layers,
+                "flash_attention_bwd_f32": 0, "flash_attention_tc": 0,
                 "flash_attention_f32": 0}
     want = {name: n * flags.steps for name, n in per_step.items()}
     got = {name: counts[name] for name in want}
@@ -1257,7 +1279,7 @@ def main() -> int:
                            (flash_tc, "flash_attention_tc"),
                            (flash_f32, "flash_attention_f32"), (block, "sim_block"),
                            (flash_lse, "flash_attention_tc_lse"),
-                           (flash_bwd, "flash_attention_bwd")):
+                           (flash_bwd, "flash_attention_bwd_tc")):
         entry["launches"] = sum(run[counter] for run in runs)
     kernels = [sage, sim, flash_tc, flash_f32, block, flash_lse, flash_bwd]
 

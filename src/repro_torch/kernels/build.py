@@ -32,7 +32,8 @@ SIGNATURES = {
     "sim_block_fwd": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "flash_attention_f32": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
     "flash_attention_tc_bf16": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
-    "flash_attention_bwd": ([_P] * 10 + [_I] * 7 + [_F, _I, _P], _I),
+    "flash_attention_bwd_f32": ([_P] * 10 + [_I] * 7 + [_F, _P], _I),
+    "flash_attention_bwd_tc_bf16": ([_P] * 10 + [_I] * 7 + [_F, _P], _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,12 +1,13 @@
 // The backward pass of causal (optionally windowed) attention with grouped kv
-// heads: from q, k, v, the forward's output O and row log-sum-exp L, and the
-// output's gradient dO, the gradients dQ, dK and dV, for bfloat16 or float32
-// inputs with float32 arithmetic. The contract is the forward's
-// (flash_attention.cu, flash_attention_tc.cu): q, O, dO [B, Hq, Sq, D] and k,
-// v [B, Hkv, Skv, D] with Hq a multiple of Hkv, q head h reading kv head
-// h / (Hq / Hkv); query i sits at key position i + Skv - Sq and sees the keys
-// at positions <= its own, and with a window only those > its own minus the
-// window. With S = Q K^T * scale over the keys a row sees:
+// heads, for float32 inputs, on the CUDA cores: from q, k, v, the forward's
+// output O and row log-sum-exp L, and the output's gradient dO, the gradients
+// dQ, dK and dV. The bfloat16 inputs have a kernel of their own on the tensor
+// cores, flash_attention_bwd_tc.cu, with the same contract: q, O, dO
+// [B, Hq, Sq, D] and k, v [B, Hkv, Skv, D] with Hq a multiple of Hkv, q head
+// h reading kv head h / (Hq / Hkv); query i sits at key position
+// i + Skv - Sq and sees the keys at positions <= its own, and with a window
+// only those > its own minus the window. With S = Q K^T * scale over the keys
+// a row sees:
 //   P = exp(S - L), dP = dO V^T, D = rowsum(dO * O), dS = P * (dP - D),
 //   dQ = dS K * scale, dK = dS^T Q * scale, dV = P^T dO,
 // where dK and dV sum over the q heads of each kv head's group. A pair (row,
@@ -21,12 +22,13 @@
 //
 // What bounds it on the H100: operations. At the training shape (2 x 32 q
 // heads, 2048 tokens, D = 80) the five products the gradient needs (S, dP,
-// dQ, dK, dV) over the causal pairs are 107.4 GFLOP, against ~105 MB of
-// bf16 inputs and outputs: 0.109 ms at the bf16 tensor-core peak, 1.60 ms on
-// the CUDA cores' 67 TFLOP/s float32 peak, where this kernel runs.
+// dQ, dK, dV) over the causal pairs are 107.4 GFLOP, against ~210 MB of
+// f32 inputs and outputs: 1.60 ms on the CUDA cores' 67 TFLOP/s float32
+// peak, where this kernel runs (0.217 ms at the 495 TFLOP/s TF32 peak, which
+// three passes for f32 accuracy would make 0.65 ms).
 //
 // What the design does about it (a simple first kernel, on the CUDA cores;
-// the tensor cores are for a later redesign):
+// the f32 route is off the training main path, which runs bf16):
 // - Three launches on one stream. A pass for D, one warp per row. Then a
 //   dK/dV kernel: one block per (batch, kv head, tile of 64 keys), which
 //   loops over the q heads of the group and over only the 64-row query tiles
@@ -47,7 +49,6 @@
 //   tiles). Shared memory is 99 KB at D = 80; registers are capped at 128 a
 //   thread for D <= 80 so that two blocks fit on an SM.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -55,23 +56,11 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int BQ = 64;           // query rows per tile
 constexpr int BK = 64;           // keys per tile
 constexpr int THREADS = 256;     // 16 x 16
 constexpr int LDP = BK + 1;      // row stride of the P / dS tile
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
 
 // Four [64][D + 1] tiles, the P / dS tile, and a row's L (in log2 units) and D.
 template <int D>
@@ -81,14 +70,14 @@ constexpr size_t smem_bytes() {
 
 // Rows [r0, r0 + 64) of a row-major [nrows, D] array as a [64][D + 1] float32
 // tile; rows at or past nrows are 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0,
                                           int nrows) {
 #pragma unroll
   for (int it = 0; it < 64 * D / THREADS; ++it) {
     const int i = threadIdx.x + it * THREADS;
     const int r = i / D, c = i - r * D;
-    dst[r * (D + 1) + c] = r0 + r < nrows ? to_f32(src[(size_t)(r0 + r) * D + c]) : 0.0f;
+    dst[r * (D + 1) + c] = r0 + r < nrows ? src[(size_t)(r0 + r) * D + c] : 0.0f;
   }
 }
 
@@ -187,28 +176,28 @@ __device__ __forceinline__ void acc_keys(float (&acc)[4][D / 16], const float* P
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+flash_attention_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                                  float* __restrict__ delta, long long rows) {
   const long long row = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   float acc = 0.0f;
   for (int c = lane; c < D; c += 32)
-    acc = fmaf(to_f32(dout[row * D + c]), to_f32(o[row * D + c]), acc);
+    acc = fmaf(dout[row * D + c], o[row * D + c], acc);
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
   if (lane == 0) delta[row] = acc;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, D <= 80 ? 2 : 1)
-flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                const T* __restrict__ v, const T* __restrict__ dout,
+flash_attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
                                 const float* __restrict__ lse, const float* __restrict__ delta,
-                                T* __restrict__ dk, T* __restrict__ dv, int hq, int hkv, int sq,
-                                int skv, int window, float scale_log2, float scale) {
+                                float* __restrict__ dk, float* __restrict__ dv, int hq, int hkv,
+                                int sq, int skv, int window, float scale_log2, float scale) {
   constexpr int LD = D + 1, NJ = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;               // [BK][LD]
@@ -224,8 +213,8 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
   const int group = hq / hkv, off = skv - sq;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t kv_base = ((size_t)b * hkv + kvh) * skv;
-  load_tile<T, D>(Ks, k + kv_base * D, k0, skv);
-  load_tile<T, D>(Vs, v + kv_base * D, k0, skv);
+  load_tile<D>(Ks, k + kv_base * D, k0, skv);
+  load_tile<D>(Vs, v + kv_base * D, k0, skv);
 
   float dk_acc[4][NJ], dv_acc[4][NJ];
 #pragma unroll
@@ -243,8 +232,8 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
     const size_t row_base = ((size_t)b * hq + kvh * group + hg) * sq;
     for (int q0 = (i_lo / BQ) * BQ; q0 <= i_hi; q0 += BQ) {
       __syncthreads();                        // the last tile's Qs, dOs and Ps are free
-      load_tile<T, D>(Qs, q + row_base * D, q0, sq);
-      load_tile<T, D>(dOs, dout + row_base * D, q0, sq);
+      load_tile<D>(Qs, q + row_base * D, q0, sq);
+      load_tile<D>(dOs, dout + row_base * D, q0, sq);
       load_rows(Ls, Ds, lse, delta, row_base, q0, sq);
       __syncthreads();
       float p[4][4], ds[4][4];
@@ -265,19 +254,19 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const size_t at = (kv_base + key) * D + tx + 16 * j;
-      dk[at] = from_f32<T>(dk_acc[r][j] * scale);
-      dv[at] = from_f32<T>(dv_acc[r][j]);
+      dk[at] = dk_acc[r][j] * scale;
+      dv[at] = dv_acc[r][j];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, D <= 80 ? 2 : 1)
-flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v, const T* __restrict__ dout,
+flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
-                              T* __restrict__ dq, int hq, int hkv, int sq, int skv, int window,
-                              float scale_log2, float scale) {
+                              float* __restrict__ dq, int hq, int hkv, int sq, int skv,
+                              int window, float scale_log2, float scale) {
   constexpr int LD = D + 1, NJ = D / 16;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;               // [BQ][LD]
@@ -296,8 +285,8 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t row_base = (size_t)bh * sq;
   const size_t kv_base = ((size_t)b * hkv + kvh) * skv;
-  load_tile<T, D>(Qs, q + row_base * D, q0, sq);
-  load_tile<T, D>(dOs, dout + row_base * D, q0, sq);
+  load_tile<D>(Qs, q + row_base * D, q0, sq);
+  load_tile<D>(dOs, dout + row_base * D, q0, sq);
   load_rows(Ls, Ds, lse, delta, row_base, q0, sq);
 
   float dq_acc[4][NJ];
@@ -312,8 +301,8 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_lo = window > 0 ? max(0, q0 + off - window + 1) : 0;
   for (int k0 = (k_lo / BK) * BK; k0 <= k_hi; k0 += BK) {
     __syncthreads();                          // the last tile's Ks, Vs and Ps are free
-    load_tile<T, D>(Ks, k + kv_base * D, k0, skv);
-    load_tile<T, D>(Vs, v + kv_base * D, k0, skv);
+    load_tile<D>(Ks, k + kv_base * D, k0, skv);
+    load_tile<D>(Vs, v + kv_base * D, k0, skv);
     __syncthreads();
     float p[4][4], ds[4][4];
     probs<D>(Qs, dOs, Ks, Vs, Ls, Ds, q0, k0, sq, skv, window, scale_log2, p, ds);
@@ -339,80 +328,74 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= sq) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      dq[(row_base + row) * D + tx + 16 * j] = from_f32<T>(dq_acc[r][j] * scale);
+      dq[(row_base + row) * D + tx + 16 * j] = dq_acc[r][j] * scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv, int batch, int hq,
            int hkv, int sq, int skv, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<T, D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T, D>,
+  e = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const T* Q = static_cast<const T*>(q);
-  const T* K = static_cast<const T*>(k);
-  const T* V = static_cast<const T*>(v);
-  const T* dO = static_cast<const T*>(dout);
+  const float* Q = static_cast<const float*>(q);
+  const float* K = static_cast<const float*>(k);
+  const float* V = static_cast<const float*>(v);
+  const float* dO = static_cast<const float*>(dout);
   const long long rows = (long long)batch * hq * sq;
   const int rows_per_block = THREADS / 32;
-  flash_attention_bwd_delta_kernel<T, D>
+  flash_attention_bwd_delta_kernel<D>
       <<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), THREADS, 0, stream>>>(
-          static_cast<const T*>(o), dO, delta, rows);
+          static_cast<const float*>(o), dO, delta, rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const float sl2 = scale * LOG2E;
-  flash_attention_bwd_dkdv_kernel<T, D>
+  flash_attention_bwd_dkdv_kernel<D>
       <<<dim3(batch * hkv, (skv + BK - 1) / BK), THREADS, smem, stream>>>(
-          Q, K, V, dO, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), hq, hkv, sq, skv,
-          window, sl2, scale);
+          Q, K, V, dO, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), hq, hkv, sq,
+          skv, window, sl2, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_attention_bwd_dq_kernel<T, D>
+  flash_attention_bwd_dq_kernel<D>
       <<<dim3(batch * hq, (sq + BQ - 1) / BQ), THREADS, smem, stream>>>(
-          Q, K, V, dO, lse, delta, static_cast<T*>(dq), hq, hkv, sq, skv, window, sl2, scale);
+          Q, K, V, dO, lse, delta, static_cast<float*>(dq), hq, hkv, sq, skv, window, sl2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
              int batch, int hq, int hkv, int sq, int skv, int window, float scale,
              cudaStream_t s) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, hq, hkv, sq,
-                                  skv, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, hq, hkv, sq,
-                                  skv, window, scale, s);
-    case 80: return launch<T, 80>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, hq, hkv, sq,
-                                  skv, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, hq, hkv,
-                                    sq, skv, window, scale, s);
+    case 32: return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, hq, hkv, sq,
+                               skv, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, hq, hkv, sq,
+                               skv, window, scale, s);
+    case 80: return launch<80>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, hq, hkv, sq,
+                               skv, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, hq, hkv,
+                                 sq, skv, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q, o, dout, dq [batch, hq, sq, d]; k, v, dk, dv [batch, hkv, skv, d]: contiguous,
-// all bfloat16 (bf16 != 0) or all float32; lse and delta [batch, hq, sq]
-// float32 (lse as the forward wrote it; delta is scratch). hq a multiple of
-// hkv, d one of 32, 64, 80, 128, window <= 0 for none. Launches three kernels
-// on `stream` and returns the cudaError_t of the launches.
-extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                   const void* dout, const void* lse, void* delta, void* dq,
-                                   void* dk, void* dv, int batch, int hq, int hkv, int sq,
-                                   int skv, int d, int window, float scale, int bf16_inputs,
-                                   void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* L = static_cast<const float*>(lse);
-  float* Dl = static_cast<float*>(delta);
-  return bf16_inputs ? dispatch<bf16>(d, q, k, v, o, dout, L, Dl, dq, dk, dv, batch, hq, hkv,
-                                      sq, skv, window, scale, s)
-                     : dispatch<float>(d, q, k, v, o, dout, L, Dl, dq, dk, dv, batch, hq, hkv,
-                                       sq, skv, window, scale, s);
+// q, o, dout, dq [batch, hq, sq, d]; k, v, dk, dv [batch, hkv, skv, d]: contiguous
+// float32; lse and delta [batch, hq, sq] float32 (lse as the forward wrote
+// it; delta is scratch). hq a multiple of hkv, d one of 32, 64, 80, 128,
+// window <= 0 for none. Launches three kernels on `stream` and returns the
+// cudaError_t of the launches.
+extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                                       const void* dout, const void* lse, void* delta, void* dq,
+                                       void* dk, void* dv, int batch, int hq, int hkv, int sq,
+                                       int skv, int d, int window, float scale, void* stream) {
+  return dispatch(d, q, k, v, o, dout, static_cast<const float*>(lse),
+                  static_cast<float*>(delta), dq, dk, dv, batch, hq, hkv, sq, skv, window, scale,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -15,10 +15,14 @@ it on the H100 and what its design does about that. The plain version of
 both is ``ref.flash_attention``.
 
 The JAX kernel has no VJP (the reference trains through plain attention).
-The port's backward is a kernel of its own, ``csrc/flash_attention_bwd.cu``
-(both types, f32 arithmetic on the CUDA cores), fed by the forward's row
-log-sum-exp; its plain version is ``ref.flash_attention_bwd``.
-``FlashAttention`` ties the two passes together for autograd.
+The port's backward is a kernel of its own, fed by the forward's row
+log-sum-exp, with two routes chosen by type like the forward's: bfloat16 on
+the tensor cores in ``csrc/flash_attention_bwd_tc.cu`` (``mma.sync``, f32
+accumulation, P and dS rounded to bf16 before their products), float32 on
+the CUDA cores in ``csrc/flash_attention_bwd.cu`` (f32 arithmetic). Neither
+falls back to the other; both are deterministic. Their plain version is
+``ref.flash_attention_bwd``. ``FlashAttention`` ties the two passes together
+for autograd.
 """
 from __future__ import annotations
 
@@ -29,13 +33,15 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# Kernel launches, read by chip_smoke.py: each forward kernel, `launches`
-# (their sum), and the backward's.
+# Kernel launches, read by chip_smoke.py: each forward kernel and
+# `launches` (their sum); each backward route and `launches_bwd` (theirs).
 launches = 0
 launches_tc = 0     # bfloat16, tensor cores (flash_attention_tc.cu, serving kernel)
 launches_tc_lse = 0  # bfloat16 keeping the row log-sum-exp (its training kernel)
 launches_f32 = 0    # float32, 3-pass TF32 (flash_attention.cu, either use)
-launches_bwd = 0    # backward, either type (flash_attention_bwd.cu)
+launches_bwd = 0    # backward, either route
+launches_bwd_tc = 0   # backward, bfloat16 on the tensor cores (flash_attention_bwd_tc.cu)
+launches_bwd_f32 = 0  # backward, float32 on the CUDA cores (flash_attention_bwd.cu)
 
 HEAD_DIMS = (32, 64, 80, 128)   # each kernel's template instances
 _GRID_Y = 65535                 # query blocks (64 or 128 rows) ride the grid's y axis
@@ -112,7 +118,7 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
                scale: Optional[float] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) on the card; arguments as ``ref.flash_attention_bwd``."""
-    global launches_bwd
+    global launches_bwd, launches_bwd_tc, launches_bwd_f32
     b, hq, hkv, sq, skv, d, scale = _check(q, k, v, window, scale)
     if -(-skv // 64) > _GRID_Y:      # the backward's key tiles ride the y axis too
         raise ValueError(f"Skv={skv} exceeds the grid's limit of {_GRID_Y * 64}")
@@ -130,12 +136,17 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    err = build.load().flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d,
-        window or 0, scale, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attention backward")
+    tc = q.dtype == torch.bfloat16
+    lib = build.load()
+    fn = lib.flash_attention_bwd_tc_bf16 if tc else lib.flash_attention_bwd_f32
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq,
+             hkv, sq, skv, d, window or 0, scale, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention backward (bf16)" if tc else "flash_attention backward (f32)")
+    if tc:
+        launches_bwd_tc += 1
+    else:
+        launches_bwd_f32 += 1
     launches_bwd += 1
     return dq, dk, dv
 

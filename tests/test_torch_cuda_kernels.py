@@ -17,7 +17,8 @@ output may round the other way by one unit in the last place); the
 ``flash_attention`` backward within 1e-5 of each gradient's max |value| in
 f32, or within the plain version's own error against float64 where that is
 larger (both sum up to Skv or Sq f32 products in other orders), and 2e-2 of
-it in bf16 (the gradients are rounded to bf16), the row log-sum-exp within
+it in bf16 (the tensor-core route rounds P and dS to bf16 before their
+products, and the gradients are rounded to bf16), the row log-sum-exp within
 1e-5; ``sim_block``
 within 1e-5 in f32 and 3e-2 in bf16, absolute and relative, the JAX tests'
 own tolerances.
@@ -412,7 +413,11 @@ def test_flash_attention_refuses_what_it_cannot_run(dev):
 
 # The backward: every head dim in both types; ragged lengths, more queries
 # than keys (rows that see no key: dq 0), a window that crosses tiles, MQA,
-# queries at the end of a longer cache, and the training shape in bf16.
+# queries at the end of a longer cache, and the training shape in bf16. The
+# last two bf16 cases cut the tensor-core kernels' tiles (16 rows or keys a
+# warp, 64 a block; 32 a tile at D = 128) where the others do not: more
+# queries than keys with Sq not a multiple of 16, and D = 128 with a window
+# and GQA 4:1.
 FLASH_BWD_SHAPES = [
     (2, 4, 2, 200, 200, 32, 64, torch.float32),
     (1, 4, 2, 333, 333, 80, None, torch.float32),
@@ -425,23 +430,35 @@ FLASH_BWD_SHAPES = [
     (1, 8, 1, 300, 300, 128, 40, torch.bfloat16),
     (1, 4, 1, 150, 90, 80, None, torch.bfloat16),
     (2, 32, 8, 2048, 2048, 80, None, torch.bfloat16),
+    (2, 4, 2, 203, 75, 64, None, torch.bfloat16),
+    (1, 8, 2, 300, 300, 128, 70, torch.bfloat16),
 ]
 
 
-def _flash_bwd_inputs(dev, b, hq, hkv, sq, skv, d, dtype, seed):
+def _flash_bwd_inputs(dev, b, hq, hkv, sq, skv, d, dtype, seed, q_scale=1.0):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
+    q = (q_scale * torch.randn((b, hq, sq, d), generator=gen, device=dev)).to(dtype)
     k, v = (torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype) for _ in range(2))
     do = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
     return q, k, v, do
 
 
+_FLASH_COUNTERS = ("launches_bwd", "launches_bwd_tc", "launches_bwd_f32", "launches_tc",
+                   "launches_tc_lse", "launches_f32")
+
+
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window,dtype", FLASH_BWD_SHAPES)
 def test_flash_attention_backward_matches_plain(dev, b, hq, hkv, sq, skv, d, window, dtype):
+    """The forward with its row log-sum-exp, then the backward on its route
+    (bf16: the tensor cores, f32: the CUDA cores), against the plain
+    version: the counters of the two kernels moved and no other, the limits
+    of the module docstring, rows that see no key dq 0, and a second run bit
+    for bit."""
     q, k, v, do = _flash_bwd_inputs(dev, b, hq, hkv, sq, skv, d, dtype, seed=sq + skv + d)
-    route = "launches_tc_lse" if dtype == torch.bfloat16 else "launches_f32"
-    before = {name: getattr(kflash, name)
-              for name in ("launches_bwd", "launches_tc", "launches_tc_lse", "launches_f32")}
+    tc = dtype == torch.bfloat16
+    routes = ("launches_tc_lse", "launches_bwd_tc") if tc else ("launches_f32",
+                                                               "launches_bwd_f32")
+    before = {name: getattr(kflash, name) for name in _FLASH_COUNTERS}
     o, lse = kflash.launch(q, k, v, window=window, with_lse=True)
     tol = 1e-5 if dtype == torch.float32 else 2e-2       # the forward's, as above
     torch.testing.assert_close(o.float(), ref.flash_attention(q, k, v, window=window).float(),
@@ -452,8 +469,7 @@ def test_flash_attention_backward_matches_plain(dev, b, hq, hkv, sq, skv, d, win
     torch.cuda.synchronize()
     after = {name: getattr(kflash, name) for name in before}
     assert {name: after[name] - n for name, n in before.items()} == {
-        "launches_bwd": 1, "launches_tc": 0, "launches_tc_lse": 0, "launches_f32": 0,
-        route: 1}
+        name: int(name == "launches_bwd" or name in routes) for name in _FLASH_COUNTERS}
     plain = ref.flash_attention_bwd(q, k, v, o, do, lse, window=window)
     if dtype == torch.float32 and sq * skv <= 500 * 500:
         # The same formula in float64 from the same o and lse.
@@ -476,31 +492,69 @@ def test_flash_attention_backward_matches_plain(dev, b, hq, hkv, sq, skv, d, win
     assert all(torch.equal(a, b) for a, b in zip(got, again))   # deterministic
 
 
-def _bwd_nonfinite(dev, operand, value):
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window", [(1, 4, 2, 300, 300, 80, None),
+                                                       (1, 8, 2, 200, 200, 64, 50)])
+def test_flash_attention_backward_peaky_softmax(dev, b, hq, hkv, sq, skv, d, window):
+    """q scaled by 8, bf16: most rows put nearly all their weight on one key,
+    so P is near 1 there and dS = P (dP - D) cancels. The backward on the
+    tensor cores, from the plain version's output and row log-sum-exp,
+    within 2e-2 of max |grad| of the plain backward, and a second run bit for
+    bit."""
+    q, k, v, do = _flash_bwd_inputs(dev, b, hq, hkv, sq, skv, d, torch.bfloat16, seed=sq + d,
+                                    q_scale=8.0)
+    o = ref.flash_attention(q, k, v, window=window)
+    lse = ref.flash_attention_lse(q, k, window=window)
+    before = kflash.launches_bwd_tc
+    got = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
+    torch.cuda.synchronize()
+    assert kflash.launches_bwd_tc == before + 1
+    plain = ref.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    for name, g, p in zip(("dq", "dk", "dv"), got, plain):
+        err = (g.float() - p.float()).abs().max().item()
+        assert err <= 2e-2 * p.float().abs().max().item(), (name, err)
+    again = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _bwd_nonfinite(dev, operand, value, dtype):
     """A NaN or ±Inf in q, k, v or dO of a GQA 2:1 input (q head 1's row 70,
-    or kv head 0's key 70; column 5). The kernel's gradients are non-finite
-    only where the plain version's are (which also meets the value where a
-    masked pair's 0 multiplies it, on tiles the kernel skips), equal to them
-    elsewhere, and for a NaN non-finite at least where the value reaches:
-    in q, dq's row and the dk and dv of the keys it sees; in k, the dq of
-    every row that sees the key and all of the kv head's dk and dv; in v,
-    those rows' dq and the kv head's dk; in dO, the row's dq, the dk of the
-    keys it sees and their dv's column 5."""
-    q, k, v, do = _flash_bwd_inputs(dev, 1, 4, 2, 200, 200, 80, torch.float32, seed=7)
+    or kv head 0's key 70; column 5), in f32 (the CUDA-core route) or bf16
+    (the tensor cores). The kernel's gradients are non-finite only where the
+    plain version's are (which also meets the value where a masked pair's 0
+    multiplies it, on tiles the kernel skips), equal to them elsewhere
+    (f32 within 1e-5, bf16 within 2e-2 of the plain version's max |grad|
+    there), and for a NaN non-finite at least where the value reaches: in q,
+    dq's row and the dk and dv of the keys it sees; in k, the dq of every
+    row that sees the key and all of the kv head's dk and dv; in v, those
+    rows' dq and the kv head's dk; in dO, the row's dq, the dk of the keys
+    it sees and their dv's column 5."""
+    q, k, v, do = _flash_bwd_inputs(dev, 1, 4, 2, 200, 200, 80, dtype, seed=7)
     o, lse = kflash.launch(q, k, v, with_lse=True)
     x = {"q": q, "k": k, "v": v, "do": do}[operand]
     head = 1 if operand in ("q", "do") else 0
-    bits = _BITS[value]
-    x.view(torch.int32)[0, head, 70, 5] = bits - (1 << 32) if bits >> 31 else bits
+    if dtype == torch.float32:
+        bits = _BITS[value]
+        x.view(torch.int32)[0, head, 70, 5] = bits - (1 << 32) if bits >> 31 else bits
+    else:
+        x[0, head, 70, 5] = {"nan": torch.nan, "+inf": torch.inf, "-inf": -torch.inf}[value]
     if operand != "do":
         o, lse = kflash.launch(q, k, v, with_lse=True)
+    before = (kflash.launches_bwd_tc, kflash.launches_bwd_f32)
     got = kflash.launch_bwd(q, k, v, o, do, lse)
     torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert (kflash.launches_bwd_tc - before[0], kflash.launches_bwd_f32 - before[1]) == (
+        (1, 0) if tc else (0, 1))
     plain = ref.flash_attention_bwd(q, k, v, o, do, lse)
     for g, p in zip(got, plain):
         bad, pbad = ~torch.isfinite(g), ~torch.isfinite(p)
         assert not (bad & ~pbad).any()
-        torch.testing.assert_close(g[~pbad], p[~pbad], atol=1e-5, rtol=1e-5)
+        if tc:
+            want = p[~pbad].float()
+            err = (g[~pbad].float() - want).abs().max().item()
+            assert err <= 2e-2 * want.abs().max().item(), err
+        else:
+            torch.testing.assert_close(g[~pbad], p[~pbad], atol=1e-5, rtol=1e-5)
     if value != "nan":
         return
     dq, dk, dv = (~torch.isfinite(t) for t in got)
@@ -511,10 +565,11 @@ def _bwd_nonfinite(dev, operand, value):
     assert all(w.all() for w in want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("operand", ["q", "k", "v", "do"])
 @pytest.mark.parametrize("value", ["nan", "+inf", "-inf"])
-def test_flash_attention_backward_nonfinite_inputs(dev, operand, value):
-    _bwd_nonfinite(dev, operand, value)
+def test_flash_attention_backward_nonfinite_inputs(dev, operand, value, dtype):
+    _bwd_nonfinite(dev, operand, value, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

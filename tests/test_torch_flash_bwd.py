@@ -13,7 +13,9 @@ where no row is fully masked, and autograd only on rows that see a key.
 ``ops.mha`` on CPU tensors that need a gradient runs this backward through
 ``FlashAttention``.
 
-Tolerance: 1e-5 (f32 sums in other orders).
+Tolerance: 1e-5 (f32 sums in other orders). The tensor-core kernel's
+roundings (P and dS to bf16 before their products) are held on bf16 inputs
+to the CUDA tests' limit, 2e-2 of each gradient's max |value|.
 """
 import jax
 import jax.numpy as jnp
@@ -124,3 +126,49 @@ def test_mha_differentiates_through_the_plain_backward(monkeypatch):
         assert torch.equal(got, want)
     with torch.no_grad():
         assert pops.mha(tq, tk, tv, window=10).grad_fn is None
+
+
+def _bwd_bf16_products(q, k, v, o, do, lse, window):
+    """``pref.flash_attention_bwd``'s formula with the bf16 tensor-core
+    kernel's roundings: P and dS, formed in f32, rounded to bf16 before
+    dv = Pᵀ dO, dk = dSᵀ Q and dq = dS K (f32 sums of exact products)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    mask = pref._visible(sq, skv, True, window, q.device)
+    group = lambda t: t.float().reshape(b, hkv, g, sq, d)  # noqa: E731
+    qf, of, dof = group(q), group(o), group(do)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    s = (qf @ kf.transpose(-1, -2)) / d ** 0.5
+    p = torch.where(mask, torch.exp(s - lse.reshape(b, hkv, g, sq, 1)), 0.0)
+    ds = torch.where(mask, p * (dof @ vf.transpose(-1, -2)
+                                - torch.sum(dof * of, dim=-1, keepdim=True)), 0.0)
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    dq = (ds @ kf) / d ** 0.5
+    dk = torch.sum(ds.transpose(-1, -2) @ qf, dim=2) / d ** 0.5
+    dv = torch.sum(p.transpose(-1, -2) @ dof, dim=2)
+    return dq.reshape(b, hq, sq, d).bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 8.0], ids=["plain", "peaky"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window", [(2, 4, 2, 50, 50, 32, 8),
+                                                       (1, 8, 2, 37, 37, 80, 20)])
+def test_bf16_product_roundings_fit_the_kernel_limit(b, hq, hkv, sq, skv, d, window, q_scale):
+    """bf16 inputs, GQA with a window, q as drawn or scaled by 8 (a peaky
+    softmax, where dS = P (dP - D) cancels): the backward with P and dS
+    rounded to bf16 before their products stays within 2e-2 of each
+    gradient's max |value| of ``pref.flash_attention_bwd``, the limit the
+    tensor-core kernel is held to on the card, and the roundings do move it."""
+    q, k, v, do = (torch.from_numpy(a).bfloat16()
+                   for a in _inputs(b, hq, hkv, sq, skv, d, seed=sq + d))
+    q = (q.float() * q_scale).bfloat16()
+    o = pref.flash_attention(q, k, v, window=window)
+    lse = pref.flash_attention_lse(q, k, window=window)
+    plain = pref.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    rounded = _bwd_bf16_products(q, k, v, o, do, lse, window)
+    moved = 0.0
+    for name, got, want in zip(("dq", "dk", "dv"), rounded, plain):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * want.float().abs().max().item(), (name, err)
+        moved = max(moved, err)
+    assert moved > 0
