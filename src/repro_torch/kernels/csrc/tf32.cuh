@@ -1,5 +1,6 @@
 // TF32 helpers shared by the kernels that run float32 products on the tensor
-// cores with the 3-pass split (sage_aggregate.cu, flash_attention.cu): a
+// cores with the 3-pass split (sage_aggregate.cu, flash_attention.cu,
+// flash_attention_bwd.cu): a
 // float32 x is written as x = hi + lo, both TF32, and a product as
 // a_lo b_hi + a_hi b_lo + a_hi b_hi, accurate to ~2^-22 (the note at the top
 // of sage_aggregate.cu says why, and how non-finite values are carried).

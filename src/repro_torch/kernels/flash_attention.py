@@ -19,8 +19,9 @@ The port's backward is a kernel of its own, fed by the forward's row
 log-sum-exp, with two routes chosen by type like the forward's: bfloat16 on
 the tensor cores in ``csrc/flash_attention_bwd_tc.cu`` (``mma.sync``, f32
 accumulation, P and dS rounded to bf16 before their products), float32 on
-the CUDA cores in ``csrc/flash_attention_bwd.cu`` (f32 arithmetic). Neither
-falls back to the other; both are deterministic. Their plain version is
+the tensor cores in ``csrc/flash_attention_bwd.cu`` (TF32 with the 3-pass
+split of ``csrc/tf32.cuh``, f32-accurate like the forward's f32 route).
+Neither falls back to the other; both are deterministic. Their plain version is
 ``ref.flash_attention_bwd``. ``FlashAttention`` ties the two passes together
 for autograd.
 """
@@ -41,7 +42,7 @@ launches_tc_lse = 0  # bfloat16 keeping the row log-sum-exp (its training kernel
 launches_f32 = 0    # float32, 3-pass TF32 (flash_attention.cu, either use)
 launches_bwd = 0    # backward, either route
 launches_bwd_tc = 0   # backward, bfloat16 on the tensor cores (flash_attention_bwd_tc.cu)
-launches_bwd_f32 = 0  # backward, float32 on the CUDA cores (flash_attention_bwd.cu)
+launches_bwd_f32 = 0  # backward, float32, 3-pass TF32 (flash_attention_bwd.cu)
 
 HEAD_DIMS = (32, 64, 80, 128)   # each kernel's template instances
 _GRID_Y = 65535                 # query blocks (64 or 128 rows) ride the grid's y axis

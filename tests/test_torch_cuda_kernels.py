@@ -450,7 +450,7 @@ _FLASH_COUNTERS = ("launches_bwd", "launches_bwd_tc", "launches_bwd_f32", "launc
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window,dtype", FLASH_BWD_SHAPES)
 def test_flash_attention_backward_matches_plain(dev, b, hq, hkv, sq, skv, d, window, dtype):
     """The forward with its row log-sum-exp, then the backward on its route
-    (bf16: the tensor cores, f32: the CUDA cores), against the plain
+    (bf16: mma.sync bf16, f32: 3-pass TF32), against the plain
     version: the counters of the two kernels moved and no other, the limits
     of the module docstring, rows that see no key dq 0, and a second run bit
     for bit."""
@@ -518,7 +518,7 @@ def test_flash_attention_backward_peaky_softmax(dev, b, hq, hkv, sq, skv, d, win
 
 def _bwd_nonfinite(dev, operand, value, dtype):
     """A NaN or ±Inf in q, k, v or dO of a GQA 2:1 input (q head 1's row 70,
-    or kv head 0's key 70; column 5), in f32 (the CUDA-core route) or bf16
+    or kv head 0's key 70; column 5), in f32 (3-pass TF32) or bf16
     (the tensor cores). The kernel's gradients are non-finite only where the
     plain version's are (which also meets the value where a masked pair's 0
     multiplies it, on tiles the kernel skips), equal to them elsewhere
