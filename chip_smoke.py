@@ -27,16 +27,26 @@ Phases (any failure raises, and the script exits non-zero):
    training shape against SDPA's backward (f32 without TF32) and the bounds
    of the five products the gradient needs and of the seven it computes (for
    f32, three TF32 passes at the TF32 peak, beside one f32 pass on the CUDA
-   cores).
+   cores). At the MoE and vlm paths' head dim, D = 128: the bf16 forward at
+   OLMoE-1B-7B's prefill (q [8,16,2048,128]), Llama-3.2-Vision-11B's (q
+   [8,32,2048,128], kv [8,8,2048,128]) and Mixtral-8x7B's (q
+   [2,32,8192,128], kv [2,8,8192,128], window 4096), and the bf16 training
+   forward and backward at OLMoE's training shape (q [2,16,2048,128]), each
+   held and timed as above (``cases`` of their entries).
 3. Small training runs of every method and option (SpreadFGL, FedSage+,
    partial participation, async and gossip aggregation, GCN and GAT) and
-   small f32 serving runs (the qwen3-4b and gemma3-12b smoke configs) on the
-   card against the same runs on the CPU (the kernels' plain versions),
-   from the same weights, noise and prompts; the trainers draw their own
-   participation masks and async schedules on both. Then the qwen3-4b smoke
-   config in bf16 on the card, its prefill through the tensor-core kernel
-   against the same prefill with the plain version patched in. Small LM
-   training runs (``repro_torch.launch.train``, the qwen3-4b and gemma3-12b
+   small f32 serving runs (the qwen3-4b, gemma3-12b, olmoe-1b-7b,
+   mixtral-8x7b and llama-3.2-vision-11b smoke configs, the vlm with its
+   cross gates at ``CROSS_GATE``, olmoe also at capacity factor
+   ``TIGHT_CAPACITY``, where every layer must drop (token, k) slots on both
+   devices) on the card against the same runs on the
+   CPU (the kernels' plain versions), from the same weights, noise and
+   prompts; the trainers draw their own participation masks and async
+   schedules on both. Then the qwen3-4b and olmoe-1b-7b smoke configs in
+   bf16 on the card, the prefill through the tensor-core kernel against the
+   same prefill with the plain version patched in. Small LM training runs
+   (``repro_torch.launch.train``, the qwen3-4b, olmoe-1b-7b (also at
+   ``TIGHT_CAPACITY``, dropping slots), llama-3.2-vision-11b and gemma3-12b
    smoke configs in f32, 3 steps, remat on and off, 2 microbatches) on the
    card against the CPU, and a checkpoint written on the card served by
    ``repro_torch.launch.serve --checkpoint``. One training step of Qwen3-4B
@@ -63,7 +73,18 @@ Phases (any failure raises, and the script exits non-zero):
    steps: 72 forward and 36 backward attention launches a step, all bf16.
    Through ``repro_torch.train.step``, the same model in float32 (remat, the
    launcher's Adam), batch 2 x 2048, 4 steps: 72 f32 forward and 36 f32
-   backward launches a step, none bf16.
+   backward launches a step, none bf16. Through ``launch.serve.main``, bf16
+   with random weights: OLMoE-1B-7B at full width and depth (batch 8 x
+   2048, 64 decode steps; the share of (token, k) slots capacity dropped in
+   each prefill layer, and how alike a group's router inputs are);
+   Mixtral-8x7B at full width cut to 24 of 32 layers
+   (batch 2 x 8192, 32 decode steps, across the 4096-slot ring buffer);
+   Llama-3.2-Vision-11B at full width and depth with 1024 image tokens and
+   its cross gates at ``CROSS_GATE`` (batch 8 x 2048, 64 decode steps; its
+   logits must move with the memory). Through ``launch.train.main(model=)``,
+   OLMoE-1B-7B at full width cut to 14 of 16 layers in bf16 with remat,
+   batch 2 x 2048, 4 steps, aux above 0. Each prints its times, peak memory
+   and flash launches.
 5. One JSON line describing every kernel, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -72,6 +93,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -83,6 +105,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -117,10 +140,40 @@ TRAIN_ARGS = ["--arch", "qwen3-4b", "--variant", "full", "--batch", "2", "--seq"
 # The f32 training path: the same model, optimizer and batch in float32, 4 steps.
 F32_TRAIN_ARGS = ["--arch", "qwen3-4b", "--variant", "full", "--batch", "2", "--seq", "2048",
                   "--steps", "4", "--lr", "3e-4"]
-# Small training runs, card against CPU: (arch, extra flags).
-SMALL_TRAIN_RUNS = (("qwen3-4b", ["--no-remat"]), ("qwen3-4b", ["--remat", "--microbatch", "2"]),
-                    ("gemma3-12b", ["--no-remat", "--microbatch", "2"]),
-                    ("gemma3-12b", ["--remat"]))
+# olmoe's smoke config routes top-2 of 4 experts with capacity factor 2.0,
+# which drops nothing; its runs at this factor drop (token, k) slots.
+TIGHT_CAPACITY = 0.5
+# Small training runs, card against CPU: (arch, extra flags, smoke config
+# overrides). The last one's checkpoint is served by serve --checkpoint.
+SMALL_TRAIN_RUNS = (("qwen3-4b", ["--no-remat"], {}),
+                    ("qwen3-4b", ["--remat", "--microbatch", "2"], {}),
+                    ("olmoe-1b-7b", ["--remat"], {}),
+                    ("olmoe-1b-7b", ["--remat"], {"capacity_factor": TIGHT_CAPACITY}),
+                    ("llama-3.2-vision-11b", ["--no-remat", "--microbatch", "2"], {}),
+                    ("gemma3-12b", ["--no-remat", "--microbatch", "2"], {}),
+                    ("gemma3-12b", ["--remat"], {}))
+# The MoE and vlm paths: OLMoE-1B-7B serving at full width and depth;
+# Mixtral-8x7B at full width cut to MIXTRAL_LAYERS of 32 layers, its
+# 8192-token prompts past the 4096-slot window; Llama-3.2-Vision-11B at full
+# width and depth with memory_stub's 1024 image tokens; OLMoE-1B-7B training
+# cut to OLMOE_TRAIN_LAYERS of 16. Memory forces both cuts, time neither:
+# each is the deepest whose peak, from the bytes a layer adds (Mixtral 2.90
+# GB of bf16 weights; OLMoE training 5.04 GB of weights, gradients and f32
+# moments) plus what a 4-layer and an 8-layer run measured beside their
+# weights, stays 10 % below the card's 85 GB.
+OLMOE_SERVE_ARGS = ["--arch", "olmoe-1b-7b", "--variant", "full", "--batch", "8",
+                    "--prompt-len", "2048", "--steps", "64"]
+MIXTRAL_SERVE_ARGS = ["--arch", "mixtral-8x7b", "--variant", "full", "--batch", "2",
+                      "--prompt-len", "8192", "--steps", "32"]
+MIXTRAL_LAYERS = 24
+VLM_SERVE_ARGS = ["--arch", "llama-3.2-vision-11b", "--variant", "full", "--batch", "8",
+                  "--prompt-len", "2048", "--steps", "64"]
+OLMOE_TRAIN_ARGS = ["--arch", "olmoe-1b-7b", "--variant", "full", "--batch", "2", "--seq",
+                    "2048", "--steps", "4", "--lr", "3e-4", "--log-every", "1"]
+OLMOE_TRAIN_LAYERS = 14
+# The vlm's cross-block gates are 0 at init, and tanh(0) = 0 removes the
+# memory from the result: every vlm run here sets them to this.
+CROSS_GATE = 0.5
 
 
 def _card_line() -> str:
@@ -219,6 +272,48 @@ def _counters():
             "flash_attention_bwd": (kflash, "launches_bwd"),
             "flash_attention_bwd_tc": (kflash, "launches_bwd_tc"),
             "flash_attention_bwd_f32": (kflash, "launches_bwd_f32")}
+
+
+def _open_gates(model):
+    """A vlm model's cross-block gates set to ``CROSS_GATE``; others as they are."""
+    for cp in getattr(model, "cross_blocks", ()):
+        cp.gate.data.fill_(CROSS_GATE)
+    return model
+
+
+@contextlib.contextmanager
+def _moe_log(cfg, first: Optional[int] = None):
+    """Within the block, each MoE layer routed (only the first ``first``, if
+    given) logs two 0-d tensors, left on the device: ``drop``, the share of
+    its (token, k) slots that capacity drops, and ``cos``, the mean over
+    token groups of the squared norm of the group's mean unit router input
+    (the mean cosine of two of its tokens, self-pairs included). It wraps
+    ``moe.route`` and ``moe.slot_positions``, which ``apply_moe`` calls once
+    each a layer."""
+    from repro_torch.models import moe
+
+    log = {"drop": [], "cos": []}
+    route, slot_positions = moe.route, moe.slot_positions
+
+    def logged_route(router, xt, top_k):
+        if first is None or len(log["cos"]) < first:
+            u = torch.nn.functional.normalize(xt.float(), dim=-1).mean(dim=1)
+            log["cos"].append((u * u).sum(-1).mean())
+        return route(router, xt, top_k)
+
+    def logged_positions(topi, num_experts):
+        pos = slot_positions(topi, num_experts)
+        if first is None or len(log["drop"]) < first:
+            _, t, k = topi.shape
+            cap = max(1, int(cfg.capacity_factor * t * k / num_experts))
+            log["drop"].append(1.0 - (pos < cap).float().mean())
+        return pos
+
+    moe.route, moe.slot_positions = logged_route, logged_positions
+    try:
+        yield log
+    finally:
+        moe.route, moe.slot_positions = route, slot_positions
 
 
 def _reset_launches() -> None:
@@ -497,6 +592,90 @@ def _check_flash(dev, gen):
     return entries
 
 
+def _causal_pairs(sq: int, skv: int, window) -> float:
+    """(query, key) pairs a causal, end-aligned, optionally windowed head sees."""
+    qpos = torch.arange(sq, dtype=torch.float64) + (skv - sq)
+    seen = torch.clamp(qpos + 1, 0, skv)
+    if window:
+        seen = torch.clamp(seen, max=window)
+    return seen.sum().item()
+
+
+def _plain_by_head(fn, q, *rest, **kw):
+    """``fn`` (a plain attention version) run per batch row and kv head and
+    concatenated: the same function on the same inputs, with the plain
+    version's f32 logits held to one kv group at a time."""
+    b, hq = q.shape[:2]
+    hkv = rest[0].shape[1]
+    grp = hq // hkv
+    outs = [[fn(q[i:i + 1, h * grp:(h + 1) * grp], *(t[i:i + 1, h:h + 1] for t in rest), **kw)
+             for h in range(hkv)] for i in range(b)]
+    return torch.cat([torch.cat(row, dim=1) for row in outs], dim=0)
+
+
+def _check_flash_d128(dev, gen):
+    """The bf16 forward at the MoE and vlm paths' head dim, D = 128: OLMoE's
+    prefill (q [8,16,2048,128], MHA, causal), Llama-3.2-Vision's (q
+    [8,32,2048,128], kv [8,8,2048,128], GQA 4:1, causal) and Mixtral's (q
+    [2,32,8192,128], kv [2,8,8192,128], window 4096), each held against the plain version
+    (run per batch row and kv head) within 2e-2 and timed against SDPA (for
+    the window, with a boolean mask and k, v repeated to the q heads) and
+    its bound: the causal (windowed)
+    pairs' two products at the bf16 peak, or q, k, v and the output read
+    and written once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops, ref
+
+    cases = []
+    for what, b, hq, hkv, s, d, window in (
+            ("OLMoE-1B-7B prefill", 8, 16, 16, 2048, 128, None),
+            ("Llama-3.2-Vision-11B prefill", 8, 32, 8, 2048, 128, None),
+            ("Mixtral-8x7B prefill", 2, 32, 8, 8192, 128, 4096)):
+        q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        before = kflash.launches_tc
+        out = ops.mha(q, k, v, causal=True, window=window)
+        if kflash.launches_tc != before + 1:
+            raise AssertionError("flash_attention bf16 did not take its route (launches_tc)")
+        plain = _plain_by_head(ref.flash_attention, q, k, v, causal=True, window=window)
+        err = (out.float() - plain.float()).abs().max().item()
+        del out, plain
+        ms = _time_ms(lambda: kflash.launch(q, k, v, window=window), 10)
+        plain_ms = _time_ms(lambda: _plain_by_head(ref.flash_attention, q, k, v, causal=True,
+                                                   window=window), 1)
+        if window:      # SDPA's masked kernel takes no GQA: k, v repeated beforehand
+            pos = torch.arange(s, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask),
+                              10)
+            del kr, vr, mask
+        else:
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 10)
+        flops = 4.0 * d * b * hq * _causal_pairs(s, s, window)
+        bound_ms, bound_by = _bound(flops, 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d),
+                                    peak=BF16_FLOPS)
+        shape = f"q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}] bf16 causal" + (
+            f" window {window}" if window else "")
+        print(f"[smoke] flash_attention tensor cores bf16 {what} {shape}: max_abs_err={err:.3g} "
+              f"(limit 2e-2) ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}, bf16 peak) -> "
+              f"{flops / ms / 1e9:.1f} TFLOP/s")
+        if not err <= 2e-2:
+            raise AssertionError(f"flash_attention at D = 128 ({what}) disagrees with its plain "
+                                 f"version: {err}")
+        cases.append({"what": what, "shape": shape, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": lib_ms})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return cases
+
+
 def _check_sim_block(dev, gen):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import sim_topk as ksim
@@ -605,12 +784,41 @@ def _check_flash_bwd(dev, gen):
                 "bound_by": bound_by, "bound_7_products_ms": bound7_ms, **extra,
                 "shape": f"q[{b},{hq},{sq},{d}] kv[{b},{hkv},{skv},{d}] {name} causal"}
 
+    def timed_lse_forward(q, k, v):
+        """The bf16 training forward: its plain version computes the output
+        and the row log-sum-exp; the library's is SDPA's forward on inputs
+        that need a gradient (it keeps its own log-sum-exp for the
+        backward). Bound: the two products over the causal pairs; q, k, v
+        read and the output written in bf16, the log-sum-exp in f32."""
+        b, hq, sq, d = q.shape
+        hkv, skv = k.shape[1], k.shape[2]
+        ms = _time_ms(lambda: kflash.launch(q, k, v, with_lse=True), 10)
+        plain_ms = _time_ms(lambda: (ref.flash_attention(q, k, v),
+                                     ref.flash_attention_lse(q, k)), 3)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=True, enable_gqa=True), 10)
+        flops = 4.0 * d * b * hq * (sq * (sq + 1) / 2)
+        nbytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d) + 4 * b * hq * sq
+        bound_ms, bound_by = _bound(flops, nbytes, peak=BF16_FLOPS)
+        shape = f"q[{b},{hq},{sq},{d}] kv[{b},{hkv},{skv},{d}] bf16 causal"
+        print(f"[smoke] flash_attention training forward bf16 {shape} ms={ms:.3f} "
+              f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} (SDPA forward needing a "
+              f"gradient) bound_ms={bound_ms:.4f} ({bound_by}, bf16 peak) -> "
+              f"{flops / ms / 1e9:.1f} TFLOP/s")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "shape": shape}
+
+    # Beside Qwen3-4B's shapes, OLMoE-1B-7B's training shape in bf16 (batch
+    # 2 x 2048, 16 heads of 128, MHA): its forward and backward are each
+    # timed too, as cases of their entries.
     errs = {"fwd": [], torch.float32: [], torch.bfloat16: []}
-    times = {}
+    times, d128 = {}, {}
     for b, hq, hkv, sq, skv, d, window, dtype in (
             (1, 8, 2, 1000, 1000, 64, 100, torch.float32),
             (1, 8, 2, 1000, 1000, 64, 100, torch.bfloat16),
             (2, 32, 8, 2048, 2048, 80, None, torch.float32),
+            (2, 16, 16, 2048, 2048, 128, None, torch.bfloat16),
             (2, 32, 8, 2048, 2048, 80, None, torch.bfloat16)):
         q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dtype)
@@ -672,45 +880,30 @@ def _check_flash_bwd(dev, gen):
         if dtype == torch.bfloat16:
             errs["fwd"].append(o_err)
         del got, plain, exact
-        if sq == 2048:          # the training shape: each route timed
+        if d == 128:            # OLMoE's training shape: a case of each entry
+            d128["bwd"] = dict(timed(q, k, v, o, do, lse), what="OLMoE-1B-7B training",
+                               max_abs_err=max(errs[dtype][-3:]))
+            d128["fwd"] = dict(timed_lse_forward(q, k, v), what="OLMoE-1B-7B training",
+                               max_abs_err=o_err)
+        elif sq == 2048:        # the training shape: each route timed
             times[dtype] = timed(q, k, v, o, do, lse)
-        if dtype == torch.float32:
+        if dtype == torch.float32 or d == 128:
             del q, k, v, o, do, lse
         torch.cuda.empty_cache()
-    shape = times[torch.bfloat16]["shape"]
-    pairs = b * hq * (sq * (sq + 1) / 2)
 
-    # The bf16 training forward: its plain version computes the output and
-    # the row log-sum-exp; the library's is SDPA's forward on inputs that
-    # need a gradient (it keeps its own log-sum-exp for the backward). Bound:
-    # the two products over the causal pairs; q, k, v read and the output
-    # written in bf16, the log-sum-exp in f32.
-    fwd_ms = _time_ms(lambda: kflash.launch(q, k, v, with_lse=True), 10)
-    fwd_plain_ms = _time_ms(lambda: (ref.flash_attention(q, k, v),
-                                     ref.flash_attention_lse(q, k)), 3)
-    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-    fwd_lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qg, kg, vg, is_causal=True, enable_gqa=True), 10)
-    fwd_flops = 4.0 * d * pairs
-    fwd_bytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d) + 4 * b * hq * sq
-    fwd_bound_ms, fwd_bound_by = _bound(fwd_flops, fwd_bytes, peak=BF16_FLOPS)
-    print(f"[smoke] flash_attention training forward bf16 {shape} ms={fwd_ms:.3f} "
-          f"plain_ms={fwd_plain_ms:.3f} library_ms={fwd_lib_ms:.3f} (SDPA forward needing a "
-          f"gradient) bound_ms={fwd_bound_ms:.4f} ({fwd_bound_by}, bf16 peak) -> "
-          f"{fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s")
-    del q, k, v, o, do, lse, qg, kg, vg
+    fwd = timed_lse_forward(q, k, v)
+    del q, k, v, o, do, lse
     torch.cuda.empty_cache()
     bwd = "src/repro_torch/kernels/csrc/"
     replaces = "src/repro/kernels/flash_attention.py:98 (no VJP: a new kernel)"
     return [{"name": "flash_attention (bf16, tensor cores, keeping the row log-sum-exp)",
              "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
              "replaces": "src/repro/kernels/flash_attention.py:98",
-             "max_abs_err": max(errs["fwd"]), "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-             "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by, "library_ms": fwd_lib_ms,
-             "shape": shape},
+             "max_abs_err": max(errs["fwd"]), **fwd, "cases": [d128["fwd"]]},
             {"name": "flash_attention_bwd (bf16, tensor cores)", "route": "cuda",
              "source": bwd + "flash_attention_bwd_tc.cu", "replaces": replaces,
-             "max_abs_err": max(errs[torch.bfloat16]), **times[torch.bfloat16]},
+             "max_abs_err": max(errs[torch.bfloat16]), **times[torch.bfloat16],
+             "cases": [d128["bwd"]]},
             {"name": "flash_attention_bwd (f32, tensor cores, 3 TF32 passes)", "route": "cuda",
              "source": bwd + "flash_attention_bwd.cu", "replaces": replaces,
              "max_abs_err": max(errs[torch.float32]), **times[torch.float32]}]
@@ -780,24 +973,37 @@ def _check_small_run(dev):
 
 def _check_small_serve(dev):
     from repro_torch import configs
+    from repro_torch.data.lm_data import memory_stub
     from repro_torch.models import transformer
     from repro_torch.serve.engine import ServeEngine
 
     # qwen3-4b's smoke config with a 40-token prompt (below 128 queries);
     # gemma3-12b's, whose window-64 layer's ring buffer wraps on a 200-token
-    # prompt. Same weights on both devices (drawn on the CPU), f32: the card's
-    # prefill takes the f32 route, once per layer.
-    for arch, prompt_len in (("qwen3-4b", 40), ("gemma3-12b", 200)):
-        cfg = configs.get_config(arch, "smoke")
-        cpu_model = transformer.init_model(cfg, seed=0, device="cpu")
+    # prompt; olmoe-1b-7b's (MoE, 4 experts top-2), at its capacity factor
+    # and at TIGHT_CAPACITY, where its prefill must drop (token, k) slots on
+    # both devices; mixtral-8x7b's (MoE, both layers' window-64 ring buffers
+    # wrap on a 200-token prompt); llama-3.2-vision-11b's with memory_stub's
+    # image embeddings and its cross-block gates at CROSS_GATE. Same weights
+    # on both devices (drawn on the CPU), f32: the card's prefill takes the
+    # f32 route, once per layer.
+    for arch, prompt_len, over in (("qwen3-4b", 40, {}), ("gemma3-12b", 200, {}),
+                                   ("olmoe-1b-7b", 40, {}),
+                                   ("olmoe-1b-7b", 40, {"capacity_factor": TIGHT_CAPACITY}),
+                                   ("mixtral-8x7b", 200, {}),
+                                   ("llama-3.2-vision-11b", 40, {})):
+        cfg = configs.get_config(arch, "smoke", **over)
+        cpu_model = _open_gates(transformer.init_model(cfg, seed=0, device="cpu"))
         prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, prompt_len))
-        logits, tokens = {}, {}
+        memory = memory_stub(cfg, 2)
+        logits, tokens, drops = {}, {}, {}
         for where in ("cpu", dev.type):
             model = cpu_model if where == "cpu" else copy.deepcopy(cpu_model).to(dev)
             engine = ServeEngine(model, max_len=prompt_len + 16)
             before = _launches()
-            out, cache = engine.prefill(prompts)
+            with _moe_log(cfg) as log:
+                out, cache = engine.prefill(prompts, memory)
             after = _launches()
+            drops[where] = [float(t) for t in log["drop"]]
             logits[where] = out.cpu()
             tokens[where] = engine.decode(cache, out, steps=8).cpu()
         routes = {name: after[name] - before[name]
@@ -806,8 +1012,15 @@ def _check_small_serve(dev):
         err = (logits[dev.type] - logits["cpu"]).abs().max().item()
         same = torch.equal(tokens[dev.type], tokens["cpu"])
         print(f"[smoke] small {cfg.name} serving run {dev.type} vs cpu, prompt "
-              f"{prompt_len}: prefill logits max |d| = {err:.3g}, 8 greedy tokens "
-              f"identical: {same}; card prefill launches {routes}")
+              f"{prompt_len}{f', capacity factor {cfg.capacity_factor}' if over else ''}: "
+              f"prefill logits max |d| = {err:.3g}, 8 greedy tokens identical: {same}; card "
+              f"prefill launches {routes}" + (
+                  f"; dropped share of (token, k) slots by layer, card "
+                  f"{[round(x, 4) for x in drops[dev.type]]}, cpu "
+                  f"{[round(x, 4) for x in drops['cpu']]}" if cfg.is_moe else ""))
+        if over and not all(min(d) > 0 for d in drops.values()):
+            raise AssertionError(f"{cfg.name} at capacity factor {cfg.capacity_factor}: "
+                                 f"a prefill layer dropped nothing ({drops})")
         if routes != {"flash_attention_f32": cfg.num_layers, "flash_attention_tc": 0,
                       "flash_attention_tc_lse": 0}:
             raise AssertionError(f"{cfg.name} (f32): expected {cfg.num_layers} f32-route "
@@ -826,42 +1039,45 @@ def _check_bf16_serve(dev):
     from repro_torch.models import transformer
     from repro_torch.serve.engine import ServeEngine
 
-    # qwen3-4b's smoke config in bf16 (head dim 32), a 200-token prompt: the
-    # prefill on the card through ops.mha (the tensor-core kernel), then the
-    # same prefill with the plain version patched in here. Limit, stated
-    # before the first run: logits within 2e-2 of max |logit|; the greedy
-    # tokens of 8 decode steps from each are printed, not held.
-    cfg = dataclasses.replace(configs.get_config("qwen3-4b", "smoke"), dtype="bfloat16")
-    model = transformer.init_model(cfg, seed=0, device=dev)
-    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 200))
-    engine = ServeEngine(model, max_len=216)
-    before = _launches()
-    out_kernel, cache = engine.prefill(prompts)
-    after = _launches()
-    tok_kernel = engine.decode(cache, out_kernel, steps=8)
-    kernel_mha = ops.mha
-    ops.mha = lambda q, k, v, *, causal=True, window=None: ref.flash_attention(  # noqa: E731
-        q, k, v, causal=causal, window=window)
-    try:
-        out_plain, cache = engine.prefill(prompts)
-        tok_plain = engine.decode(cache, out_plain, steps=8)
-    finally:
-        ops.mha = kernel_mha
-    routes = {name: after[name] - before[name]
-              for name in ("flash_attention_tc", "flash_attention_f32", "flash_attention_tc_lse")}
-    err = (out_kernel.float() - out_plain.float()).abs().max().item()
-    scale = out_plain.float().abs().max().item()
-    agree = (tok_kernel == tok_plain).float().mean().item()
-    print(f"[smoke] small {cfg.name} bf16 serving run, prompt 200: prefill logits "
-          f"kernel vs plain max |d| = {err:.3g} (limit 2e-2 x max |logit| = "
-          f"{2e-2 * scale:.3g}); greedy tokens agree {agree:.3f} of 2 x 8; launches {routes}")
-    if routes != {"flash_attention_tc": cfg.num_layers, "flash_attention_f32": 0,
-                  "flash_attention_tc_lse": 0}:
-        raise AssertionError(f"{cfg.name} (bf16): expected {cfg.num_layers} bf16-route "
-                             f"launches and no f32-route launch, got {routes}")
-    if not (torch.isfinite(out_kernel).all() and err <= 2e-2 * scale):
-        raise AssertionError(f"{cfg.name} (bf16): the kernel's prefill logits disagree "
-                             f"with the plain version's by {err}")
+    # qwen3-4b's and olmoe-1b-7b's smoke configs in bf16 (head dim 32), a
+    # 200-token prompt: the prefill on the card through ops.mha (the
+    # tensor-core kernel), then the same prefill with the plain version
+    # patched in here. Limit, stated before the first run: logits within 2e-2
+    # of max |logit|; the greedy tokens of 8 decode steps from each are
+    # printed, not held.
+    for arch in ("qwen3-4b", "olmoe-1b-7b"):
+        cfg = dataclasses.replace(configs.get_config(arch, "smoke"), dtype="bfloat16")
+        model = transformer.init_model(cfg, seed=0, device=dev)
+        prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 200))
+        engine = ServeEngine(model, max_len=216)
+        before = _launches()
+        out_kernel, cache = engine.prefill(prompts)
+        after = _launches()
+        tok_kernel = engine.decode(cache, out_kernel, steps=8)
+        kernel_mha = ops.mha
+        ops.mha = lambda q, k, v, *, causal=True, window=None: ref.flash_attention(  # noqa: E731
+            q, k, v, causal=causal, window=window)
+        try:
+            out_plain, cache = engine.prefill(prompts)
+            tok_plain = engine.decode(cache, out_plain, steps=8)
+        finally:
+            ops.mha = kernel_mha
+        routes = {name: after[name] - before[name] for name in
+                  ("flash_attention_tc", "flash_attention_f32", "flash_attention_tc_lse")}
+        err = (out_kernel.float() - out_plain.float()).abs().max().item()
+        scale = out_plain.float().abs().max().item()
+        agree = (tok_kernel == tok_plain).float().mean().item()
+        print(f"[smoke] small {cfg.name} bf16 serving run, prompt 200: prefill logits "
+              f"kernel vs plain max |d| = {err:.3g} (limit 2e-2 x max |logit| = "
+              f"{2e-2 * scale:.3g}); greedy tokens agree {agree:.3f} of 2 x 8; launches "
+              f"{routes}")
+        if routes != {"flash_attention_tc": cfg.num_layers, "flash_attention_f32": 0,
+                      "flash_attention_tc_lse": 0}:
+            raise AssertionError(f"{cfg.name} (bf16): expected {cfg.num_layers} bf16-route "
+                                 f"launches and no f32-route launch, got {routes}")
+        if not (torch.isfinite(out_kernel).all() and err <= 2e-2 * scale):
+            raise AssertionError(f"{cfg.name} (bf16): the kernel's prefill logits disagree "
+                                 f"with the plain version's by {err}")
 
 
 def _update_check(before, after, ref_before, ref_after, kept):
@@ -890,9 +1106,10 @@ def _check_small_train(dev):
     # 1e-4 (three steps of f32 in other orders); each step's change of each
     # parameter within 1e-2 of the largest change of its leaf in the CPU's
     # step, over the elements whose CPU gradient was at least 1e-5 of its
-    # leaf's largest at every step so far (Adam's first steps move a
-    # parameter by about lr whatever its gradient's size, so one within f32
-    # rounding of 0 may move either way), which must be 99 % of them. The
+    # leaf's largest, or exactly 0, at every step so far (Adam's first steps
+    # move a parameter by about lr whatever its gradient's size, so one
+    # within f32 rounding of 0 may move either way; an exact 0, as of an
+    # expert no token reached, is 0 on both), which must be 99 % of them. The
     # card's launches: each layer's forward once per microbatch and step,
     # twice with remat; its backward once. Then train --checkpoint on the
     # card writes a file, which serve --checkpoint serves: its prefill
@@ -900,12 +1117,12 @@ def _check_small_train(dev):
     def params(state):
         return {n: t.detach().cpu().double() for n, t in state.params.state_dict().items()}
 
-    for arch, extra in SMALL_TRAIN_RUNS:
+    for arch, extra, over in SMALL_TRAIN_RUNS:
         argv = ["--arch", arch, "--variant", "smoke", "--steps", "3", "--batch", "4",
                 "--seq", "80", "--log-every", "3", *extra]
-        cpu_model = transformer.init_model(configs.get_config(arch, "smoke"), seed=0,
-                                           device="cpu")
-        runs, kept_steps = [], []
+        cpu_model = _open_gates(transformer.init_model(
+            configs.get_config(arch, "smoke", **over), seed=0, device="cpu"))
+        runs, kept_steps, drops = [], [], {}
         for i, where in enumerate(("cpu", dev.type)):
             flags = train._parser().parse_args(argv + ["--device", where])
             state, step_fn, data = train.setup(flags, copy.deepcopy(cpu_model))
@@ -916,10 +1133,13 @@ def _check_small_train(dev):
                 batch = {k: torch.from_numpy(v).to(where) for k, v in next(data).items()}
                 if i == 0:      # the CPU's gradients: which elements each step holds
                     grads = tstep.loss_and_grads(state.params, cfg, batch, flags.microbatch)[2]
-                    new = {n: g.abs() >= 1e-5 * g.abs().max() for n, g in grads.items()}
+                    new = {n: (g.abs() >= 1e-5 * g.abs().max()) | (g == 0)
+                           for n, g in grads.items()}
                     kept = new if kept is None else {n: kept[n] & new[n] for n in new}
                     kept_steps.append(kept)
-                state, metrics = step_fn(state, batch)
+                with _moe_log(cfg) as log:
+                    state, metrics = step_fn(state, batch)
+                drops.setdefault(where, []).extend(float(t) for t in log["drop"])
                 losses.append(float(metrics["loss"]))
                 snaps.append(params(state))
             after = _launches()
@@ -936,6 +1156,14 @@ def _check_small_train(dev):
                  for i, kept in enumerate(kept_steps)]
         kept = kept_steps[-1]
         share = sum(k.sum().item() for k in kept.values()) / sum(k.numel() for k in kept.values())
+        if cfg.is_moe:
+            print(f"[smoke] small train {arch} (capacity factor {cfg.capacity_factor}): "
+                  f"dropped share of (token, k) slots, layers x steps (twice with remat), "
+                  f"card {[round(x, 4) for x in drops[dev.type]]}, cpu "
+                  f"{[round(x, 4) for x in drops['cpu']]}")
+        if over and not all(min(d) > 0 for d in drops.values()):
+            raise AssertionError(f"small train {arch} at capacity factor "
+                                 f"{cfg.capacity_factor}: a layer dropped nothing ({drops})")
         print(f"[smoke] small train {arch} {' '.join(extra)} {dev.type} vs cpu: 3 steps, "
               f"max |d| loss {dloss:.3g} params {dparam:.3g} (limit 1e-4); each step's "
               f"change vs the cpu's {[float(f'{x:.3g}') for x in dstep]} of its leaf's "
@@ -1144,20 +1372,50 @@ def _engine_paths():
     return runs
 
 
-def _serve_main_path(args):
+def _serve_main_path(args, model=None):
+    """``launch.serve.main(args, model=model)`` with the launch counters set to
+    0 just before and read just after: prefill seconds, decode ms a step, peak
+    memory and flash launches; for an MoE config the share of (token, k)
+    slots that capacity dropped in each prefill layer; for a vlm, a second
+    prefill with other image embeddings, whose logits must differ."""
     from repro_torch import configs
+    from repro_torch.data.lm_data import memory_stub
     from repro_torch.launch import serve
 
     flags = serve._parser().parse_args(args)
-    cfg = configs.get_config(flags.arch, flags.variant)
+    cfg = configs.get_config(flags.arch, flags.variant) if model is None else model.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    out = serve.main(args)
+    with _moe_log(cfg, first=cfg.num_layers) as log:     # the prefill's layers
+        out = serve.main(args, model=model)
     counts = _launches()
+    drops, cos = ([float(t) for t in log[key]] for key in ("drop", "cos"))
+    peak = torch.cuda.max_memory_allocated()
     logits, tokens = out["logits"], out["tokens"]
+    n_params = sum(p.numel() for p in out["engine"].model.parameters())
     print(f"[smoke] main path serve {' '.join(args)}: {cfg.num_layers} layers, "
-          f"{cfg.active_params() / 1e9:.2f} B parameters ({cfg.dtype}); prefill "
-          f"{out['prefill_s']:.3f} s, decode {out['decode_s'] / flags.steps * 1e3:.2f} "
-          f"ms/step over {flags.steps} steps; launches {counts}")
+          f"{n_params / 1e9:.2f} B parameters ({cfg.active_params() / 1e9:.2f} B active, "
+          f"{cfg.dtype}); prefill {out['prefill_s']:.3f} s, decode "
+          f"{out['decode_s'] / flags.steps * 1e3:.2f} ms/step over {flags.steps} steps; peak "
+          f"memory {peak / 1e9:.2f} GB; flash launches {counts}; card {_card_line()}")
+    if cfg.is_moe:
+        print(f"[smoke] {cfg.name} prefill: share of (token, k) slots dropped by capacity "
+              f"(factor {cfg.capacity_factor}), layer by layer: "
+              f"{[round(x, 4) for x in drops]}; mean cosine of two router inputs of a "
+              f"group: {[round(x, 4) for x in cos]}")
+        if len(drops) != cfg.num_layers or not all(0 <= x < 1 for x in drops):
+            raise AssertionError(f"{cfg.name}: dropped shares {drops}")
+    if cfg.cross_attn_interval:
+        other = memory_stub(cfg, flags.batch, rng=np.random.default_rng(1))
+        moved, _ = out["engine"].prefill(out["prompts"], other)
+        diff = (moved - logits).abs().max().item()
+        print(f"[smoke] {cfg.name}: prefill logits with other image embeddings differ by max "
+              f"|d| = {diff:.3g} (cross gates {CROSS_GATE})")
+        if not diff > 1e-3 * logits.abs().max().item():
+            raise AssertionError(f"{cfg.name}: the logits do not depend on the memory ({diff})")
+        del moved
     if logits.shape != (flags.batch, cfg.vocab_size) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits of shape {tuple(logits.shape)} are not "
                              f"finite [{flags.batch}, {cfg.vocab_size}]")
@@ -1171,7 +1429,29 @@ def _serve_main_path(args):
         raise AssertionError(f"flash_attention launched {counts} times, expected "
                              f"{cfg.num_layers} on the bf16 route (one per layer of one "
                              f"prefill) and none on the f32 route or the training kernel")
+    del out, logits
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
+
+
+def _moe_vlm_serve_paths(dev):
+    """OLMoE-1B-7B at full width and depth; Mixtral-8x7B at full width cut to
+    ``MIXTRAL_LAYERS`` layers; Llama-3.2-Vision-11B at full width and depth
+    with its cross gates at ``CROSS_GATE``: each through
+    ``launch.serve.main``, random bf16 weights from seed 0."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    runs = [_serve_main_path(OLMOE_SERVE_ARGS)]
+    cfg = configs.get_config("mixtral-8x7b", "full", num_layers=MIXTRAL_LAYERS,
+                             window_pattern=(4096,) * MIXTRAL_LAYERS)
+    runs.append(_serve_main_path(MIXTRAL_SERVE_ARGS,
+                                 transformer.init_model(cfg, seed=0, device=dev)))
+    cfg = configs.get_config("llama-3.2-vision-11b", "full")
+    runs.append(_serve_main_path(VLM_SERVE_ARGS, _open_gates(
+        transformer.init_model(cfg, seed=0, device=dev))))
+    return runs
 
 
 def _f32_serve_path(dev):
@@ -1269,6 +1549,58 @@ def _train_main_path():
     if got != want:
         raise AssertionError(f"train: launched {got}, expected {want}")
     del out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _olmoe_train_path(dev):
+    """OLMoE-1B-7B at full width cut to ``OLMOE_TRAIN_LAYERS`` layers, bf16,
+    remat, the launcher's Adam, batch 2 x 2048, 4 steps through
+    ``launch.train.main(model=)``, with the launch counters set to 0 just
+    before and read just after: each step one forward keeping the row
+    log-sum-exp per layer, twice with remat, and one bf16 backward per
+    layer. Losses and aux losses finite, the aux above 0."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+
+    flags = train._parser().parse_args(OLMOE_TRAIN_ARGS)
+    cfg = configs.get_config(flags.arch, flags.variant, num_layers=OLMOE_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = transformer.init_model(cfg, seed=0, device=dev)
+    _reset_launches()
+    out = train.main(OLMOE_TRAIN_ARGS, model=model)
+    counts = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses, auxes, secs = out["losses"], out["aux"], out["seconds"]
+    n_params = sum(p.numel() for p in out["state"].params.parameters())
+    step_s = float(np.median(secs[1:]))
+    tokens = flags.batch * flags.seq
+    share = 6.0 * cfg.active_params() * tokens / step_s / BF16_FLOPS
+    per_step = {"flash_attention_tc_lse": cfg.num_layers * (2 if cfg.remat else 1),
+                "flash_attention_bwd": cfg.num_layers, "flash_attention_bwd_tc": cfg.num_layers,
+                "flash_attention_bwd_f32": 0, "flash_attention_tc": 0,
+                "flash_attention_f32": 0}
+    want = {name: n * flags.steps for name, n in per_step.items()}
+    got = {name: counts[name] for name in want}
+    print(f"[smoke] path train {cfg.name} ({cfg.num_layers} of 16 layers) "
+          f"{' '.join(OLMOE_TRAIN_ARGS)}: {n_params / 1e9:.3f} B parameters "
+          f"({cfg.active_params() / 1e9:.3f} B active, {cfg.dtype}, remat={cfg.remat}); losses "
+          f"{[round(x, 4) for x in losses]}; aux {[round(x, 4) for x in auxes]}; step seconds "
+          f"{[round(x, 3) for x in secs]}; median of steps 1-{flags.steps - 1} {step_s:.3f} s, "
+          f"{tokens / step_s:.0f} tokens/s, {100 * share:.1f} % of the bf16 dense peak (6 x "
+          f"active parameters x tokens); peak memory {peak / 1e9:.2f} GB; flash launches {got} "
+          f"(expected {want}: {per_step} a step); card {_card_line()}")
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name}: expected remat on in the full config")
+    if not (all(math.isfinite(x) for x in losses + auxes) and all(a > 0 for a in auxes)):
+        raise AssertionError(f"{cfg.name} training: losses {losses}, aux {auxes}")
+    if got != want:
+        raise AssertionError(f"{cfg.name} train: launched {got}, expected {want}")
+    del out, model
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
 
@@ -1382,6 +1714,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     sage, sim = _check_sage(dev, gen), _check_sim(dev, gen)
     flash_tc, flash_f32 = _check_flash(dev, gen)
+    flash_tc["cases"] = _check_flash_d128(dev, gen)
     block = _check_sim_block(dev, gen)
     flash_lse, flash_bwd, flash_bwd_f32 = _check_flash_bwd(dev, gen)
     _check_small_run(dev)
@@ -1400,6 +1733,8 @@ def main() -> int:
     runs.append(_f32_serve_path(dev))
     runs.append(_train_main_path())
     runs.append(_f32_train_path(dev))
+    runs += _moe_vlm_serve_paths(dev)
+    runs.append(_olmoe_train_path(dev))
     for entry, counter in ((sage, "sage_aggregate"), (sim, "sim_topk"),
                            (flash_tc, "flash_attention_tc"),
                            (flash_f32, "flash_attention_f32"), (block, "sim_block"),

@@ -75,9 +75,11 @@ def lm_params_from_jax(params: Any, cfg: ModelConfig, device="cpu") -> Transform
 
     ``params["blocks"]`` is a tuple of ``group_size(cfg)`` group members whose
     leaves carry a leading ``[n_groups]`` axis; layer ``i`` is member
-    ``i % g`` at index ``i // g``. Every other key maps by name onto the
-    module's parameters (``embed.tokens``, ``final_norm.scale``, ...), and
-    the load is strict: a missing or unexpected leaf raises.
+    ``i % g`` at index ``i // g``. A vlm's ``params["cross_blocks"]`` leaves
+    carry the same leading axis: group ``i`` is ``cross_blocks.<i>``. Every
+    other key maps by name onto the module's parameters (``embed.tokens``,
+    ``final_norm.scale``, ``blocks.<i>.moe.router``, ...), and the load is
+    strict: a missing or unexpected leaf raises.
     """
     model = Transformer(cfg, device=device)
     g = group_size(cfg)
@@ -94,6 +96,9 @@ def lm_params_from_jax(params: Any, cfg: ModelConfig, device="cpu") -> Transform
     put("final_norm.", params["final_norm"])
     for i in range(cfg.num_layers):
         put(f"blocks.{i}.", params["blocks"][i % g], i // g)
+    if "cross_blocks" in params:
+        for i in range(cfg.num_layers // g):
+            put(f"cross_blocks.{i}.", params["cross_blocks"], i)
     model.load_state_dict(state, strict=True)
     return model
 
@@ -115,13 +120,17 @@ def lm_params_to_jax(model: Transformer) -> Dict[str, Any]:
     the parameters' dtype: ``embed`` and ``final_norm`` by name, and
     ``blocks`` a list of ``group_size(cfg)`` group members whose leaves stack
     the member's layers along a leading ``[n_groups]`` axis (layer ``i`` is
-    member ``i % g`` at index ``i // g``). The inverse of
+    member ``i % g`` at index ``i // g``), and for a vlm ``cross_blocks``
+    whose leaves stack the groups' cross blocks. The inverse of
     ``lm_params_from_jax``."""
     cfg = model.cfg
     g = group_size(cfg)
     host = lambda mod: {n: t.detach().cpu() for n, t in mod.state_dict().items()}  # noqa: E731
+    stack = lambda mods: _nest({name: torch.stack([m[name] for m in mods])  # noqa: E731
+                                for name in mods[0]})
     layers = [host(bp) for bp in model.blocks]
-    return {"embed": _nest(host(model.embed)), "final_norm": _nest(host(model.final_norm)),
-            "blocks": [_nest({name: torch.stack([layer[name] for layer in layers[m::g]])
-                              for name in layers[m]})
-                       for m in range(g)]}
+    out = {"embed": _nest(host(model.embed)), "final_norm": _nest(host(model.final_norm)),
+           "blocks": [stack(layers[m::g]) for m in range(g)]}
+    if cfg.cross_attn_interval:
+        out["cross_blocks"] = stack([host(cp) for cp in model.cross_blocks])
+    return out

@@ -19,7 +19,10 @@ loop after one warm-up prefill, each profiled and reported on its own
 ``torch.cuda.synchronize()``); for ``train`` one step after a warm-up step,
 its loss and gradients and its optimizer update profiled apart, each also
 summed by kind of kernel (GEMMs, attention forward and backward, the rest).
-The profiler's own
+Where the run passes through MoE layers, each report also gives the device
+time of the kernels launched inside each of ``models.moe``'s ranges
+(``moe.router``: gates and top-k; ``moe.dispatch``; ``moe.experts``: the
+expert GEMMs and their activation; ``moe.combine``). The profiler's own
 cost lengthens the windows, so a busy share is a lower bound. Needs a CUDA
 device.
 """
@@ -46,6 +49,11 @@ _KINDS = (("attention backward", ("flash_attention_bwd",)),
           ("copies and fills", ("memcpy", "memset")))
 
 
+# record_function ranges of the port's modules: their device time is that
+# of the kernels launched inside them, never a kernel of its own.
+_RANGES = ("moe.",)
+
+
 def _kind(name: str) -> str:
     low = name.lower()
     for kind, marks in _KINDS:
@@ -56,7 +64,9 @@ def _kind(name: str) -> str:
 
 def _report(prof, label: str, window_s: float, top: int, *, skip_upload: bool = False,
             kinds: bool = False) -> None:
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and not e.key.startswith(_RANGES)]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     total_us = sum(e.self_device_time_total for e in kernels)
     busy_us = sum(e.self_device_time_total for e in kernels
@@ -74,6 +84,10 @@ def _report(prof, label: str, window_s: float, top: int, *, skip_upload: bool = 
         for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"[profile] {label} by kind: {kind}: {us / 1e3:.2f} ms "
                   f"({100 * us / max(total_us, 1):.1f}%)")
+    for e in sorted((e for e in events if e.device_type == DeviceType.CPU
+                     and e.key.startswith(_RANGES)), key=lambda e: e.key):
+        print(f"[profile] {label} range {e.key}: {e.device_time_total / 1e3:.2f} ms of device "
+              f"time in {e.count} calls ({100 * e.device_time_total / max(total_us, 1):.1f}%)")
 
 
 def _profile():
@@ -111,15 +125,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         return
 
     flags = serve._parser().parse_args(run_args)
-    engine, prompts, gen = serve.setup(flags)
-    engine.prefill(prompts)     # warm-up: cuBLAS handles, allocator growth
+    engine, prompts, memory, gen = serve.setup(flags)
+    engine.prefill(prompts, memory)     # warm-up: cuBLAS handles, allocator growth
     torch.cuda.synchronize()
     with _profile() as prof:
         t0 = time.perf_counter()
-        logits, cache = engine.prefill(prompts)
+        logits, cache = engine.prefill(prompts, memory)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
-    _report(prof, f"prefill {flags.batch}x{flags.prompt_len}", prefill_s, args.top)
+    _report(prof, f"prefill {flags.batch}x{flags.prompt_len}", prefill_s, args.top, kinds=True)
     with _profile() as prof:
         t0 = time.perf_counter()
         engine.decode(cache, logits, steps=flags.steps, temperature=flags.temperature,

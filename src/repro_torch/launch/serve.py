@@ -8,8 +8,10 @@ The flags of ``repro.launch.serve`` plus ``--device {cuda,cpu}`` (default
 random, drawn on the device from seed 0; prompts come from
 ``numpy.random.default_rng(0)``, as in the reference. Prefill (through the
 CUDA ``flash_attention`` kernel) and the decode loop are timed separately,
-each clock reading after ``torch.cuda.synchronize()``. Only dense
-architectures build so far. ``--checkpoint`` loads the weights from an
+each clock reading after ``torch.cuda.synchronize()``. Dense, MoE and vlm
+architectures build; a vlm config attends to ``data.lm_data.memory_stub``'s
+image embeddings (seed 0), as the reference's launcher passes them.
+``--checkpoint`` loads the weights from an
 ``.npz`` of ``transformer.init_model`` parameters that the JAX package wrote
 (``repro.checkpoint.io.save``), through ``convert.lm_params_from_jax``.
 """
@@ -25,6 +27,7 @@ import torch
 from repro_torch import configs, convert
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core.fedgl import resolve_device
+from repro_torch.data.lm_data import memory_stub
 from repro_torch.kernels import build
 from repro_torch.models import transformer
 from repro_torch.serve.engine import ServeEngine
@@ -51,20 +54,26 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def setup(args: argparse.Namespace
-          ) -> Tuple[ServeEngine, np.ndarray, Optional[torch.Generator]]:
-    """The engine with its random model on the device, the prompts, and the
-    sampling generator (None when greedy), from the parsed flags; the
-    kernels are built here, as set-up."""
+def setup(args: argparse.Namespace, model: Optional[transformer.Transformer] = None
+          ) -> Tuple[ServeEngine, np.ndarray, Optional[np.ndarray], Optional[torch.Generator]]:
+    """The engine with its random model on the device, the prompts, the
+    memory (image embeddings for a vlm config, else None) and the sampling
+    generator (None when greedy), from the parsed flags; the kernels are
+    built here, as set-up. ``model``: a model to serve (moved to the
+    device), whose config, depth included, takes the place of
+    ``--arch``/``--variant``'s."""
     dev = resolve_device(args.device)
-    cfg = configs.get_config(args.arch, args.variant)
-    if args.checkpoint:
+    cfg = configs.get_config(args.arch, args.variant) if model is None else model.cfg
+    if model is not None:
+        model = model.to(dev)
+    elif args.checkpoint:
         model = convert.lm_params_from_jax(ckpt_io.load(args.checkpoint), cfg, device=dev)
     else:
         model = transformer.init_model(cfg, seed=0, device=dev)
     engine = ServeEngine(model, max_len=args.prompt_len + args.steps + 8)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len)).astype(np.int32)
+    memory = memory_stub(cfg, args.batch)
     gen = None
     if args.temperature > 0:
         gen = torch.Generator(device=dev)
@@ -72,17 +81,20 @@ def setup(args: argparse.Namespace
     if dev.type == "cuda":
         build.load()
     _sync(dev)
-    return engine, prompts, gen
+    return engine, prompts, memory, gen
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+def main(argv: Optional[Sequence[str]] = None, *,
+         model: Optional[transformer.Transformer] = None) -> Dict[str, Any]:
     """Serve from the command line. Returns ``prefill_s`` and ``decode_s``
-    (seconds), ``tokens`` ([B, steps] numpy) and the prefill ``logits``."""
+    (seconds), ``tokens`` ([B, steps] numpy), the prefill ``logits``, and the
+    ``engine``, ``prompts`` and ``memory`` it served; ``model`` as in
+    ``setup``."""
     args = _parser().parse_args(argv)
-    engine, prompts, gen = setup(args)
+    engine, prompts, memory, gen = setup(args, model)
     dev, cfg = engine.device, engine.model.cfg
     t0 = time.perf_counter()
-    logits, cache = engine.prefill(prompts)
+    logits, cache = engine.prefill(prompts, memory)
     _sync(dev)
     t1 = time.perf_counter()
     tokens = engine.decode(cache, logits, steps=args.steps,
@@ -97,7 +109,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
           f"{args.batch * args.steps / decode_s:.1f} tok/s)")
     for i, row in enumerate(out[:4]):
         print(f"  request {i}: {row[:16].tolist()}...")
-    return {"prefill_s": prefill_s, "decode_s": decode_s, "tokens": out, "logits": logits}
+    return {"prefill_s": prefill_s, "decode_s": decode_s, "tokens": out, "logits": logits,
+            "engine": engine, "prompts": prompts, "memory": memory}
 
 
 if __name__ == "__main__":

@@ -76,12 +76,14 @@ def setup(args: argparse.Namespace, model: Optional[Transformer] = None
           ) -> Tuple[TrainState, Any, Any]:
     """(state, step function, token iterator) from the parsed flags; the
     kernels are built here, as set-up. ``model``: initial weights to train
-    (moved to the device) instead of random ones."""
+    (moved to the device) instead of random ones; its config, depth
+    included, takes the place of ``--arch``/``--variant``'s (``--remat``
+    still applies)."""
     if args.aggregation == "spread":
         raise NotImplementedError("--aggregation spread places pods on several cards and is "
                                   "not ported yet (ROADMAP.md, queue 1, item 11)")
     dev = resolve_device(args.device)
-    cfg = configs.get_config(args.arch, args.variant)
+    cfg = configs.get_config(args.arch, args.variant) if model is None else model.cfg
     if args.remat is not None:
         cfg = dataclasses.replace(cfg, remat=args.remat)
     opt = optimizer(args)
@@ -98,8 +100,9 @@ def setup(args: argparse.Namespace, model: Optional[Transformer] = None
 
 def main(argv: Optional[Sequence[str]] = None, *, model: Optional[Transformer] = None
          ) -> Dict[str, Any]:
-    """Train from the command line. Returns the per-step ``losses`` and
-    ``seconds`` and the final ``state``; ``model`` as in ``setup``."""
+    """Train from the command line. Returns the per-step ``losses``, MoE
+    ``aux`` losses and ``seconds`` and the final ``state``; ``model`` as in
+    ``setup``."""
     args = _parser().parse_args(argv)
     state, step, data = setup(args, model)
     model = state.params
@@ -107,7 +110,7 @@ def main(argv: Optional[Sequence[str]] = None, *, model: Optional[Transformer] =
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[train] {cfg.name}: {n_params / 1e6:.1f}M params on {dev}, "
           f"aggregation={args.aggregation}, remat={cfg.remat}, microbatch={args.microbatch}")
-    losses, seconds = [], []
+    losses, auxes, seconds = [], [], []
     t_start = time.perf_counter()
     for i in range(args.steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
@@ -116,13 +119,14 @@ def main(argv: Optional[Sequence[str]] = None, *, model: Optional[Transformer] =
         _sync(dev)
         seconds.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
+        auxes.append(float(metrics["aux"]))
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"[train] step {i:4d} loss {losses[-1]:.4f} "
                   f"({time.perf_counter() - t_start:.1f}s)")
     if args.checkpoint:
         ckpt_io.save(args.checkpoint, convert.lm_params_to_jax(model))
         print(f"[train] saved params -> {args.checkpoint}")
-    return {"losses": losses, "seconds": seconds, "state": state}
+    return {"losses": losses, "aux": auxes, "seconds": seconds, "state": state}
 
 
 if __name__ == "__main__":

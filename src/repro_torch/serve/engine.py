@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.serve.engine``. Requests share one prompt length;
 generation is ``prefill`` followed by a Python loop of ``decode_step`` (the
-reference's ``lax.scan``), all under ``torch.inference_mode``. Sampling
+reference's ``lax.scan``), all under ``torch.inference_mode``. A vlm
+config's image memory goes into the cache at prefill; an audio
+(encoder-decoder) config's memory needs the encoder, not ported yet. Sampling
 draws from an explicit ``torch.Generator``, so its tokens differ from the
 reference's ``jax.random`` stream; greedy tokens do not.
 """
@@ -28,10 +30,18 @@ class ServeEngine:
         return self.model.embed.tokens.device
 
     @torch.inference_mode()
-    def prefill(self, prompts) -> Tuple[torch.Tensor, decoding.Cache]:
-        """prompts [B, S] (numpy or tensor) -> (last logits [B, V] f32, cache)."""
+    def prefill(self, prompts, memory=None) -> Tuple[torch.Tensor, decoding.Cache]:
+        """prompts [B, S] (numpy or tensor) -> (last logits [B, V] f32, cache).
+        ``memory``: image embeddings [B, T, d] (numpy or tensor) for a vlm
+        config, moved to the device in their own dtype."""
+        if memory is not None and self.model.cfg.is_encdec:
+            raise NotImplementedError("memory of an encoder-decoder (audio) config needs the "
+                                      "encoder, not ported yet (ROADMAP.md, queue 1, item "
+                                      "9(b))")
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)
-        return decoding.prefill(self.model, tokens, max_len=self.max_len)
+        if memory is not None:
+            memory = torch.as_tensor(memory, device=self.device)
+        return decoding.prefill(self.model, tokens, max_len=self.max_len, memory=memory)
 
     @torch.inference_mode()
     def decode(self, cache: decoding.Cache, logits: torch.Tensor, *, steps: int,
@@ -59,16 +69,15 @@ class ServeEngine:
 
     def generate(self, prompts: np.ndarray, *, steps: int = 32, temperature: float = 0.0,
                  memory: Optional[np.ndarray] = None, seed: int = 0) -> np.ndarray:
-        """prompts: [B, S] int -> generated tokens [B, steps] (numpy int32)."""
-        if memory is not None:
-            raise NotImplementedError("memory (audio / vlm) is not ported yet")
+        """prompts: [B, S] int -> generated tokens [B, steps] (numpy int32);
+        ``memory`` as in ``prefill``."""
         if prompts.shape[1] + steps > self.max_len:
             raise ValueError("prompt + steps exceed max_len: raise max_len")
         gen = None
         if temperature > 0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-        logits, cache = self.prefill(prompts)
+        logits, cache = self.prefill(prompts, memory)
         out = self.decode(cache, logits, steps=steps, temperature=temperature,
                           generator=gen)
         return out.cpu().numpy().astype(np.int32)

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.train.step``. ``make_train_step(cfg, optimizer)``
 returns ``step(state, batch) -> (state, metrics)``; ``batch`` is
-``{"tokens": [B, S]}`` (a tensor on the model's device, or numpy). The loss
-is the next-token cross-entropy plus ``aux_weight`` times the MoE aux loss
-(0 for the dense models ported so far).
+``{"tokens": [B, S]}``, plus ``"memory"`` [B, T, d] for a vlm config (a
+tensor on the model's device, or numpy). The loss is the next-token
+cross-entropy plus ``aux_weight`` times the MoE aux loss (0 for dense
+models).
 
 Unlike the reference's pure function, the step updates the model's
 parameters and the optimizer's moments in place, leaf by leaf
@@ -52,8 +53,12 @@ def _tensor(x) -> torch.Tensor:
 def lm_loss(model: Transformer, cfg: ModelConfig, batch: Batch, aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (+ MoE aux): (total, {"loss", "aux"})."""
-    tokens = _tensor(batch["tokens"]).to(device=model.embed.tokens.device, dtype=torch.long)
-    logits, aux = transformer.forward(model, tokens, memory=batch.get("memory"))
+    dev = model.embed.tokens.device
+    tokens = _tensor(batch["tokens"]).to(device=dev, dtype=torch.long)
+    memory = batch.get("memory")
+    if memory is not None:
+        memory = _tensor(memory).to(dev)
+    logits, aux = transformer.forward(model, tokens, memory=memory)
     targets = tokens[:, 1:]
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     del logits

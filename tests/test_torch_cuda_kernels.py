@@ -417,7 +417,8 @@ def test_flash_attention_refuses_what_it_cannot_run(dev):
 # last two bf16 cases cut the tensor-core kernels' tiles (16 rows or keys a
 # warp, 64 a block; 32 a tile at D = 128) where the others do not: more
 # queries than keys with Sq not a multiple of 16, and D = 128 with a window
-# and GQA 4:1.
+# and GQA 4:1; then D = 128 over 1300 keys (the MoE and vlm configs' head
+# dim, past the 300 keys of the cases before it).
 FLASH_BWD_SHAPES = [
     (2, 4, 2, 200, 200, 32, 64, torch.float32),
     (1, 4, 2, 333, 333, 80, None, torch.float32),
@@ -432,6 +433,7 @@ FLASH_BWD_SHAPES = [
     (2, 32, 8, 2048, 2048, 80, None, torch.bfloat16),
     (2, 4, 2, 203, 75, 64, None, torch.bfloat16),
     (1, 8, 2, 300, 300, 128, 70, torch.bfloat16),
+    (2, 4, 2, 1300, 1300, 128, None, torch.bfloat16),    # D = 128 past 1000 keys
 ]
 
 

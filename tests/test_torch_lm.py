@@ -1,7 +1,11 @@
-"""Parity of the port's dense-transformer serving path with the JAX package.
+"""Parity of the port's transformer serving path with the JAX package.
 
-At the qwen3-4b and gemma3-12b smoke configs (f32; gemma's first layer has
-a 64-token window), the reference's ``transformer.init_model`` weights are
+At the qwen3-4b, gemma3-12b, olmoe-1b-7b, mixtral-8x7b and
+llama-3.2-vision-11b smoke configs (f32; gemma's first layer and both of
+mixtral's have a 64-token window; olmoe and mixtral route through MoE
+experts; the vlm attends to ``memory_stub``'s image embeddings through a
+cross block whose gate is set to 0.5, since tanh(0) = 0 at init would
+remove the memory), the reference's ``transformer.init_model`` weights are
 carried into the port by ``convert.lm_params_from_jax`` and the same
 numpy-seeded tokens go through both packages on the CPU, where the port's
 prefill attention runs the plain version of the CUDA ``flash_attention``.
@@ -23,10 +27,11 @@ from repro.data import lm_data as jdata
 from repro.models import attention as jattn
 from repro.models import decoding as jdec
 from repro.models import layers as jlayers
+from repro.models import moe as jmoe
 from repro.models import transformer as jtr
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch import configs as pconfigs
-from repro_torch.convert import lm_params_from_jax
+from repro_torch.convert import lm_params_from_jax, lm_params_to_jax
 from repro_torch.data import lm_data as pdata
 from repro_torch.kernels import flash_attention as pfa
 from repro_torch.launch import serve as pserve
@@ -35,14 +40,31 @@ from repro_torch.models import decoding as pdec
 from repro_torch.models import layers as players
 from repro_torch.models import transformer as ptr
 from repro_torch.serve.engine import ServeEngine as PServeEngine
+from torch_parity import log_drops
 
 OP_TOL = 1e-5
 STACK_TOL = 1e-4
-ARCHS = ("qwen3-4b", "gemma3-12b")
+ARCHS = ("qwen3-4b", "gemma3-12b", "olmoe-1b-7b", "mixtral-8x7b", "llama-3.2-vision-11b")
 
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _with_gates(params, value=0.5):
+    """The reference's params with every cross-block gate set to ``value``."""
+    if "cross_blocks" not in params:
+        return params
+    cross = dict(params["cross_blocks"])
+    cross["gate"] = jnp.full_like(cross["gate"], value)
+    return dict(params, cross_blocks=cross)
+
+
+def _memory(cfg, b, seed=0):
+    """(numpy for the reference, tensor for the port) image embeddings of a
+    vlm config, else (None, None)."""
+    mem = jdata.memory_stub(cfg, b, rng=np.random.default_rng(seed))
+    return mem, None if mem is None else _t(mem)
 
 
 def _close(got, want, tol):
@@ -53,7 +75,7 @@ def _close(got, want, tol):
 def pair(request):
     """(jax cfg, jax params, port cfg, port model) from the same weights."""
     jcfg = jconfigs.get_config(request.param, "smoke")
-    params = jax.jit(jtr.init_model, static_argnums=1)(jax.random.key(0), jcfg)
+    params = _with_gates(jax.jit(jtr.init_model, static_argnums=1)(jax.random.key(0), jcfg))
     pcfg = pconfigs.get_config(request.param, "smoke")
     model = lm_params_from_jax(jax.tree.map(np.asarray, params), pcfg, "cpu")
     return jcfg, params, pcfg, model
@@ -174,8 +196,11 @@ class TestAttention:
 def test_init_matches_reference_scales(pair):
     """``init_model`` (and ``init_block`` / ``init_attention``) draw every
     parameter at the reference's scale: same names and shapes as the
-    reference's pytree, ones and zeros where it has them, and truncated
-    normals whose std is within 5 % of the reference's draw."""
+    reference's pytree, ones and zeros where it has them (the cross blocks'
+    gates, which the fixture set to 0.5, are 0 at init), and truncated
+    normals whose std is within 5 % of the reference's draw, or for a leaf
+    of fewer than 6400 elements (the MoE routers, [128, 4]) within
+    4 / sqrt(n), four standard errors of the two samples' ratio."""
     jcfg, params, pcfg, ref_model = pair
     model = ptr.init_model(pcfg, seed=1)
     block = ptr.init_block(torch.Generator().manual_seed(2), pcfg, "attn")
@@ -183,27 +208,38 @@ def test_init_matches_reference_scales(pair):
                                 pcfg.num_heads, pcfg.num_kv_heads, pcfg.head_dim,
                                 qk_norm=pcfg.qk_norm, use_bias=pcfg.use_bias,
                                 dtype=torch.float32)
-    for got, want in ((model.state_dict(), ref_model.state_dict()),
-                      (block.state_dict(), ref_model.blocks[0].state_dict()),
-                      (attn.state_dict(), ref_model.blocks[1].attn.state_dict())):
+    pairs = [(model.state_dict(), ref_model.state_dict()),
+             (block.state_dict(), ref_model.blocks[0].state_dict()),
+             (attn.state_dict(), ref_model.blocks[1].attn.state_dict())]
+    if pcfg.cross_attn_interval:
+        cross = ptr.init_cross_block(torch.Generator().manual_seed(4), pcfg)
+        pairs.append((cross.state_dict(), ref_model.cross_blocks[0].state_dict()))
+    for got, want in pairs:
         assert got.keys() == want.keys()
         for name, w in want.items():
             g = got[name]
             assert g.shape == w.shape and g.dtype == w.dtype, name
-            if torch.all(w == w.flatten()[0]):
+            if name.rsplit(".", 1)[-1] == "gate":     # a cross block's
+                assert torch.all(g == 0) and float(params["cross_blocks"]["gate"][0]) == 0.5
+            elif torch.all(w == w.flatten()[0]):
                 assert torch.equal(g, w), name       # ones / zeros
             else:
-                assert abs(g.std().item() / w.std().item() - 1) < 0.05, name
+                tol = max(0.05, 4 / w.numel() ** 0.5)
+                assert abs(g.std().item() / w.std().item() - 1) < tol, name
 
 
 def test_forward_matches(pair):
+    """Logits, and the aux loss: the MoE layers' summed, 0 for the others."""
     jcfg, params, _, model = pair
-    tok = _tokens(jcfg, 2, 70)
-    want, _ = jax.jit(lambda p, t: jtr.forward(p, jcfg, t))(params, jnp.asarray(tok))
-    got, aux = ptr.forward(model, _t(tok))
+    tok = _tokens(jcfg, 2, 80)
+    jmem, pmem = _memory(jcfg, 2)
+    want, jaux = jax.jit(lambda p, t, m: jtr.forward(p, jcfg, t, memory=m))(
+        params, jnp.asarray(tok), jmem)
+    got, aux = ptr.forward(model, _t(tok), memory=pmem)
     assert got.shape == want.shape and got.dtype == torch.float32
     _close(got, want, STACK_TOL)
-    assert aux.item() == 0.0
+    _close(aux, jaux, OP_TOL)
+    assert aux.item() > 0 if jcfg.is_moe else aux.item() == 0.0
 
 
 @pytest.mark.parametrize("impl,s", [("reference", 40), ("reference", 200),
@@ -215,9 +251,10 @@ def test_prefill_matches(pair, impl, s):
     jcfg, params, _, model = pair
     jcfg = dataclasses.replace(jcfg, attention_impl=impl)
     tok = _tokens(jcfg, 2, s)
-    jl, jc = jax.jit(lambda p, t: jdec.prefill(p, jcfg, t, max_len=s + 12))(
-        params, jnp.asarray(tok))
-    pl_, pc = pdec.prefill(model, _t(tok), max_len=s + 12)
+    jmem, pmem = _memory(jcfg, 2)
+    jl, jc = jax.jit(lambda p, t, m: jdec.prefill(p, jcfg, t, max_len=s + 12, memory=m))(
+        params, jnp.asarray(tok), jmem)
+    pl_, pc = pdec.prefill(model, _t(tok), max_len=s + 12, memory=pmem)
     _close(pl_, jl, STACK_TOL)
     assert pc["pos"] == int(jc["pos"]) == s
     for got, want in zip(pc["layers"], jc["layers"]):
@@ -228,13 +265,14 @@ def test_prefill_matches(pair, impl, s):
 
 def test_decode_steps_match(pair):
     """Eight decode steps after a 200-token prompt, feeding both packages
-    the same tokens; gemma's ring buffer wraps."""
+    the same tokens; gemma's and mixtral's ring buffers wrap."""
     jcfg, params, _, model = pair
     tok = _tokens(jcfg, 2, 200)
-    _, jc = jax.jit(lambda p, t: jdec.prefill(p, jcfg, t, max_len=216))(
-        params, jnp.asarray(tok))
+    jmem, pmem = _memory(jcfg, 2)
+    _, jc = jax.jit(lambda p, t, m: jdec.prefill(p, jcfg, t, max_len=216, memory=m))(
+        params, jnp.asarray(tok), jmem)
     jstep = jax.jit(lambda p, c, t: jdec.decode_step(p, jcfg, c, t))
-    _, pc = pdec.prefill(model, _t(tok), max_len=216)
+    _, pc = pdec.prefill(model, _t(tok), max_len=216, memory=pmem)
     feed = _tokens(jcfg, 2, 8, seed=1)
     for i in range(8):
         jl, jc = jstep(params, jc, jnp.asarray(feed[:, i:i + 1]))
@@ -248,8 +286,9 @@ def test_decode_steps_match(pair):
 def test_generate_greedy_tokens_identical(pair):
     jcfg, params, _, model = pair
     tok = _tokens(jcfg, 3, 40)
-    want = JServeEngine(jcfg, params, max_len=64).generate(tok, steps=8)
-    got = PServeEngine(model, max_len=64).generate(tok, steps=8)
+    mem, _ = _memory(jcfg, 3)
+    want = JServeEngine(jcfg, params, max_len=64).generate(tok, steps=8, memory=mem)
+    got = PServeEngine(model, max_len=64).generate(tok, steps=8, memory=mem)
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
 
@@ -257,18 +296,121 @@ def test_generate_greedy_tokens_identical(pair):
 def test_sampling_uses_the_generator(pair):
     _, _, _, model = pair
     tok = _tokens(model.cfg, 2, 12)
+    mem, _ = _memory(model.cfg, 2)
     eng = PServeEngine(model, max_len=32)
-    a = eng.generate(tok, steps=6, temperature=1.0, seed=3)
-    b = eng.generate(tok, steps=6, temperature=1.0, seed=3)
+    a = eng.generate(tok, steps=6, temperature=1.0, seed=3, memory=mem)
+    b = eng.generate(tok, steps=6, temperature=1.0, seed=3, memory=mem)
     np.testing.assert_array_equal(a, b)
     assert ((0 <= a) & (a < model.cfg.vocab_size)).all()
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "olmoe-1b-7b", "xlstm-125m", "hymba-1.5b",
-                                  "llama-3.2-vision-11b", "whisper-medium"])
+def test_convert_round_trip(pair):
+    """``lm_params_to_jax`` gives the reference's tree back leaf for leaf
+    (the MoE experts and the vlm's stacked cross blocks included), and
+    ``lm_params_from_jax`` of it the same model."""
+    jcfg, params, pcfg, model = pair
+    got = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t.numpy(), lm_params_to_jax(model)))[0]
+    want = {jax.tree_util.keystr(p): leaf
+            for p, leaf in jax.tree_util.tree_flatten_with_path(params)[0]}
+    assert sorted(jax.tree_util.keystr(p) for p, _ in got) == sorted(want)
+    for path, leaf in got:
+        np.testing.assert_array_equal(leaf, np.asarray(want[jax.tree_util.keystr(path)]))
+    back = lm_params_from_jax(lm_params_to_jax(model), pcfg).state_dict()
+    for name, t in model.state_dict().items():
+        assert torch.equal(back[name], t), name
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
+def test_moe_blocks_hold_experts(arch):
+    """An MoE config's blocks hold ``moe`` (router f32) and no ``mlp``."""
+    model = ptr.init_model(pconfigs.get_config(arch, "smoke", dtype="bfloat16"))
+    for bp in model.blocks:
+        assert not hasattr(bp, "mlp") and bp.moe.router.dtype == torch.float32
+        assert bp.moe.w_up.dtype == torch.bfloat16
+
+
+def test_olmoe_drop_shares_by_layer_match_reference(monkeypatch, capsys):
+    """OLMoE-1B-7B at full depth (16 layers, 64 experts top-8, capacity
+    factor 1.25, groups of 512) with the width cut to d 512 (4 heads of 128,
+    expert d_ff 256), f32, the port's weights from seed 0 carried into the
+    reference: a 2 x 512 prompt drops the same share of (token, k) slots in
+    each layer in both packages, within 2 of a layer's 8192 slots (a near
+    tie may swap one assignment). Printed beside the reference's: the mean
+    cosine of two router inputs of a group, layer by layer."""
+    over = dict(d_model=512, num_heads=4, num_kv_heads=4, d_ff=256, dtype="float32",
+                remat=False)
+    pcfg = pconfigs.get_config("olmoe-1b-7b", "full", **over)
+    jcfg = jconfigs.get_config("olmoe-1b-7b", "full", scan_layers=False, **over)
+    model = ptr.init_model(pcfg, seed=0)
+    params = jax.tree.map(jnp.asarray, lm_params_to_jax(model))
+    tok = _tokens(pcfg, 2, 512)
+    want, cos, apply_moe = [], [], jmoe.apply_moe
+
+    def logged(p, x, *, num_experts, top_k, capacity_factor, act, group_len=512):
+        # The reference's gates, top-k and slot positions, recomputed eagerly.
+        xt = x.reshape(-1, min(group_len, x.shape[1]), x.shape[2]).astype(jnp.float32)
+        g, t, _ = xt.shape
+        _, topi = jax.lax.top_k(jax.nn.softmax(xt @ p["router"], axis=-1), top_k)
+        onehot = jax.nn.one_hot(topi, num_experts, dtype=jnp.int32).reshape(g, t * top_k, -1)
+        pos = jnp.sum((jnp.cumsum(onehot, 1) - onehot) * onehot, -1)
+        cap = max(1, int(capacity_factor * t * top_k / num_experts))
+        want.append(1.0 - float(jnp.mean(pos < cap)))
+        u = xt / jnp.linalg.norm(xt, axis=-1, keepdims=True)
+        cos.append(float(jnp.mean(jnp.sum(u.mean(1) ** 2, -1))))
+        return apply_moe(p, x, num_experts=num_experts, top_k=top_k,
+                         capacity_factor=capacity_factor, act=act, group_len=group_len)
+
+    monkeypatch.setattr(jmoe, "apply_moe", logged)
+    jtr.forward(params, jcfg, jnp.asarray(tok))          # eager: one call a layer
+    got = log_drops(monkeypatch, pcfg.capacity_factor)
+    with torch.no_grad():
+        ptr.forward(model, torch.from_numpy(tok).long())
+    with capsys.disabled():
+        print(f"\nolmoe-1b-7b (d 512) dropped share by layer: port {[round(x, 4) for x in got]}"
+              f"; reference {[round(x, 4) for x in want]}; mean cosine of two router inputs "
+              f"of a group {[round(x, 4) for x in cos]}")
+    assert len(got) == len(want) == pcfg.num_layers and max(want) > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=2 / (2 * 512 * 8))
+
+
+def test_vlm_logits_depend_on_memory(pair):
+    """With nonzero gates the memory reaches the logits; with the gates at 0
+    (as at init) it does not, in both packages."""
+    jcfg, params, pcfg, model = pair
+    if not jcfg.cross_attn_interval:
+        assert not hasattr(model, "cross_blocks")
+        return
+    tok = _tokens(jcfg, 2, 40)
+    (m1, p1), (m2, p2) = _memory(jcfg, 2, seed=1), _memory(jcfg, 2, seed=2)
+    a, _ = ptr.forward(model, _t(tok), memory=p1)
+    b, _ = ptr.forward(model, _t(tok), memory=p2)
+    assert (a - b).abs().max() > 1e-3
+    closed = lm_params_from_jax(jax.tree.map(np.asarray, _with_gates(params, 0.0)), pcfg)
+    a, _ = ptr.forward(closed, _t(tok), memory=p1)
+    b, _ = ptr.forward(closed, _t(tok), memory=p2)
+    assert torch.equal(a, b)
+    want, _ = jtr.forward(_with_gates(params, 0.0), jcfg, jnp.asarray(tok), memory=m1)
+    _close(a, want, STACK_TOL)
+    with pytest.raises(ValueError, match="memory"):
+        ptr.forward(model, _t(tok))
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1.5b", "whisper-medium"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ptr.init_model(pconfigs.get_config(arch, "smoke"))
+
+
+def test_encdec_memory_raises():
+    """Serving with the memory of an encoder-decoder (audio) config needs its
+    encoder: ``generate(memory=)`` raises naming ROADMAP.md's item 9(b)."""
+    model = ptr.init_model(pconfigs.get_config("qwen3-4b", "smoke"))
+    model.cfg = pconfigs.get_config("whisper-medium", "smoke")
+    tok = _tokens(model.cfg, 1, 8)
+    mem = np.zeros((1, model.cfg.encoder_seq, model.cfg.d_model), np.float32)
+    with pytest.raises(NotImplementedError, match=r"item 9\(b\)"):
+        PServeEngine(model, max_len=32).generate(tok, steps=2, memory=mem)
 
 
 def test_configs_copy_the_reference():
@@ -306,3 +448,12 @@ def test_serve_launcher_needs_cuda_or_cpu_flag():
                        "--prompt-len", "70", "--steps", "3"])
     assert out["tokens"].shape == (2, 3) and pfa.launches == before
     assert out["logits"].shape == (2, 512) and torch.isfinite(out["logits"]).all()
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b", "llama-3.2-vision-11b"])
+def test_serve_launcher_runs_moe_and_vlm(arch):
+    """The launcher on the CPU: the vlm attends to ``memory_stub``'s
+    embeddings, as the reference's launcher passes them."""
+    out = pserve.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                       "--prompt-len", "64", "--steps", "3"])
+    assert out["tokens"].shape == (2, 3) and torch.isfinite(out["logits"]).all()

@@ -1,7 +1,10 @@
 """Parity of the port's LM training path with the JAX package.
 
 At the qwen3-4b and gemma3-12b smoke configs (f32; gemma's first layer has
-a 64-token window), the reference's ``transformer.init_model`` weights are
+a 64-token window), and at the olmoe-1b-7b, mixtral-8x7b (MoE, with the
+aux loss in the total) and llama-3.2-vision-11b ones (its cross-block gates
+set to 0.5, and ``token_batches``' image memory), the reference's
+``transformer.init_model`` weights are
 carried into the port by ``convert.lm_params_from_jax`` and the same
 ``token_batches`` tokens go through both packages on the CPU, where the
 port's attention runs the plain versions of the CUDA forward and backward
@@ -33,8 +36,10 @@ from repro_torch.launch import train as ptrain
 from repro_torch.models import transformer as ptr
 from repro_torch.optim import adam as padam
 from repro_torch.train import step as pstep
+from torch_parity import log_drops
 
 ARCHS = ("qwen3-4b", "gemma3-12b")
+NEW_ARCHS = ("olmoe-1b-7b", "mixtral-8x7b", "llama-3.2-vision-11b")
 
 
 def _close(got, want, tol):
@@ -45,8 +50,16 @@ def _pair(arch, **overrides):
     """(jax cfg, jax params, port cfg, port model) from the same weights."""
     jcfg = jconfigs.get_config(arch, "smoke", **overrides)
     params = jax.jit(jtr.init_model, static_argnums=1)(jax.random.key(0), jcfg)
+    if "cross_blocks" in params:    # tanh(0) = 0 at init would remove the memory
+        params = dict(params, cross_blocks=dict(
+            params["cross_blocks"], gate=jnp.full_like(params["cross_blocks"]["gate"], 0.5)))
     pcfg = pconfigs.get_config(arch, "smoke", **overrides)
     return jcfg, params, pcfg, lm_params_from_jax(jax.tree.map(np.asarray, params), pcfg)
+
+
+def _jbatch(batch):
+    """A ``token_batches`` batch for the reference: tokens, and memory if any."""
+    return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
 def _batches(cfg, n, batch=4, seq=80):
@@ -86,14 +99,28 @@ def _assert_updates_close(step, before, after, ref_before, ref_after, kept):
         assert err.size == 0 or err.max() <= 1e-2 * scale, (step, name, err.max(), scale)
 
 
-def _kept(grads, kept=None):
+def _kept(grads, kept=None, adam=True):
     """The elements whose reference gradient was at least 1e-5 of its
-    leaf's largest at every step so far (over 99 % of them here). Adam's
-    first steps move a parameter by about the learning rate whatever its
-    gradient's size, so where a gradient is within f32 rounding of 0 its
-    sign, and the move, may differ between the packages."""
-    new = {name: np.abs(g) >= 1e-5 * np.abs(g).max() for name, g in grads.items()}
+    leaf's largest, or exactly 0, at every step so far (over 99 % of them
+    here). Adam's first steps move a parameter by about the learning rate
+    whatever its gradient's size, so where a gradient is within f32 rounding
+    of 0 its sign, and the move, may differ between the packages; an exact 0
+    (an embedding row no token uses, an expert no token reached) is 0 in
+    both. SGD moves a parameter by lr times its gradient, so without
+    ``adam`` every element is kept."""
+    new = {name: (np.abs(g) >= 1e-5 * np.abs(g).max()) | (g == 0) | (not adam)
+           for name, g in grads.items()}
     return new if kept is None else {name: kept[name] & new[name] for name in new}
+
+
+def _reference_grads(jcfg, params, batch, microbatch):
+    """The reference's gradients as its step takes them: the mean over
+    ``microbatch`` chunks of the batch (the MoE aux loss is not linear in the
+    batch, so the whole batch's gradient differs)."""
+    grad = jax.grad(lambda p, b: jstep.lm_loss(p, jcfg, b)[0])
+    chunks = [jax.tree.map(lambda x: x.reshape(microbatch, -1, *x.shape[1:])[i], batch)
+              for i in range(microbatch)]
+    return jax.tree.map(lambda *g: sum(g) / microbatch, *(grad(params, c) for c in chunks))
 
 
 class TestOptimHelpers:
@@ -155,17 +182,18 @@ class TestOptimHelpers:
         assert torch.equal(new["a"], params["a"]) and torch.equal(new_state.mu["a"], state.mu["a"])
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 def test_loss_and_grads_match(arch):
     jcfg, params, pcfg, model = _pair(arch)
     batch = _batches(jcfg, 1)[0]
     (jtotal, jmetrics), jgrads = jax.jit(jax.value_and_grad(
-        lambda p, b: jstep.lm_loss(p, jcfg, b), has_aux=True))(
-        params, {"tokens": jnp.asarray(batch["tokens"])})
+        lambda p, b: jstep.lm_loss(p, jcfg, b), has_aux=True))(params, _jbatch(batch))
     state = pstep.init_state(pcfg, padam.Adam(), model=model)
     total, metrics, grads = pstep.loss_and_grads(state.params, pcfg, batch)
     _close(total, jtotal, 1e-5)
     _close(metrics["loss"], jmetrics["loss"], 1e-5)
+    _close(metrics["aux"], jmetrics["aux"], 1e-5)
+    assert (float(metrics["aux"]) > 0) == pcfg.is_moe
     model.load_state_dict(grads, strict=True)       # the gradients as a model's weights
     _assert_params_close(model, jgrads, 1e-5)
 
@@ -189,24 +217,25 @@ def _optimizer(m, kind):
 
 
 @pytest.mark.parametrize("kind,remat,microbatch", RUNS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 def test_three_steps_match(arch, kind, remat, microbatch):
     jcfg, params, pcfg, model = _pair(arch, remat=remat)
     jopt, popt = _optimizer(jadam, kind), _optimizer(padam, kind)
     jfn = jax.jit(jstep.make_train_step(jcfg, jopt, microbatch=microbatch))
     jstate = jstep.TrainState(params=params, opt_state=jopt.init(params),
                               step=jnp.zeros((), jnp.int32))
-    jgrad = jax.jit(jax.grad(lambda p, t: jstep.lm_loss(p, jcfg, {"tokens": t})[0]))
+    jgrad = jax.jit(lambda p, b: _reference_grads(jcfg, p, b, microbatch))
     pfn = pstep.make_train_step(pcfg, popt, microbatch=microbatch)
     pstate = pstep.init_state(pcfg, popt, model=model)
     kept, ours, theirs = None, _port_flat(pstate.params), _flat(jstate.params)
     for i, batch in enumerate(_batches(jcfg, 3)):
-        tokens = jnp.asarray(batch["tokens"])
-        kept = _kept(_flat(jgrad(jstate.params, tokens)), kept)
-        jstate, jm = jfn(jstate, {"tokens": tokens})
+        jbatch = _jbatch(batch)
+        kept = _kept(_flat(jgrad(jstate.params, jbatch)), kept, adam=kind != "sgd_momentum")
+        jstate, jm = jfn(jstate, jbatch)
         pstate, pm = pfn(pstate, batch)
         _close(pm["loss"], jm["loss"], 1e-4)
         _close(pm["total"], jm["total"], 1e-4)
+        _close(pm["aux"], jm["aux"], 1e-4)
         new_ours, new_theirs = _port_flat(pstate.params), _flat(jstate.params)
         _assert_updates_close(i, ours, new_ours, theirs, new_theirs, kept)
         ours, theirs = new_ours, new_theirs
@@ -236,6 +265,58 @@ def test_remat_changes_nothing_but_memory():
         assert len(calls) == cfg.num_layers * (2 if remat else 1)
     for name, g in grads[False].items():
         _close(grads[True][name], g, 1e-6)
+
+
+@pytest.mark.parametrize("cf", [0.5, 2.0])
+def test_moe_remat_routes_the_same_tokens(monkeypatch, cf):
+    """olmoe's smoke config, with a capacity that drops slots and one that
+    does not: the recompute of remat routes and drops as the forward did
+    (each layer's dropped share is logged twice, equal), the aux is counted once,
+    and the gradients equal those without remat to f32 rounding. The aux
+    reaches the gradients: without its weight the router's change."""
+    out = {}
+    for remat in (False, True):
+        cfg = pconfigs.get_config("olmoe-1b-7b", "smoke", remat=remat, capacity_factor=cf)
+        model = ptr.init_model(cfg, seed=3)
+        state = pstep.init_state(cfg, padam.Adam(), model=model)
+        batch = _batches(cfg, 1, batch=2)[0]
+        logged = log_drops(monkeypatch, cf)
+        total, metrics, grads = pstep.loss_and_grads(state.params, cfg, batch)
+        monkeypatch.undo()
+        out[remat] = (total, metrics["aux"], grads, logged)
+    (t0, a0, g0, d0), (t1, a1, g1, d1) = out[False], out[True]
+    assert len(d0) == cfg.num_layers and d1 == d0 + d0
+    assert (max(d0) > 0) == (cf < 1)
+    _close(t1, t0, 1e-6)
+    _close(a1, a0, 1e-6)
+    for name, g in g0.items():
+        _close(g1[name], g, 1e-6)
+    with torch.enable_grad():
+        plain, _ = pstep.lm_loss(state.params, cfg, batch, aux_weight=0.0)
+        router = state.params.blocks[0].moe.router
+        g_plain, = torch.autograd.grad(plain, [router])
+    assert (g1["blocks.0.moe.router"] - g_plain).abs().max() > 1e-6
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_checkpoint_of_moe_and_vlm_restores_in_the_reference(tmp_path, arch):
+    """As below, for the MoE and vlm configs: the experts and the stacked
+    cross blocks restore into ``init_model``'s template, and the JAX forward
+    of the restored weights (with the same memory) gives the port's logits."""
+    path = tmp_path / "params.npz"
+    out = ptrain.main(["--device", "cpu", "--arch", arch, "--steps", "2", "--batch",
+                       "2", "--seq", "64", "--checkpoint", str(path)])
+    model = out["state"].params
+    jcfg = jconfigs.get_config(arch, "smoke")
+    restored = jio.restore(path, jtr.init_model(jax.random.key(9), jcfg))
+    tok = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 64)).astype(np.int32)
+    mem = next(token_batches(jcfg, batch=2, seq_len=8, seed=4)).get("memory")
+    want, _ = jax.jit(lambda p, t, m: jtr.forward(p, jcfg, t, memory=m))(
+        restored, jnp.asarray(tok), mem)
+    with torch.no_grad():
+        got, _ = ptr.forward(model, torch.from_numpy(tok).long(),
+                             memory=None if mem is None else torch.from_numpy(mem))
+    _close(got, want, 1e-4)
 
 
 def test_checkpoint_restores_in_the_reference(tmp_path):

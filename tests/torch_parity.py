@@ -53,3 +53,23 @@ def split(x):
     finite = np.isfinite(x)
     hi = np.where(finite, tf32(x), np.float32(0.0))
     return hi, np.where(finite, tf32(x - hi), x)
+
+
+def log_drops(monkeypatch, capacity_factor):
+    """Wrap the port's ``moe.slot_positions`` for one test: every MoE layer
+    it routes appends the share of its (token, k) slots whose position
+    reaches the capacity ``apply_moe`` derives from ``capacity_factor`` and
+    the group's shape (a float). Returns the list."""
+    from repro_torch.models import moe
+
+    log, slot_positions = [], moe.slot_positions
+
+    def logged(topi, num_experts):
+        pos = slot_positions(topi, num_experts)
+        _, t, k = topi.shape
+        cap = max(1, int(capacity_factor * t * k / num_experts))
+        log.append(1.0 - (pos < cap).double().mean().item())
+        return pos
+
+    monkeypatch.setattr(moe, "slot_positions", logged)
+    return log
