@@ -32,7 +32,13 @@ Phases (any failure raises, and the script exits non-zero):
    [8,32,2048,128], kv [8,8,2048,128]) and Mixtral-8x7B's (q
    [2,32,8192,128], kv [2,8,8192,128], window 4096), and the bf16 training
    forward and backward at OLMoE's training shape (q [2,16,2048,128]), each
-   held and timed as above (``cases`` of their entries).
+   held and timed as above (``cases`` of their entries). At the audio and
+   hybrid paths' head dim, D = 64: the bf16 forward at Hymba-1.5B's prefill
+   (q [8,25,2048,64], kv [8,5,2048,64], GQA 25:5, window 1024 and global)
+   and Whisper-medium's decoder prompt (q [8,16,224,64]); the bf16 training
+   forward and backward at Hymba's training shape (q [2,25,2048,64], kv 5
+   heads, window 1024) and Whisper's decoder's (q [8,16,448,64]), two
+   backward runs bit for bit; each held and timed as above.
 3. Small training runs of every method and option (SpreadFGL, FedSage+,
    partial participation, async and gossip aggregation, GCN and GAT) and
    small f32 serving runs (the qwen3-4b, gemma3-12b, olmoe-1b-7b,
@@ -42,12 +48,16 @@ Phases (any failure raises, and the script exits non-zero):
    devices) on the card against the same runs on the
    CPU (the kernels' plain versions), from the same weights, noise and
    prompts; the trainers draw their own participation masks and async
-   schedules on both. Then the qwen3-4b and olmoe-1b-7b smoke configs in
+   schedules on both; whisper-medium's smoke config with its frames through
+   the encoder, hymba-1.5b's at d_model 160 (``HYMBA_SMOKE``: head dim 32
+   where the smoke config's 20 has no kernel instance) and xlstm-125m's.
+   Then the qwen3-4b and olmoe-1b-7b smoke configs in
    bf16 on the card, the prefill through the tensor-core kernel against the
    same prefill with the plain version patched in. Small LM training runs
    (``repro_torch.launch.train``, the qwen3-4b, olmoe-1b-7b (also at
-   ``TIGHT_CAPACITY``, dropping slots), llama-3.2-vision-11b and gemma3-12b
-   smoke configs in f32, 3 steps, remat on and off, 2 microbatches) on the
+   ``TIGHT_CAPACITY``, dropping slots), llama-3.2-vision-11b, gemma3-12b,
+   whisper-medium, hymba-1.5b (``HYMBA_SMOKE``) and xlstm-125m smoke configs
+   in f32, 3 steps, remat on and off, 2 microbatches) on the
    card against the CPU, and a checkpoint written on the card served by
    ``repro_torch.launch.serve --checkpoint``. One training step of Qwen3-4B
    at full width, depth cut to 4 layers, in bf16 and in float32, through the
@@ -83,8 +93,15 @@ Phases (any failure raises, and the script exits non-zero):
    its cross gates at ``CROSS_GATE`` (batch 8 x 2048, 64 decode steps; its
    logits must move with the memory). Through ``launch.train.main(model=)``,
    OLMoE-1B-7B at full width cut to 14 of 16 layers in bf16 with remat,
-   batch 2 x 2048, 4 steps, aux above 0. Each prints its times, peak memory
-   and flash launches.
+   batch 2 x 2048, 4 steps, aux above 0. Then, bf16 with random weights at
+   full width and depth, each served through ``launch.serve.main`` and
+   trained through ``launch.train.main`` (remat, 4 steps): Whisper-medium
+   (24 + 24 layers, memory_stub's 1500 f32 frames; batch 8, a 224-token
+   prompt and 224 greedy steps filling its 448 positions, its logits must
+   move with the frames; training batch 8 x 448); Hymba-1.5B (batch 8 x
+   2048, 64 steps across the 1024-slot ring buffers; training 2 x 2048);
+   xLSTM-125M (batch 8 x 2048, 64 steps; training 8 x 2048; no kernel on
+   its path). Each prints its times, peak memory and flash launches.
 5. One JSON line describing every kernel, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -143,6 +160,10 @@ F32_TRAIN_ARGS = ["--arch", "qwen3-4b", "--variant", "full", "--batch", "2", "--
 # olmoe's smoke config routes top-2 of 4 experts with capacity factor 2.0,
 # which drops nothing; its runs at this factor drop (token, k) slots.
 TIGHT_CAPACITY = 0.5
+# hymba's smoke config has head dim 20 (d 100, 5 heads), which the flash
+# kernels do not take: its card runs use the smoke config at this width and
+# head dim 32, on both devices.
+HYMBA_SMOKE = {"d_model": 160, "head_dim": 32}
 # Small training runs, card against CPU: (arch, extra flags, smoke config
 # overrides). The last one's checkpoint is served by serve --checkpoint.
 SMALL_TRAIN_RUNS = (("qwen3-4b", ["--no-remat"], {}),
@@ -151,6 +172,9 @@ SMALL_TRAIN_RUNS = (("qwen3-4b", ["--no-remat"], {}),
                     ("olmoe-1b-7b", ["--remat"], {"capacity_factor": TIGHT_CAPACITY}),
                     ("llama-3.2-vision-11b", ["--no-remat", "--microbatch", "2"], {}),
                     ("gemma3-12b", ["--no-remat", "--microbatch", "2"], {}),
+                    ("whisper-medium", ["--remat"], {}),
+                    ("hymba-1.5b", ["--remat"], HYMBA_SMOKE),
+                    ("xlstm-125m", ["--no-remat", "--microbatch", "2"], {}),
                     ("gemma3-12b", ["--remat"], {}))
 # The MoE and vlm paths: OLMoE-1B-7B serving at full width and depth;
 # Mixtral-8x7B at full width cut to MIXTRAL_LAYERS of 32 layers, its
@@ -174,6 +198,23 @@ OLMOE_TRAIN_LAYERS = 14
 # The vlm's cross-block gates are 0 at init, and tanh(0) = 0 removes the
 # memory from the result: every vlm run here sets them to this.
 CROSS_GATE = 0.5
+# The audio, hybrid and ssm paths, each at full width and depth with random
+# bf16 weights. Whisper-medium: memory_stub's 1500 f32 frames, a 224-token
+# prompt and 224 greedy steps fill its 448 learned positions, as Whisper's own
+# decoding does; training at its 448 positions. Hymba-1.5B: 2048-token
+# prompts past its 1024-slot ring buffers. xLSTM-125M launches no kernel.
+WHISPER_SERVE_ARGS = ["--arch", "whisper-medium", "--variant", "full", "--batch", "8",
+                      "--prompt-len", "224", "--steps", "224"]
+WHISPER_TRAIN_ARGS = ["--arch", "whisper-medium", "--variant", "full", "--batch", "8",
+                      "--seq", "448", "--steps", "4", "--lr", "3e-4", "--log-every", "1"]
+HYMBA_SERVE_ARGS = ["--arch", "hymba-1.5b", "--variant", "full", "--batch", "8",
+                    "--prompt-len", "2048", "--steps", "64"]
+HYMBA_TRAIN_ARGS = ["--arch", "hymba-1.5b", "--variant", "full", "--batch", "2",
+                    "--seq", "2048", "--steps", "4", "--lr", "3e-4", "--log-every", "1"]
+XLSTM_SERVE_ARGS = ["--arch", "xlstm-125m", "--variant", "full", "--batch", "8",
+                    "--prompt-len", "2048", "--steps", "64"]
+XLSTM_TRAIN_ARGS = ["--arch", "xlstm-125m", "--variant", "full", "--batch", "8",
+                    "--seq", "2048", "--steps", "4", "--lr", "3e-4", "--log-every", "1"]
 
 
 def _card_line() -> str:
@@ -272,6 +313,23 @@ def _counters():
             "flash_attention_bwd": (kflash, "launches_bwd"),
             "flash_attention_bwd_tc": (kflash, "launches_bwd_tc"),
             "flash_attention_bwd_f32": (kflash, "launches_bwd_f32")}
+
+
+def _attn_layers(cfg) -> int:
+    """Decoder layers whose prefill or training attention goes through
+    ``ops.mha``: every layer but the ssm family's (whisper's encoder runs
+    plain attention)."""
+    from repro_torch.models.transformer import _block_kind
+    return sum(_block_kind(cfg, i) in ("attn", "hybrid", "encdec_dec")
+               for i in range(cfg.num_layers))
+
+
+def _structural_zero(name: str) -> bool:
+    """An attention key bias (``...attn.bk``, ``...cross.bk``): its gradient
+    is 0 in exact arithmetic (q . bk shifts all of a query's logits alike,
+    which the softmax ignores), so each device's value is rounding noise, and
+    so are the Adam steps it drives."""
+    return name.endswith(".bk")
 
 
 def _open_gates(model):
@@ -613,26 +671,33 @@ def _plain_by_head(fn, q, *rest, **kw):
     return torch.cat([torch.cat(row, dim=1) for row in outs], dim=0)
 
 
-def _check_flash_d128(dev, gen):
-    """The bf16 forward at the MoE and vlm paths' head dim, D = 128: OLMoE's
-    prefill (q [8,16,2048,128], MHA, causal), Llama-3.2-Vision's (q
-    [8,32,2048,128], kv [8,8,2048,128], GQA 4:1, causal) and Mixtral's (q
-    [2,32,8192,128], kv [2,8,8192,128], window 4096), each held against the plain version
-    (run per batch row and kv head) within 2e-2 and timed against SDPA (for
-    the window, with a boolean mask and k, v repeated to the q heads) and
-    its bound: the causal (windowed)
-    pairs' two products at the bf16 peak, or q, k, v and the output read
-    and written once."""
+# The bf16 forward at the MoE and vlm paths' head dim, D = 128: OLMoE's
+# prefill (MHA), Llama-3.2-Vision's (GQA 4:1) and Mixtral's (window 4096).
+D128_CASES = (("OLMoE-1B-7B prefill", 8, 16, 16, 2048, 128, None),
+              ("Llama-3.2-Vision-11B prefill", 8, 32, 8, 2048, 128, None),
+              ("Mixtral-8x7B prefill", 2, 32, 8, 8192, 128, 4096))
+# At the audio and hybrid paths' head dim, D = 64: Hymba's prefill (GQA 25:5,
+# a group of 5) on its windowed layers (1024) and its global ones, and
+# Whisper's decoder prompt (MHA, no RoPE: the kernel sees q, k, v alike).
+D64_CASES = (("Hymba-1.5B prefill, windowed layers", 8, 25, 5, 2048, 64, 1024),
+             ("Hymba-1.5B prefill, global layers", 8, 25, 5, 2048, 64, None),
+             ("Whisper-medium decoder prefill", 8, 16, 16, 224, 64, None))
+
+
+def _check_flash_cases(dev, gen, shapes):
+    """The bf16 forward at each of ``shapes`` (what, b, hq, hkv, s, d,
+    window), each held against the plain version (run per batch row and kv
+    head) within 2e-2 and timed against SDPA (for a window, with a boolean
+    mask and k, v repeated to the q heads) and its bound: the causal
+    (windowed) pairs' two products at the bf16 peak, or q, k, v and the
+    output read and written once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ops, ref
 
     cases = []
-    for what, b, hq, hkv, s, d, window in (
-            ("OLMoE-1B-7B prefill", 8, 16, 16, 2048, 128, None),
-            ("Llama-3.2-Vision-11B prefill", 8, 32, 8, 2048, 128, None),
-            ("Mixtral-8x7B prefill", 2, 32, 8, 8192, 128, 4096)):
+    for what, b, hq, hkv, s, d, window in shapes:
         q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(torch.bfloat16)
         k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(torch.bfloat16)
                 for _ in range(2))
@@ -666,7 +731,7 @@ def _check_flash_d128(dev, gen):
               f"bound_ms={bound_ms:.4f} ({bound_by}, bf16 peak) -> "
               f"{flops / ms / 1e9:.1f} TFLOP/s")
         if not err <= 2e-2:
-            raise AssertionError(f"flash_attention at D = 128 ({what}) disagrees with its plain "
+            raise AssertionError(f"flash_attention at D = {d} ({what}) disagrees with its plain "
                                  f"version: {err}")
         cases.append({"what": what, "shape": shape, "max_abs_err": err, "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -909,6 +974,109 @@ def _check_flash_bwd(dev, gen):
              "max_abs_err": max(errs[torch.float32]), **times[torch.float32]}]
 
 
+# The training path's forward (keeping the row log-sum-exp) and backward at
+# the hybrid and audio paths' shapes: Hymba's (batch 2 x 2048, GQA 25:5,
+# window 1024) and Whisper's decoder (batch 8 x 448, MHA).
+D64_TRAIN_CASES = (("Hymba-1.5B training", 2, 25, 5, 2048, 64, 1024),
+                   ("Whisper-medium decoder training", 8, 16, 16, 448, 64, None))
+
+
+def _check_flash_train_cases(dev, gen, shapes):
+    """The bf16 training forward and backward at each of ``shapes`` (what,
+    b, hq, hkv, s, d, window), with _check_flash_bwd's limits: the output
+    within 2e-2 of the plain version, the row log-sum-exp within 1e-5, each
+    gradient within 2e-2 of its max |grad| of the plain backward, a second
+    run bit for bit equal. Each is timed against SDPA (with a boolean mask
+    and k, v repeated to the q heads for a window; its backward through
+    autograd) and its bound over the causal (windowed) pairs: two products
+    (forward) or five (backward) at the bf16 peak, or the bytes read and
+    written once. Returns (forward cases, backward cases)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    fwd_cases, bwd_cases = [], []
+    for what, b, hq, hkv, s, d, window in shapes:
+        q, do = (torch.randn((b, hq, s, d), generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        before = (kflash.launches_tc_lse, kflash.launches_bwd_tc)
+        o, lse = kflash.launch(q, k, v, window=window, with_lse=True)
+        got = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
+        again = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
+        if (kflash.launches_tc_lse, kflash.launches_bwd_tc) != (before[0] + 1, before[1] + 2):
+            raise AssertionError("flash_attention bf16 training kernels did not take their "
+                                 "routes (launches_tc_lse, launches_bwd_tc)")
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        o_err = (o.float() - ref.flash_attention(q, k, v, window=window).float()
+                 ).abs().max().item()
+        lse_err = (lse - ref.flash_attention_lse(q, k, window=window)).abs().max().item()
+        plain = ref.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+        errs, line = [], []
+        for gname, g, p in zip(("dq", "dk", "dv"), got, plain):
+            limit = 2e-2 * p.float().abs().max().item()
+            err = (g.float() - p.float()).abs().max().item()
+            line.append(f"{gname} {err:.3g} (limit {limit:.3g})")
+            if not err <= limit:
+                raise AssertionError(f"flash_attention backward bf16 ({what}) {gname} "
+                                     f"disagrees with its plain version: {err} > {limit}")
+            errs.append(err)
+        del got, plain
+        shape = f"q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}] bf16 causal" + (
+            f" window {window}" if window else "")
+        print(f"[smoke] flash_attention training forward {what} {shape}: output max_abs_err "
+              f"{o_err:.3g} (limit 0.02); lse max_abs_err {lse_err:.3g} (limit 1e-05); "
+              f"backward max_abs_err {'; '.join(line)}; two runs bit for bit: {same}")
+        if not (o_err <= 2e-2 and lse_err <= 1e-5 and same):
+            raise AssertionError(f"flash_attention training kernels at {what}: output {o_err}, "
+                                 f"lse {lse_err}, bit for bit {same}")
+
+        qg = q.detach().requires_grad_(True)
+        if window:      # SDPA's masked kernel takes no GQA: k, v repeated beforehand
+            pos = torch.arange(s, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            kg, vg = (t.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
+                      for t in (k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)  # noqa: E731
+        else:
+            kg, vg = k.detach().requires_grad_(True), v.detach().requires_grad_(True)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qg, kg, vg, is_causal=True, enable_gqa=True)
+        pairs = b * hq * _causal_pairs(s, s, window)
+        io = 2 * b * hq * s * d + 2 * b * hkv * s * d
+        fwd_ms = _time_ms(lambda: kflash.launch(q, k, v, window=window, with_lse=True), 10)
+        fwd_plain = _time_ms(lambda: (ref.flash_attention(q, k, v, window=window),
+                                      ref.flash_attention_lse(q, k, window=window)), 3)
+        fwd_lib = _time_ms(sdpa, 10)
+        fwd_bound, fwd_by = _bound(4.0 * d * pairs, 2 * io + 4 * b * hq * s, peak=BF16_FLOPS)
+        bwd_ms = _time_ms(lambda: kflash.launch_bwd(q, k, v, o, do, lse, window=window), 10)
+        bwd_plain = _time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, do, lse,
+                                                             window=window), 3)
+        out = sdpa()
+        bwd_lib = _time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                       retain_graph=True), 10)
+        bwd_bound, bwd_by = _bound(10.0 * d * pairs, 2 * (2 * io) + 4 * b * hq * s,
+                                   peak=BF16_FLOPS)
+        print(f"[smoke] flash_attention training forward bf16 {what} {shape}: ms={fwd_ms:.3f} "
+              f"plain_ms={fwd_plain:.3f} library_ms={fwd_lib:.3f} (SDPA forward needing a "
+              f"gradient) bound_ms={fwd_bound:.4f} ({fwd_by}, bf16 peak); backward "
+              f"ms={bwd_ms:.3f} plain_ms={bwd_plain:.3f} library_ms={bwd_lib:.3f} (SDPA "
+              f"backward) bound_ms={bwd_bound:.4f} ({bwd_by}, five products at the bf16 "
+              f"peak) -> {10.0 * d * pairs / bwd_ms / 1e9:.1f} TFLOP/s of five products")
+        fwd_cases.append({"what": what, "shape": shape, "max_abs_err": o_err, "ms": fwd_ms,
+                          "plain_ms": fwd_plain, "bound_ms": fwd_bound, "bound_by": fwd_by,
+                          "library_ms": fwd_lib})
+        bwd_cases.append({"what": what, "shape": shape, "max_abs_err": max(errs), "ms": bwd_ms,
+                          "plain_ms": bwd_plain, "bound_ms": bwd_bound, "bound_by": bwd_by,
+                          "library_ms": bwd_lib})
+        del q, k, v, o, do, lse, qg, kg, vg, out
+        torch.cuda.empty_cache()
+    return fwd_cases, bwd_cases
+
+
 # -- phase 3: the card's training run against the CPU's ----------------------
 
 SMALL_RUNS = (  # (what, registry method, builder keywords, FGLConfig fields)
@@ -983,14 +1151,19 @@ def _check_small_serve(dev):
     # and at TIGHT_CAPACITY, where its prefill must drop (token, k) slots on
     # both devices; mixtral-8x7b's (MoE, both layers' window-64 ring buffers
     # wrap on a 200-token prompt); llama-3.2-vision-11b's with memory_stub's
-    # image embeddings and its cross-block gates at CROSS_GATE. Same weights
+    # image embeddings and its cross-block gates at CROSS_GATE; whisper-medium's
+    # with memory_stub's frames through the encoder; hymba-1.5b's at
+    # HYMBA_SMOKE's width, a 128-token prompt past its window-64 layer's ring
+    # buffer; xlstm-125m's with a 256-token prompt across a chunk. Same weights
     # on both devices (drawn on the CPU), f32: the card's prefill takes the
-    # f32 route, once per layer.
+    # f32 route, once per attention layer (none for xlstm).
     for arch, prompt_len, over in (("qwen3-4b", 40, {}), ("gemma3-12b", 200, {}),
                                    ("olmoe-1b-7b", 40, {}),
                                    ("olmoe-1b-7b", 40, {"capacity_factor": TIGHT_CAPACITY}),
                                    ("mixtral-8x7b", 200, {}),
-                                   ("llama-3.2-vision-11b", 40, {})):
+                                   ("llama-3.2-vision-11b", 40, {}),
+                                   ("whisper-medium", 40, {}), ("hymba-1.5b", 128, HYMBA_SMOKE),
+                                   ("xlstm-125m", 256, {})):
         cfg = configs.get_config(arch, "smoke", **over)
         cpu_model = _open_gates(transformer.init_model(cfg, seed=0, device="cpu"))
         prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, prompt_len))
@@ -1011,19 +1184,21 @@ def _check_small_serve(dev):
                                "flash_attention_tc_lse")}
         err = (logits[dev.type] - logits["cpu"]).abs().max().item()
         same = torch.equal(tokens[dev.type], tokens["cpu"])
+        tight = "capacity_factor" in over
         print(f"[smoke] small {cfg.name} serving run {dev.type} vs cpu, prompt "
-              f"{prompt_len}{f', capacity factor {cfg.capacity_factor}' if over else ''}: "
+              f"{prompt_len}{f', capacity factor {cfg.capacity_factor}' if tight else ''}"
+              f"{f', d_model {cfg.d_model}' if 'd_model' in over else ''}: "
               f"prefill logits max |d| = {err:.3g}, 8 greedy tokens identical: {same}; card "
               f"prefill launches {routes}" + (
                   f"; dropped share of (token, k) slots by layer, card "
                   f"{[round(x, 4) for x in drops[dev.type]]}, cpu "
                   f"{[round(x, 4) for x in drops['cpu']]}" if cfg.is_moe else ""))
-        if over and not all(min(d) > 0 for d in drops.values()):
+        if tight and not all(min(d) > 0 for d in drops.values()):
             raise AssertionError(f"{cfg.name} at capacity factor {cfg.capacity_factor}: "
                                  f"a prefill layer dropped nothing ({drops})")
-        if routes != {"flash_attention_f32": cfg.num_layers, "flash_attention_tc": 0,
+        if routes != {"flash_attention_f32": _attn_layers(cfg), "flash_attention_tc": 0,
                       "flash_attention_tc_lse": 0}:
-            raise AssertionError(f"{cfg.name} (f32): expected {cfg.num_layers} f32-route "
+            raise AssertionError(f"{cfg.name} (f32): expected {_attn_layers(cfg)} f32-route "
                                  f"launches and no tensor-core launch, got {routes}")
         if not err <= 1e-4:     # two layers of f32 in other orders
             raise AssertionError(f"{cfg.name}: the card's prefill logits disagree with "
@@ -1109,11 +1284,16 @@ def _check_small_train(dev):
     # leaf's largest, or exactly 0, at every step so far (Adam's first steps
     # move a parameter by about lr whatever its gradient's size, so one
     # within f32 rounding of 0 may move either way; an exact 0, as of an
-    # expert no token reached, is 0 on both), which must be 99 % of them. The
-    # card's launches: each layer's forward once per microbatch and step,
-    # twice with remat; its backward once. Then train --checkpoint on the
-    # card writes a file, which serve --checkpoint serves: its prefill
-    # logits equal the trained model's.
+    # expert no token reached, is 0 on both), which must be 99 % of them
+    # (98 % for xlstm: the rows of its tied 512-row table that no batch's token
+    # holds get only the softmax's gradient, below 1e-5 of the leaf's largest).
+    # An attention key bias (whisper's bk) is left out of both comparisons:
+    # its gradient is 0 in exact arithmetic, so on either device its value and
+    # the Adam steps it drives are rounding noise (_structural_zero). The
+    # card's launches: each attention layer's forward once per microbatch and
+    # step, twice with remat; its backward once (none for xlstm). Then train
+    # --checkpoint on the card writes a file, which serve --checkpoint serves:
+    # its prefill logits equal the trained model's.
     def params(state):
         return {n: t.detach().cpu().double() for n, t in state.params.state_dict().items()}
 
@@ -1133,8 +1313,8 @@ def _check_small_train(dev):
                 batch = {k: torch.from_numpy(v).to(where) for k, v in next(data).items()}
                 if i == 0:      # the CPU's gradients: which elements each step holds
                     grads = tstep.loss_and_grads(state.params, cfg, batch, flags.microbatch)[2]
-                    new = {n: (g.abs() >= 1e-5 * g.abs().max()) | (g == 0)
-                           for n, g in grads.items()}
+                    new = {n: ((g.abs() >= 1e-5 * g.abs().max()) | (g == 0))
+                           & (not _structural_zero(n)) for n, g in grads.items()}
                     kept = new if kept is None else {n: kept[n] & new[n] for n in new}
                     kept_steps.append(kept)
                 with _moe_log(cfg) as log:
@@ -1144,14 +1324,15 @@ def _check_small_train(dev):
                 snaps.append(params(state))
             after = _launches()
             runs.append((losses, snaps))
-        per = cfg.num_layers * flags.steps * flags.microbatch
+        per = _attn_layers(cfg) * flags.steps * flags.microbatch
         want = {"flash_attention_f32": per * (2 if cfg.remat else 1), "flash_attention_tc": 0,
                 "flash_attention_tc_lse": 0, "flash_attention_bwd": per,
                 "flash_attention_bwd_f32": per, "flash_attention_bwd_tc": 0}
         got = {name: after[name] - before[name] for name in want}
         (cpu_losses, cpu_snaps), (losses, snaps) = runs
         dloss = max(abs(a - b) for a, b in zip(losses, cpu_losses))
-        dparam = max((t - cpu_snaps[-1][n]).abs().max().item() for n, t in snaps[-1].items())
+        dparam = max((t - cpu_snaps[-1][n]).abs().max().item() for n, t in snaps[-1].items()
+                     if not _structural_zero(n))
         dstep = [_update_check(snaps[i], snaps[i + 1], cpu_snaps[i], cpu_snaps[i + 1], kept)
                  for i, kept in enumerate(kept_steps)]
         kept = kept_steps[-1]
@@ -1161,7 +1342,7 @@ def _check_small_train(dev):
                   f"dropped share of (token, k) slots, layers x steps (twice with remat), "
                   f"card {[round(x, 4) for x in drops[dev.type]]}, cpu "
                   f"{[round(x, 4) for x in drops['cpu']]}")
-        if over and not all(min(d) > 0 for d in drops.values()):
+        if "capacity_factor" in over and not all(min(d) > 0 for d in drops.values()):
             raise AssertionError(f"small train {arch} at capacity factor "
                                  f"{cfg.capacity_factor}: a layer dropped nothing ({drops})")
         print(f"[smoke] small train {arch} {' '.join(extra)} {dev.type} vs cpu: 3 steps, "
@@ -1171,7 +1352,9 @@ def _check_small_train(dev):
               f"launches {got}")
         if got != want:
             raise AssertionError(f"small train {arch}: launched {got}, expected {want}")
-        if not (dloss <= 1e-4 and dparam <= 1e-4 and max(dstep) <= 1e-2 and share >= 0.99):
+        min_share = 0.98 if arch == "xlstm-125m" else 0.99
+        if not (dloss <= 1e-4 and dparam <= 1e-4 and max(dstep) <= 1e-2
+                and share >= min_share):
             raise AssertionError(f"small train {arch}: the card's run disagrees with the "
                                  f"CPU's (loss {dloss}, params {dparam}, steps {dstep}, "
                                  f"share {share})")
@@ -1407,12 +1590,13 @@ def _serve_main_path(args, model=None):
               f"group: {[round(x, 4) for x in cos]}")
         if len(drops) != cfg.num_layers or not all(0 <= x < 1 for x in drops):
             raise AssertionError(f"{cfg.name}: dropped shares {drops}")
-    if cfg.cross_attn_interval:
+    if cfg.cross_attn_interval or cfg.is_encdec:
         other = memory_stub(cfg, flags.batch, rng=np.random.default_rng(1))
         moved, _ = out["engine"].prefill(out["prompts"], other)
         diff = (moved - logits).abs().max().item()
-        print(f"[smoke] {cfg.name}: prefill logits with other image embeddings differ by max "
-              f"|d| = {diff:.3g} (cross gates {CROSS_GATE})")
+        print(f"[smoke] {cfg.name}: prefill logits with other "
+              + (f"image embeddings differ by max |d| = {diff:.3g} (cross gates {CROSS_GATE})"
+                 if cfg.cross_attn_interval else f"audio frames differ by max |d| = {diff:.3g}"))
         if not diff > 1e-3 * logits.abs().max().item():
             raise AssertionError(f"{cfg.name}: the logits do not depend on the memory ({diff})")
         del moved
@@ -1422,13 +1606,15 @@ def _serve_main_path(args, model=None):
     if tokens.shape != (flags.batch, flags.steps) or not (
             (tokens >= 0) & (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"generated tokens of shape {tokens.shape} out of range")
-    # One bf16 prefill: the bf16 route launches once per layer, the f32 route
+    # One bf16 prefill: the bf16 route launches once per attention layer (the
+    # encoder's attention and the ssm family's layers are plain), the f32 route
     # never; decode attention is plain.
-    if (counts["flash_attention_tc"] != cfg.num_layers or counts["flash_attention_f32"]
+    if (counts["flash_attention_tc"] != _attn_layers(cfg) or counts["flash_attention_f32"]
             or counts["flash_attention_tc_lse"]):
         raise AssertionError(f"flash_attention launched {counts} times, expected "
-                             f"{cfg.num_layers} on the bf16 route (one per layer of one "
-                             f"prefill) and none on the f32 route or the training kernel")
+                             f"{_attn_layers(cfg)} on the bf16 route (one per attention layer "
+                             f"of one prefill) and none on the f32 route or the training "
+                             f"kernel")
     del out, logits
     gc.collect()
     torch.cuda.empty_cache()
@@ -1553,25 +1739,26 @@ def _train_main_path():
     return counts
 
 
-def _olmoe_train_path(dev):
-    """OLMoE-1B-7B at full width cut to ``OLMOE_TRAIN_LAYERS`` layers, bf16,
-    remat, the launcher's Adam, batch 2 x 2048, 4 steps through
-    ``launch.train.main(model=)``, with the launch counters set to 0 just
-    before and read just after: each step one forward keeping the row
-    log-sum-exp per layer, twice with remat, and one bf16 backward per
-    layer. Losses and aux losses finite, the aux above 0."""
+def _lm_train_path(args, model=None, what: str = ""):
+    """``launch.train.main(args, model=model)`` in bf16 with remat (the full
+    config's), with the launch counters set to 0 just before and read just
+    after: each step one forward keeping the row log-sum-exp per attention
+    layer, twice with remat (the ssm family keeps its activations and has no
+    attention), and one bf16 backward per attention layer. Prints step
+    seconds, tokens/s, the share of the bf16 peak that 6 x active parameters
+    x tokens make (decoder tokens; an encoder-decoder's encoder adds more),
+    peak memory and the launches; losses (and an MoE's aux losses, above 0)
+    finite."""
     from repro_torch import configs
     from repro_torch.launch import train
-    from repro_torch.models import transformer
 
-    flags = train._parser().parse_args(OLMOE_TRAIN_ARGS)
-    cfg = configs.get_config(flags.arch, flags.variant, num_layers=OLMOE_TRAIN_LAYERS)
+    flags = train._parser().parse_args(args)
+    cfg = configs.get_config(flags.arch, flags.variant) if model is None else model.cfg
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = transformer.init_model(cfg, seed=0, device=dev)
     _reset_launches()
-    out = train.main(OLMOE_TRAIN_ARGS, model=model)
+    out = train.main(args, model=model)
     counts = _launches()
     peak = torch.cuda.max_memory_allocated()
     losses, auxes, secs = out["losses"], out["aux"], out["seconds"]
@@ -1579,23 +1766,26 @@ def _olmoe_train_path(dev):
     step_s = float(np.median(secs[1:]))
     tokens = flags.batch * flags.seq
     share = 6.0 * cfg.active_params() * tokens / step_s / BF16_FLOPS
-    per_step = {"flash_attention_tc_lse": cfg.num_layers * (2 if cfg.remat else 1),
-                "flash_attention_bwd": cfg.num_layers, "flash_attention_bwd_tc": cfg.num_layers,
+    layers = _attn_layers(cfg)
+    per_step = {"flash_attention_tc_lse": layers * (2 if cfg.remat else 1),
+                "flash_attention_bwd": layers, "flash_attention_bwd_tc": layers,
                 "flash_attention_bwd_f32": 0, "flash_attention_tc": 0,
                 "flash_attention_f32": 0}
     want = {name: n * flags.steps for name, n in per_step.items()}
     got = {name: counts[name] for name in want}
-    print(f"[smoke] path train {cfg.name} ({cfg.num_layers} of 16 layers) "
-          f"{' '.join(OLMOE_TRAIN_ARGS)}: {n_params / 1e9:.3f} B parameters "
-          f"({cfg.active_params() / 1e9:.3f} B active, {cfg.dtype}, remat={cfg.remat}); losses "
-          f"{[round(x, 4) for x in losses]}; aux {[round(x, 4) for x in auxes]}; step seconds "
-          f"{[round(x, 3) for x in secs]}; median of steps 1-{flags.steps - 1} {step_s:.3f} s, "
-          f"{tokens / step_s:.0f} tokens/s, {100 * share:.1f} % of the bf16 dense peak (6 x "
-          f"active parameters x tokens); peak memory {peak / 1e9:.2f} GB; flash launches {got} "
-          f"(expected {want}: {per_step} a step); card {_card_line()}")
+    print(f"[smoke] path train {cfg.name}{what} {' '.join(args)}: {n_params / 1e9:.3f} B "
+          f"parameters ({cfg.active_params() / 1e9:.3f} B active, {cfg.dtype}, "
+          f"remat={cfg.remat}); losses {[round(x, 4) for x in losses]}"
+          + (f"; aux {[round(x, 4) for x in auxes]}" if cfg.is_moe else "")
+          + f"; step seconds {[round(x, 3) for x in secs]}; median of steps "
+          f"1-{flags.steps - 1} {step_s:.3f} s, {tokens / step_s:.0f} tokens/s, "
+          f"{100 * share:.1f} % of the bf16 dense peak (6 x active parameters x tokens); "
+          f"peak memory {peak / 1e9:.2f} GB; flash launches {got} (expected {want}: "
+          f"{per_step} a step); card {_card_line()}")
     if not cfg.remat:
         raise AssertionError(f"{cfg.name}: expected remat on in the full config")
-    if not (all(math.isfinite(x) for x in losses + auxes) and all(a > 0 for a in auxes)):
+    if not (all(math.isfinite(x) for x in losses + auxes)
+            and (not cfg.is_moe or all(a > 0 for a in auxes))):
         raise AssertionError(f"{cfg.name} training: losses {losses}, aux {auxes}")
     if got != want:
         raise AssertionError(f"{cfg.name} train: launched {got}, expected {want}")
@@ -1603,6 +1793,33 @@ def _olmoe_train_path(dev):
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+def _olmoe_train_path(dev):
+    """OLMoE-1B-7B at full width cut to ``OLMOE_TRAIN_LAYERS`` layers, bf16,
+    remat, the launcher's Adam, batch 2 x 2048, 4 steps through
+    ``launch.train.main(model=)`` (``_lm_train_path``), aux above 0."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = configs.get_config("olmoe-1b-7b", "full", num_layers=OLMOE_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _lm_train_path(OLMOE_TRAIN_ARGS, transformer.init_model(cfg, seed=0, device=dev),
+                          f" ({cfg.num_layers} of 16 layers)")
+
+
+def _family_paths():
+    """Whisper-medium, Hymba-1.5B and xLSTM-125M at full width and depth,
+    each served through ``launch.serve.main`` and trained through
+    ``launch.train.main`` with random bf16 weights from seed 0."""
+    runs = []
+    for serve_args, train_args in ((WHISPER_SERVE_ARGS, WHISPER_TRAIN_ARGS),
+                                   (HYMBA_SERVE_ARGS, HYMBA_TRAIN_ARGS),
+                                   (XLSTM_SERVE_ARGS, XLSTM_TRAIN_ARGS)):
+        runs.append(_serve_main_path(serve_args))
+        runs.append(_lm_train_path(train_args))
+    return runs
 
 
 def _f32_train_path(dev):
@@ -1714,9 +1931,13 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     sage, sim = _check_sage(dev, gen), _check_sim(dev, gen)
     flash_tc, flash_f32 = _check_flash(dev, gen)
-    flash_tc["cases"] = _check_flash_d128(dev, gen)
+    flash_tc["cases"] = (_check_flash_cases(dev, gen, D128_CASES)
+                         + _check_flash_cases(dev, gen, D64_CASES))
     block = _check_sim_block(dev, gen)
     flash_lse, flash_bwd, flash_bwd_f32 = _check_flash_bwd(dev, gen)
+    fwd_cases, bwd_cases = _check_flash_train_cases(dev, gen, D64_TRAIN_CASES)
+    flash_lse["cases"] += fwd_cases
+    flash_bwd["cases"] += bwd_cases
     _check_small_run(dev)
     _check_small_serve(dev)
     _check_bf16_serve(dev)
@@ -1735,6 +1956,7 @@ def main() -> int:
     runs.append(_f32_train_path(dev))
     runs += _moe_vlm_serve_paths(dev)
     runs.append(_olmoe_train_path(dev))
+    runs += _family_paths()
     for entry, counter in ((sage, "sage_aggregate"), (sim, "sim_topk"),
                            (flash_tc, "flash_attention_tc"),
                            (flash_f32, "flash_attention_f32"), (block, "sim_block"),

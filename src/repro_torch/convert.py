@@ -20,7 +20,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.core.fedgl import FGLState
+from repro_torch.core.fedgl import FGLState, resolve_device
 from repro_torch.core.types import ClientBatch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer, group_size
@@ -46,9 +46,10 @@ def batch_to_torch(batch: Any, device) -> ClientBatch:
                        aug_max=int(batch.aug_max)).to(device)
 
 
-def state_from_reference(ref_state: Any, *, device="cpu", seed: int = 0) -> FGLState:
-    """The reference's host-fetched ``FGLState`` as this package's state."""
-    dev = torch.device(device)
+def state_from_reference(ref_state: Any, *, device="cuda", seed: int = 0) -> FGLState:
+    """The reference's host-fetched ``FGLState`` as this package's state.
+    Without a GPU this raises unless ``device="cpu"``."""
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return FGLState(params=tree_to_torch(ref_state.params, dev),
@@ -70,18 +71,23 @@ def _host(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def lm_params_from_jax(params: Any, cfg: ModelConfig, device="cpu") -> Transformer:
-    """The reference's LM pytree (as numpy) as this package's ``Transformer``.
+def lm_params_from_jax(params: Any, cfg: ModelConfig, device="cuda") -> Transformer:
+    """The reference's LM pytree (as numpy) as this package's ``Transformer``
+    on ``device`` (without a GPU this raises unless ``device="cpu"``).
 
     ``params["blocks"]`` is a tuple of ``group_size(cfg)`` group members whose
     leaves carry a leading ``[n_groups]`` axis; layer ``i`` is member
-    ``i % g`` at index ``i // g``. A vlm's ``params["cross_blocks"]`` leaves
-    carry the same leading axis: group ``i`` is ``cross_blocks.<i>``. Every
-    other key maps by name onto the module's parameters (``embed.tokens``,
-    ``final_norm.scale``, ``blocks.<i>.moe.router``, ...), and the load is
-    strict: a missing or unexpected leaf raises.
+    ``i % g`` at index ``i // g``. For the ssm family it is a list with one
+    unstacked tree per layer. A vlm's ``params["cross_blocks"]`` leaves carry
+    the groups' leading axis: group ``i`` is ``cross_blocks.<i>``; an
+    encoder-decoder's ``params["encoder"]["blocks"]`` leaves carry a leading
+    ``[encoder_layers]`` axis. Every other key maps by name onto the
+    module's parameters (``embed.tokens``, ``embed.positions``,
+    ``encoder.positions``, ``final_norm.scale``, ``blocks.<i>.moe.router``,
+    ...), and the load is strict: a missing or unexpected leaf raises.
     """
-    model = Transformer(cfg, device=device)
+    dev = resolve_device(device)
+    model = Transformer(cfg, device=dev)
     g = group_size(cfg)
     state = {}
 
@@ -95,10 +101,19 @@ def lm_params_from_jax(params: Any, cfg: ModelConfig, device="cpu") -> Transform
     put("embed.", params["embed"])
     put("final_norm.", params["final_norm"])
     for i in range(cfg.num_layers):
-        put(f"blocks.{i}.", params["blocks"][i % g], i // g)
+        if cfg.arch_type == "ssm":
+            put(f"blocks.{i}.", params["blocks"][i])
+        else:
+            put(f"blocks.{i}.", params["blocks"][i % g], i // g)
     if "cross_blocks" in params:
         for i in range(cfg.num_layers // g):
             put(f"cross_blocks.{i}.", params["cross_blocks"], i)
+    if "encoder" in params:
+        enc = params["encoder"]
+        state["encoder.positions"] = _host(enc["positions"])
+        put("encoder.final_norm.", enc["final_norm"])
+        for i in range(cfg.encoder_layers):
+            put(f"encoder.blocks.{i}.", enc["blocks"], i)
     model.load_state_dict(state, strict=True)
     return model
 
@@ -120,9 +135,11 @@ def lm_params_to_jax(model: Transformer) -> Dict[str, Any]:
     the parameters' dtype: ``embed`` and ``final_norm`` by name, and
     ``blocks`` a list of ``group_size(cfg)`` group members whose leaves stack
     the member's layers along a leading ``[n_groups]`` axis (layer ``i`` is
-    member ``i % g`` at index ``i // g``), and for a vlm ``cross_blocks``
-    whose leaves stack the groups' cross blocks. The inverse of
-    ``lm_params_from_jax``."""
+    member ``i % g`` at index ``i // g``), or for the ssm family one
+    unstacked tree per layer; for a vlm ``cross_blocks`` whose leaves stack
+    the groups' cross blocks; for an encoder-decoder ``encoder`` with its
+    ``positions``, ``final_norm`` and ``blocks`` stacked along
+    ``[encoder_layers]``. The inverse of ``lm_params_from_jax``."""
     cfg = model.cfg
     g = group_size(cfg)
     host = lambda mod: {n: t.detach().cpu() for n, t in mod.state_dict().items()}  # noqa: E731
@@ -130,7 +147,13 @@ def lm_params_to_jax(model: Transformer) -> Dict[str, Any]:
                                 for name in mods[0]})
     layers = [host(bp) for bp in model.blocks]
     out = {"embed": _nest(host(model.embed)), "final_norm": _nest(host(model.final_norm)),
-           "blocks": [stack(layers[m::g]) for m in range(g)]}
+           "blocks": ([_nest(layer) for layer in layers] if cfg.arch_type == "ssm" else
+                      [stack(layers[m::g]) for m in range(g)])}
     if cfg.cross_attn_interval:
         out["cross_blocks"] = stack([host(cp) for cp in model.cross_blocks])
+    if cfg.is_encdec:
+        enc = model.encoder
+        out["encoder"] = {"positions": enc.positions.detach().cpu(),
+                          "blocks": stack([host(bp) for bp in enc.blocks]),
+                          "final_norm": _nest(host(enc.final_norm))}
     return out

@@ -22,7 +22,11 @@ summed by kind of kernel (GEMMs, attention forward and backward, the rest).
 Where the run passes through MoE layers, each report also gives the device
 time of the kernels launched inside each of ``models.moe``'s ranges
 (``moe.router``: gates and top-k; ``moe.dispatch``; ``moe.experts``: the
-expert GEMMs and their activation; ``moe.combine``). The profiler's own
+expert GEMMs and their activation; ``moe.combine``); likewise the mamba
+scan (``ssm.scan``, ``ssm.step`` in decode), the xLSTM recurrences
+(``xlstm.mlstm``, ``xlstm.slstm``), the plain cross-attention
+(``attention.cross``: the vlm's and whisper's memory k/v and attention,
+and whisper's encoder self-attention) and whisper's ``encoder``. The profiler's own
 cost lengthens the windows, so a busy share is a lower bound. Needs a CUDA
 device.
 """
@@ -50,8 +54,9 @@ _KINDS = (("attention backward", ("flash_attention_bwd",)),
 
 
 # record_function ranges of the port's modules: their device time is that
-# of the kernels launched inside them, never a kernel of its own.
-_RANGES = ("moe.",)
+# of the kernels launched inside them, never a kernel of its own. The
+# encoder's range holds its self-attention's "attention.cross" ranges.
+_RANGES = ("moe.", "ssm.", "xlstm.", "attention.cross", "encoder")
 
 
 def _kind(name: str) -> str:

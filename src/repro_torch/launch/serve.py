@@ -8,9 +8,14 @@ The flags of ``repro.launch.serve`` plus ``--device {cuda,cpu}`` (default
 random, drawn on the device from seed 0; prompts come from
 ``numpy.random.default_rng(0)``, as in the reference. Prefill (through the
 CUDA ``flash_attention`` kernel) and the decode loop are timed separately,
-each clock reading after ``torch.cuda.synchronize()``. Dense, MoE and vlm
-architectures build; a vlm config attends to ``data.lm_data.memory_stub``'s
-image embeddings (seed 0), as the reference's launcher passes them.
+each clock reading after ``torch.cuda.synchronize()``. All ten configs of
+``repro_torch.configs`` build: dense (qwen3-4b, gemma3-12b,
+command-r-plus-104b, llama3-405b), MoE (olmoe-1b-7b, mixtral-8x7b), vlm
+(llama-3.2-vision-11b), audio (whisper-medium), hybrid (hymba-1.5b) and ssm
+(xlstm-125m). A vlm config attends to ``data.lm_data.memory_stub``'s image
+embeddings and whisper encodes its f32 frames (seed 0), as the reference's
+launcher passes them. A hybrid or ssm prompt is at most 128 tokens or a
+multiple of 128 (the chunkwise scans take whole chunks).
 ``--checkpoint`` loads the weights from an
 ``.npz`` of ``transformer.init_model`` parameters that the JAX package wrote
 (``repro.checkpoint.io.save``), through ``convert.lm_params_from_jax``.
@@ -57,7 +62,8 @@ def _sync(dev: torch.device) -> None:
 def setup(args: argparse.Namespace, model: Optional[transformer.Transformer] = None
           ) -> Tuple[ServeEngine, np.ndarray, Optional[np.ndarray], Optional[torch.Generator]]:
     """The engine with its random model on the device, the prompts, the
-    memory (image embeddings for a vlm config, else None) and the sampling
+    memory (image embeddings for a vlm config, audio frames for an
+    encoder-decoder config, else None) and the sampling
     generator (None when greedy), from the parsed flags; the kernels are
     built here, as set-up. ``model``: a model to serve (moved to the
     device), whose config, depth included, takes the place of

@@ -9,7 +9,11 @@ The flags of ``repro.launch.train`` (Adam with ``clip_norm=1.0`` and
 falling back), ``--microbatch`` (gradient accumulation over chunks of the
 batch) and ``--remat/--no-remat`` (override the config's per-layer
 recompute). Weights are random, drawn on the device from seed 0; tokens
-come from ``data.lm_data.token_batches`` (seed 0). Each step is timed on the
+come from ``data.lm_data.token_batches`` (seed 0), with a vlm's image
+embeddings or whisper's audio frames. Every config of ``repro_torch.configs``
+trains (the ten of ``launch.serve``); the default, ``--arch xlstm-125m
+--variant smoke``, runs on the CPU with ``--device cpu``. A hybrid or ssm
+``--seq`` is at most 128 or a multiple of 128. Each step is timed on the
 host clock, ending in ``torch.cuda.synchronize()``. ``--checkpoint`` writes
 the final parameters in the reference's layout (stacked layer groups,
 ``convert.lm_params_to_jax``), which ``repro.checkpoint.io.restore`` and

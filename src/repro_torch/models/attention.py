@@ -10,7 +10,9 @@ stay plain PyTorch, as the reference's are plain jnp.
 Sliding-window layers keep a ring-buffer cache of ``window`` entries; global
 layers keep the full-sequence cache. window == 0 means global.
 
-Not ported yet: ``_sdpa_chunked`` (ROADMAP.md, queue 1, item 9).
+Not ported: ``_sdpa_chunked``, reached only through the reference's
+``attention_impl="chunked"``, which the port has no counterpart of
+(ROADMAP.md, queue 1, item 9(e)).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
@@ -64,24 +67,15 @@ def _bias(t: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
     return t if b is None else t + b
 
 
-def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the promoted type of the two, as jnp promotes: f32 image
-    memory against bf16 weights is an f32 product."""
-    if x.dtype == w.dtype:
-        return x @ w
-    dt = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dt) @ w.to(dt)
-
-
 def _project_qkv(p: Attention, x: torch.Tensor, xkv: torch.Tensor, num_heads: int,
                  num_kv_heads: int, head_dim: int, qk_norm: bool):
     """q [B, Hq, S, D], k and v [B, Hkv, Skv, D]; k and v in the promoted
     type of xkv and the weights."""
     b, s = x.shape[0], x.shape[1]
     skv = xkv.shape[1]
-    q = _bias(_dot(x, p.wq), p.bq).reshape(b, s, num_heads, head_dim).transpose(1, 2)
-    k = _bias(_dot(xkv, p.wk), p.bk).reshape(b, skv, num_kv_heads, head_dim).transpose(1, 2)
-    v = _bias(_dot(xkv, p.wv), p.bv).reshape(b, skv, num_kv_heads, head_dim).transpose(1, 2)
+    q = _bias(L.dot(x, p.wq), p.bq).reshape(b, s, num_heads, head_dim).transpose(1, 2)
+    k = _bias(L.dot(xkv, p.wk), p.bk).reshape(b, skv, num_kv_heads, head_dim).transpose(1, 2)
+    v = _bias(L.dot(xkv, p.wv), p.bv).reshape(b, skv, num_kv_heads, head_dim).transpose(1, 2)
     if qk_norm:
         q = L.rms_head_norm(p.q_norm, q)
         k = L.rms_head_norm(p.k_norm, k)
@@ -131,17 +125,20 @@ def self_attention_kv(p: Attention, x: torch.Tensor, *, num_heads: int,
         q = L.apply_rope(q, pos, rope_theta)
         k = L.apply_rope(k, pos, rope_theta)
     out = kops.mha(q, k, v, causal=True, window=int(window) or None)
-    return _bias(_merge_heads(out) @ p.wo, p.bo), k, v
+    return _bias(L.dot(_merge_heads(out), p.wo), p.bo), k, v
 
 
 def cross_attention(p: Attention, x: torch.Tensor, memory: torch.Tensor, *,
                     num_heads: int, num_kv_heads: int, head_dim: int,
                     qk_norm: bool = False) -> torch.Tensor:
     """Non-causal attention of x [B, S, d] over memory [B, T, d]: q from x,
-    k and v from memory, plain ``_sdpa`` (f32 math, output in q's type)."""
-    q, k, v = _project_qkv(p, x, memory, num_heads, num_kv_heads, head_dim, qk_norm)
-    out = _sdpa(q, k, v, causal=False, window=0)
-    return _bias(_merge_heads(out) @ p.wo, p.bo)
+    k and v from memory, plain ``_sdpa`` (f32 math, output in q's type).
+    With ``memory`` x itself, the whisper encoder's self-attention. Runs
+    under the profiler range ``attention.cross`` (``launch/profile.py``)."""
+    with record_function("attention.cross"):
+        q, k, v = _project_qkv(p, x, memory, num_heads, num_kv_heads, head_dim, qk_norm)
+        out = _sdpa(q, k, v, causal=False, window=0)
+        return _bias(L.dot(_merge_heads(out), p.wo), p.bo)
 
 
 # ---------------------------------------------------------------------------
@@ -190,4 +187,4 @@ def decode_self_attention(p: Attention, x: torch.Tensor, cache: Dict[str, torch.
     probs = torch.softmax(logits, dim=-1)
     out = (probs @ cv[:, :, None, :n].float()).to(x.dtype)
     out = out.reshape(b, num_heads, 1, head_dim)
-    return _bias(_merge_heads(out) @ p.wo, p.bo), cache
+    return _bias(L.dot(_merge_heads(out), p.wo), p.bo), cache

@@ -36,6 +36,15 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted type of the two, as jnp promotes: f32 frames
+    or image memory against bf16 weights is an f32 product."""
+    if x.dtype == w.dtype:
+        return x @ w
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -126,14 +135,14 @@ class MLP(nn.Module):
                 b.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        up = x @ self.w_up
+        up = dot(x, self.w_up)
         if self.b_up is not None:
             up = up + self.b_up
         if self.act == "silu":
-            up = F.silu(x @ self.w_gate) * up
+            up = F.silu(dot(x, self.w_gate)) * up
         else:
             up = F.gelu(up, approximate="tanh")    # jax.nn.gelu's default
-        out = up @ self.w_down
+        out = dot(up, self.w_down)
         if self.b_down is not None:
             out = out + self.b_down
         return out

@@ -4,7 +4,8 @@ Counterpart of ``repro.serve.engine``. Requests share one prompt length;
 generation is ``prefill`` followed by a Python loop of ``decode_step`` (the
 reference's ``lax.scan``), all under ``torch.inference_mode``. A vlm
 config's image memory goes into the cache at prefill; an audio
-(encoder-decoder) config's memory needs the encoder, not ported yet. Sampling
+(encoder-decoder) config's frames are encoded once at prefill, and the
+encoder's output goes into the cache. Sampling
 draws from an explicit ``torch.Generator``, so its tokens differ from the
 reference's ``jax.random`` stream; greedy tokens do not.
 """
@@ -32,12 +33,9 @@ class ServeEngine:
     @torch.inference_mode()
     def prefill(self, prompts, memory=None) -> Tuple[torch.Tensor, decoding.Cache]:
         """prompts [B, S] (numpy or tensor) -> (last logits [B, V] f32, cache).
-        ``memory``: image embeddings [B, T, d] (numpy or tensor) for a vlm
-        config, moved to the device in their own dtype."""
-        if memory is not None and self.model.cfg.is_encdec:
-            raise NotImplementedError("memory of an encoder-decoder (audio) config needs the "
-                                      "encoder, not ported yet (ROADMAP.md, queue 1, item "
-                                      "9(b))")
+        ``memory``: image embeddings [B, T, d] for a vlm config, or audio
+        frames [B, T, d] for an encoder-decoder config (numpy or tensor),
+        moved to the device in their own dtype."""
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)
         if memory is not None:
             memory = torch.as_tensor(memory, device=self.device)

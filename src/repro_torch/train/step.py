@@ -2,8 +2,9 @@
 
 Counterpart of ``repro.train.step``. ``make_train_step(cfg, optimizer)``
 returns ``step(state, batch) -> (state, metrics)``; ``batch`` is
-``{"tokens": [B, S]}``, plus ``"memory"`` [B, T, d] for a vlm config (a
-tensor on the model's device, or numpy). The loss is the next-token
+``{"tokens": [B, S]}``, plus ``"memory"`` [B, T, d] for a vlm config's
+image embeddings or an encoder-decoder config's audio frames (a tensor on
+the model's device, or numpy). The loss is the next-token
 cross-entropy plus ``aux_weight`` times the MoE aux loss (0 for dense
 models).
 

@@ -70,14 +70,14 @@ class TestClassifier:
         b = jstate.batch
         want = jax.vmap(lambda p, x, a, m: jgnn.apply_sage(p, x, a, m))(
             jstate.params, b.x, b.adj, b.node_mask)
-        ps = convert.state_from_reference(_host(jstate))
+        ps = convert.state_from_reference(_host(jstate), device="cpu")
         got = pgnn.apply_sage(ps.params, ps.batch.x, ps.batch.adj, ps.batch.node_mask)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=OP_TOL)
 
     def test_client_loss_and_grads(self, spread_pair):
         jtr, ptr, jstate = spread_pair
         jl, jg = jax.value_and_grad(jtr._client_loss)(jstate.params, jstate.batch)
-        ps = convert.state_from_reference(_host(jstate))
+        ps = convert.state_from_reference(_host(jstate), device="cpu")
         pl = ptr._client_loss(ps.params, ps.batch)
         pg = pfedgl._grad(lambda p: ptr._client_loss(p, ps.batch), ps.params)
         np.testing.assert_allclose(float(pl), float(jl), atol=OP_TOL)
@@ -86,7 +86,7 @@ class TestClassifier:
 
 def _round_parity(jtr, ptr, jstate):
     """One imputation round through server_outputs + impute, both packages."""
-    ps = convert.state_from_reference(_host(jstate))
+    ps = convert.state_from_reference(_host(jstate), device="cpu")
     noise = _jax_noise(jtr, jstate)
     (jae, jaeo, jas, jaso, js, ji, jx), _ = jtr.imputation.server_outputs(jtr, jstate)
     pae, paeo, pas, paso, pscores, pidx, px = ptr.imputation.server_outputs(
@@ -126,7 +126,7 @@ class TestImputationRound:
     def test_batched_round_equals_per_server_loop(self, spread_pair):
         """The [N]-batched round equals running the servers one at a time."""
         jtr, ptr, jstate = spread_pair
-        ps = convert.state_from_reference(_host(jstate))
+        ps = convert.state_from_reference(_host(jstate), device="cpu")
         noise = _jax_noise(jtr, jstate)
         a = ptr.imputation.impute(ptr, ps, noise=noise)
         b = ptr.imputation.impute_reference(ptr, ps, noise=noise)
@@ -144,7 +144,7 @@ class TestFit:
         jb, pb, kw = BUILDS[method]
         jtr, ptr = jb(cfg, batch, **kw), pb(cfg, batch, device="cpu", **kw)
         jstate = jtr.init(jax.random.key(0), batch)
-        pstate = convert.state_from_reference(_host(jstate))
+        pstate = convert.state_from_reference(_host(jstate), device="cpu")
         # The reference's S for each imputation round, replayed from its key.
         noises, st = {}, jstate
         for r in range(3):

@@ -3,8 +3,8 @@
 - Every ``repro_torch`` module and ``chip_smoke.py`` import with ``jax``
   blocked, and none of their sources imports ``jax`` or the ``repro``
   package.
-- The trainer and the launchers (FGL training, LM training) raise without
-  CUDA unless told to use the CPU.
+- The trainer, the launchers (FGL training, LM training) and the builders of
+  LM weights and FGL state raise without CUDA unless told to use the CPU.
 - Only what needs several devices (the edge mesh) still raises.
 """
 import ast
@@ -15,12 +15,14 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import configs, convert
 from repro_torch.core.partition import partition_graph
 from repro_torch.core.spreadfgl import make_fedgl, make_spreadfgl_gossip
 from repro_torch.core.types import FGLConfig
 from repro_torch.data.synthetic_graphs import DATASETS, make_sbm_graph
 from repro_torch.launch import fgl_train
 from repro_torch.launch import train as lm_train
+from repro_torch.models import transformer
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -95,6 +97,21 @@ def test_lm_train_launcher_defaults_to_cuda():
     out = lm_train.main(["--arch", "qwen3-4b", "--device", "cpu", "--steps", "1", "--batch",
                          "2", "--seq", "16"])
     assert out["state"].params.embed.tokens.device.type == "cpu"
+
+
+def test_lm_builders_default_to_cuda():
+    """``transformer.init_model``, ``convert.lm_params_from_jax`` and
+    ``convert.state_from_reference`` build on the card unless told
+    ``device="cpu"``: without one they raise before reading their inputs."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    cfg = configs.get_config("qwen3-4b", "smoke")
+    for build in (lambda: transformer.init_model(cfg),
+                  lambda: convert.lm_params_from_jax({}, cfg),
+                  lambda: convert.state_from_reference(None)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    assert transformer.init_model(cfg, device="cpu").embed.tokens.device.type == "cpu"
 
 
 def test_train_modules_are_covered():

@@ -202,7 +202,7 @@ def test_init_matches_reference_scales(pair):
     of fewer than 6400 elements (the MoE routers, [128, 4]) within
     4 / sqrt(n), four standard errors of the two samples' ratio."""
     jcfg, params, pcfg, ref_model = pair
-    model = ptr.init_model(pcfg, seed=1)
+    model = ptr.init_model(pcfg, seed=1, device="cpu")
     block = ptr.init_block(torch.Generator().manual_seed(2), pcfg, "attn")
     attn = pattn.init_attention(torch.Generator().manual_seed(3), pcfg.d_model,
                                 pcfg.num_heads, pcfg.num_kv_heads, pcfg.head_dim,
@@ -316,7 +316,7 @@ def test_convert_round_trip(pair):
     assert sorted(jax.tree_util.keystr(p) for p, _ in got) == sorted(want)
     for path, leaf in got:
         np.testing.assert_array_equal(leaf, np.asarray(want[jax.tree_util.keystr(path)]))
-    back = lm_params_from_jax(lm_params_to_jax(model), pcfg).state_dict()
+    back = lm_params_from_jax(lm_params_to_jax(model), pcfg, "cpu").state_dict()
     for name, t in model.state_dict().items():
         assert torch.equal(back[name], t), name
 
@@ -324,7 +324,7 @@ def test_convert_round_trip(pair):
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
 def test_moe_blocks_hold_experts(arch):
     """An MoE config's blocks hold ``moe`` (router f32) and no ``mlp``."""
-    model = ptr.init_model(pconfigs.get_config(arch, "smoke", dtype="bfloat16"))
+    model = ptr.init_model(pconfigs.get_config(arch, "smoke", dtype="bfloat16"), device="cpu")
     for bp in model.blocks:
         assert not hasattr(bp, "mlp") and bp.moe.router.dtype == torch.float32
         assert bp.moe.w_up.dtype == torch.bfloat16
@@ -342,7 +342,7 @@ def test_olmoe_drop_shares_by_layer_match_reference(monkeypatch, capsys):
                 remat=False)
     pcfg = pconfigs.get_config("olmoe-1b-7b", "full", **over)
     jcfg = jconfigs.get_config("olmoe-1b-7b", "full", scan_layers=False, **over)
-    model = ptr.init_model(pcfg, seed=0)
+    model = ptr.init_model(pcfg, seed=0, device="cpu")
     params = jax.tree.map(jnp.asarray, lm_params_to_jax(model))
     tok = _tokens(pcfg, 2, 512)
     want, cos, apply_moe = [], [], jmoe.apply_moe
@@ -386,7 +386,8 @@ def test_vlm_logits_depend_on_memory(pair):
     a, _ = ptr.forward(model, _t(tok), memory=p1)
     b, _ = ptr.forward(model, _t(tok), memory=p2)
     assert (a - b).abs().max() > 1e-3
-    closed = lm_params_from_jax(jax.tree.map(np.asarray, _with_gates(params, 0.0)), pcfg)
+    closed = lm_params_from_jax(jax.tree.map(np.asarray, _with_gates(params, 0.0)), pcfg,
+                               "cpu")
     a, _ = ptr.forward(closed, _t(tok), memory=p1)
     b, _ = ptr.forward(closed, _t(tok), memory=p2)
     assert torch.equal(a, b)
@@ -396,21 +397,17 @@ def test_vlm_logits_depend_on_memory(pair):
         ptr.forward(model, _t(tok))
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1.5b", "whisper-medium"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptr.init_model(pconfigs.get_config(arch, "smoke"))
-
-
-def test_encdec_memory_raises():
-    """Serving with the memory of an encoder-decoder (audio) config needs its
-    encoder: ``generate(memory=)`` raises naming ROADMAP.md's item 9(b)."""
-    model = ptr.init_model(pconfigs.get_config("qwen3-4b", "smoke"))
-    model.cfg = pconfigs.get_config("whisper-medium", "smoke")
-    tok = _tokens(model.cfg, 1, 8)
-    mem = np.zeros((1, model.cfg.encoder_seq, model.cfg.d_model), np.float32)
-    with pytest.raises(NotImplementedError, match=r"item 9\(b\)"):
-        PServeEngine(model, max_len=32).generate(tok, steps=2, memory=mem)
+@pytest.mark.parametrize("arch", pconfigs.ARCH_IDS)
+def test_every_config_builds(arch):
+    """Each of the ten configs builds at its smoke size, and its forward gives
+    finite logits (with memory_stub's image embeddings or frames)."""
+    cfg = pconfigs.get_config(arch, "smoke")
+    model = ptr.init_model(cfg, device="cpu")
+    mem = pdata.memory_stub(cfg, 2)
+    with torch.no_grad():
+        logits, _ = ptr.forward(model, _t(_tokens(cfg, 2, 16)).long(),
+                                memory=None if mem is None else _t(mem))
+    assert logits.shape == (2, 16, cfg.vocab_size) and torch.isfinite(logits).all()
 
 
 def test_configs_copy_the_reference():

@@ -1,9 +1,10 @@
 """Parity of the port's LM training path with the JAX package.
 
 At the qwen3-4b and gemma3-12b smoke configs (f32; gemma's first layer has
-a 64-token window), and at the olmoe-1b-7b, mixtral-8x7b (MoE, with the
-aux loss in the total) and llama-3.2-vision-11b ones (its cross-block gates
-set to 0.5, and ``token_batches``' image memory), the reference's
+a 64-token window), at the olmoe-1b-7b, mixtral-8x7b (MoE, with the aux
+loss in the total) and llama-3.2-vision-11b ones (its cross-block gates set
+to 0.5, and ``token_batches``' image memory), and at the whisper-medium
+(its frames), hymba-1.5b and xlstm-125m ones, the reference's
 ``transformer.init_model`` weights are
 carried into the port by ``convert.lm_params_from_jax`` and the same
 ``token_batches`` tokens go through both packages on the CPU, where the
@@ -40,6 +41,8 @@ from torch_parity import log_drops
 
 ARCHS = ("qwen3-4b", "gemma3-12b")
 NEW_ARCHS = ("olmoe-1b-7b", "mixtral-8x7b", "llama-3.2-vision-11b")
+# The audio, hybrid and ssm families (whisper's batches carry its frames).
+FAMILY_ARCHS = ("whisper-medium", "hymba-1.5b", "xlstm-125m")
 
 
 def _close(got, want, tol):
@@ -54,7 +57,8 @@ def _pair(arch, **overrides):
         params = dict(params, cross_blocks=dict(
             params["cross_blocks"], gate=jnp.full_like(params["cross_blocks"]["gate"], 0.5)))
     pcfg = pconfigs.get_config(arch, "smoke", **overrides)
-    return jcfg, params, pcfg, lm_params_from_jax(jax.tree.map(np.asarray, params), pcfg)
+    return jcfg, params, pcfg, lm_params_from_jax(jax.tree.map(np.asarray, params), pcfg,
+                                                  "cpu")
 
 
 def _jbatch(batch):
@@ -107,9 +111,13 @@ def _kept(grads, kept=None, adam=True):
     of 0 its sign, and the move, may differ between the packages; an exact 0
     (an embedding row no token uses, an expert no token reached) is 0 in
     both. SGD moves a parameter by lr times its gradient, so without
-    ``adam`` every element is kept."""
-    new = {name: (np.abs(g) >= 1e-5 * np.abs(g).max()) | (g == 0) | (not adam)
-           for name, g in grads.items()}
+    ``adam`` every element is kept. An attention key bias (whisper's
+    ``bk``) is left out under either: its gradient is 0 in exact arithmetic
+    (q . bk shifts all of a query's logits alike, which the softmax
+    ignores), so both packages' values are rounding noise, and so are the
+    steps it drives (its final value is still held, at 1e-4)."""
+    new = {name: ((np.abs(g) >= 1e-5 * np.abs(g).max()) | (g == 0) | (not adam))
+           & (not name.endswith("['bk']")) for name, g in grads.items()}
     return new if kept is None else {name: kept[name] & new[name] for name in new}
 
 
@@ -182,7 +190,7 @@ class TestOptimHelpers:
         assert torch.equal(new["a"], params["a"]) and torch.equal(new_state.mu["a"], state.mu["a"])
 
 
-@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS + FAMILY_ARCHS)
 def test_loss_and_grads_match(arch):
     jcfg, params, pcfg, model = _pair(arch)
     batch = _batches(jcfg, 1)[0]
@@ -205,22 +213,26 @@ RUNS = [("adam_clip_cosine", False, 1), ("adam_clip_cosine", True, 1),
         ("adamw", False, 2), ("sgd_momentum", True, 2)]
 
 
-def _optimizer(m, kind):
+def _optimizer(m, kind, arch=""):
     """At the launcher's lr 3e-4: Adam's first steps move each parameter by
     about lr whatever its gradient's size, so a gradient within f32 rounding
-    of 0 moves it by up to 2 lr between the packages (``_kept``)."""
+    of 0 moves it by up to 2 lr between the packages (``_kept``). SGD with
+    momentum at lr 0.3, or 0.1 for xlstm: at 0.3 its loss rises step by
+    step in both packages (6.08, 6.36, 6.88) and the step-0 gradients'
+    5e-6 difference grows ~30x a step, as between any two f32 orders of
+    the same sums; at 0.1 it falls back (6.08, 6.16, 6.13)."""
     if kind == "adam_clip_cosine":
         return m.Adam(lr=3e-4, clip_norm=1.0, schedule=m.cosine_schedule(1, 3))
     if kind == "adamw":
         return m.Adam(lr=3e-4, weight_decay=0.1)
-    return m.SGD(lr=0.3, momentum=0.9)
+    return m.SGD(lr=0.1 if arch == "xlstm-125m" else 0.3, momentum=0.9)
 
 
 @pytest.mark.parametrize("kind,remat,microbatch", RUNS)
-@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS + FAMILY_ARCHS)
 def test_three_steps_match(arch, kind, remat, microbatch):
     jcfg, params, pcfg, model = _pair(arch, remat=remat)
-    jopt, popt = _optimizer(jadam, kind), _optimizer(padam, kind)
+    jopt, popt = _optimizer(jadam, kind, arch), _optimizer(padam, kind, arch)
     jfn = jax.jit(jstep.make_train_step(jcfg, jopt, microbatch=microbatch))
     jstate = jstep.TrainState(params=params, opt_state=jopt.init(params),
                               step=jnp.zeros((), jnp.int32))
@@ -240,7 +252,11 @@ def test_three_steps_match(arch, kind, remat, microbatch):
         _assert_updates_close(i, ours, new_ours, theirs, new_theirs, kept)
         ours, theirs = new_ours, new_theirs
     share = sum(k.sum() for k in kept.values()) / sum(k.size for k in kept.values())
-    assert share >= 0.99, share               # the elements left out stay few
+    # The elements left out stay few. xlstm's tied 512 x 128 table is 16 % of
+    # its parameters, and the rows of tokens no batch holds get only the
+    # softmax's gradient, below 1e-5 of the leaf's largest: 5 % of the
+    # table, so 98.99 % of its elements are kept.
+    assert share >= (0.98 if arch == "xlstm-125m" else 0.99), share
     assert int(pstate.step) == int(jstate.step) == 3
     _assert_params_close(pstate.params, jstate.params, 1e-4)
 
@@ -252,7 +268,7 @@ def test_remat_changes_nothing_but_memory():
     grads = {}
     for remat in (False, True):
         cfg = pconfigs.get_config("gemma3-12b", "smoke", remat=remat)
-        model = ptr.init_model(cfg, seed=3)
+        model = ptr.init_model(cfg, seed=3, device="cpu")
         state = pstep.init_state(cfg, padam.Adam(), model=model)
         calls = []
         fwd = pfa.FlashAttention.forward
@@ -277,7 +293,7 @@ def test_moe_remat_routes_the_same_tokens(monkeypatch, cf):
     out = {}
     for remat in (False, True):
         cfg = pconfigs.get_config("olmoe-1b-7b", "smoke", remat=remat, capacity_factor=cf)
-        model = ptr.init_model(cfg, seed=3)
+        model = ptr.init_model(cfg, seed=3, device="cpu")
         state = pstep.init_state(cfg, padam.Adam(), model=model)
         batch = _batches(cfg, 1, batch=2)[0]
         logged = log_drops(monkeypatch, cf)
@@ -298,11 +314,13 @@ def test_moe_remat_routes_the_same_tokens(monkeypatch, cf):
     assert (g1["blocks.0.moe.router"] - g_plain).abs().max() > 1e-6
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + FAMILY_ARCHS)
 def test_checkpoint_of_moe_and_vlm_restores_in_the_reference(tmp_path, arch):
-    """As below, for the MoE and vlm configs: the experts and the stacked
-    cross blocks restore into ``init_model``'s template, and the JAX forward
-    of the restored weights (with the same memory) gives the port's logits."""
+    """As below, for the MoE, vlm, audio, hybrid and ssm configs: the
+    experts, the stacked cross blocks, the encoder and its positions and the
+    ssm family's per-layer list restore into ``init_model``'s template, and
+    the JAX forward of the restored weights (with the same memory) gives the
+    port's logits."""
     path = tmp_path / "params.npz"
     out = ptrain.main(["--device", "cpu", "--arch", arch, "--steps", "2", "--batch",
                        "2", "--seq", "64", "--checkpoint", str(path)])

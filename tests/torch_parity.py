@@ -1,5 +1,8 @@
-"""Helpers shared by the port's parity tests (tests/test_torch_*.py)."""
+"""Helpers shared by the port's parity tests (tests/test_torch_*.py). JAX is
+imported only inside the helpers that need it: the CUDA tests import this
+module on a machine without JAX."""
 import numpy as np
+import torch
 
 # A JAX (XLA) dot and a torch dot of the same f32 vectors may sum in other
 # orders and differ by a few ulps, so two candidates whose scores are closer
@@ -73,3 +76,43 @@ def log_drops(monkeypatch, capacity_factor):
 
     monkeypatch.setattr(moe, "slot_positions", logged)
     return log
+
+
+def assert_init_like(got: dict, want: dict) -> None:
+    """A port ``init_model``'s state dict against the reference's weights
+    carried across (``want``): the same names, shapes and dtypes; leaves the
+    reference fills with one value (ones, zeros) or a fixed vector (mamba's
+    ``a_log``, the sLSTM's ``b_in``, learned positions excepted) equal to
+    1e-6; truncated normals whose std is within 5 % of the reference's draw,
+    or for a leaf of fewer than 6400 elements within 4 / sqrt(n), four
+    standard errors of the two samples' ratio."""
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        g = got[name]
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        leaf = name.rsplit(".", 1)[-1]
+        if torch.all(w == w.flatten()[0]) or leaf in ("a_log", "b_in"):
+            np.testing.assert_allclose(g.float().numpy(), w.float().numpy(), rtol=1e-6,
+                                       atol=1e-6, err_msg=name)
+        else:
+            tol = max(0.05, 4 / w.numel() ** 0.5)
+            assert abs(g.float().std().item() / w.float().std().item() - 1) < tol, name
+
+
+def assert_round_trip(model, params) -> None:
+    """``convert.lm_params_to_jax(model)`` gives the reference's tree
+    ``params`` back leaf for leaf, and ``lm_params_from_jax`` of it the same
+    model."""
+    import jax
+
+    from repro_torch.convert import lm_params_from_jax, lm_params_to_jax
+    got = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t.numpy(), lm_params_to_jax(model)))[0]
+    want = {jax.tree_util.keystr(p): leaf
+            for p, leaf in jax.tree_util.tree_flatten_with_path(params)[0]}
+    assert sorted(jax.tree_util.keystr(p) for p, _ in got) == sorted(want)
+    for path, leaf in got:
+        np.testing.assert_array_equal(leaf, np.asarray(want[jax.tree_util.keystr(path)]))
+    back = lm_params_from_jax(lm_params_to_jax(model), model.cfg, "cpu").state_dict()
+    for name, t in model.state_dict().items():
+        assert torch.equal(back[name], t), name
