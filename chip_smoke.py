@@ -18,7 +18,10 @@ Phases (any failure raises, and the script exits non-zero):
    one f32 pass on the CUDA cores.
    ``sim_topk`` is checked at shapes that cross its split of the candidate
    axis and timed at SpreadFGL's, against the bound of the full gram and
-   that of the cross-client pairs the data needs. ``sim_block``, which no
+   that of the cross-client pairs the data needs, and its general form as
+   the ring top-k folds it: the candidate axis in 2, 3 and 4 slabs, each
+   query shard folded over every slab with its running list, bit for bit
+   the one-call kernel, one fold timed per slab count. ``sim_block``, which no
    path calls, is checked and timed at the Coauthor-CS server's gram.
    ``flash_attention``'s backward has two routes too, both on the tensor
    cores: bf16, and f32 by three TF32 passes. Each is held against its plain
@@ -81,6 +84,13 @@ Phases (any failure raises, and the script exits non-zero):
    patched in. Through ``repro_torch.launch.train.main``, Qwen3-4B at full
    width and depth training in bf16 with remat, batch 2 x 2048 tokens, 6
    steps: 72 forward and 36 backward attention launches a step, all bf16.
+   Then the distributed edge layer: the SpreadFGL main path's flags with
+   ``--edge-mesh --sim-shard`` in this process (size-1 meshes), bit for bit
+   the plain run; the same and ``--gossip-every 2`` on 3 gloo ranks sharing
+   the card (``launch.mesh.spawn``), every rank within 1e-4 a round, its
+   launches counted in the rank; ``launch.edge_mesh --devices 3``; and
+   ``launch.train --aggregation spread --pods 2`` on Qwen3-4B at full width
+   cut to 8 layers, 4 steps, the pods' mean held by every gossip exchange.
    Through ``repro_torch.train.step``, the same model in float32 (remat, the
    launcher's Adam), batch 2 x 2048, 4 steps: 72 f32 forward and 36 f32
    backward launches a step, none bf16. Through ``launch.serve.main``, bf16
@@ -150,6 +160,21 @@ ENGINE_RUNS = (("fedsage_plus", ["--method", "fedsage_plus"], 2),   # (what, fla
                                     "--dropout-rate", "0.1"], 3),
                ("spreadfgl_gossip", ["--gossip-every", "2"], 3))
 ENGINE_KINDS = ("gcn", "gat")
+# The distributed edge layer: the ring top-k's slab counts at the Coauthor-CS
+# imputation shape; the edge and sim meshes on the main path's flags, in this
+# process (size-1 meshes) and on EDGE_RANKS gloo ranks sharing the card, one
+# server each; the edge-mesh launcher at its own size (cora at scale 0.15);
+# spread LM training of Qwen3-4B at full width cut to SPREAD_LAYERS layers,
+# two pods sharing the card, each with the main training path's 2 x 2048.
+RING_SLABS = (2, 3, 4)
+EDGE_FLAGS = ["--edge-mesh", "--sim-shard"]
+EDGE_RANKS = 3
+EDGE_MESH_ARGS = ["--servers", "3", "--clients", "6", "--rounds", "2", "--sim-shard"]
+SPREAD_LAYERS = 8
+SPREAD_TRAIN_ARGS = ["--arch", "qwen3-4b", "--variant", "full", "--batch", "4", "--seq",
+                     "2048", "--steps", "4", "--lr", "3e-4", "--log-every", "1",
+                     "--aggregation", "spread", "--pods", "2", "--gossip-every", "2",
+                     "--layers", str(SPREAD_LAYERS)]
 SERVE_ARGS = ["--arch", "qwen3-4b", "--variant", "full", "--batch", "8",
               "--prompt-len", "2048", "--steps", "64"]
 TRAIN_ARGS = ["--arch", "qwen3-4b", "--variant", "full", "--batch", "2", "--seq", "2048",
@@ -485,16 +510,22 @@ def _topk_err(h, vals, idx, rvals, ridx):
     return err, gap, len(diff)
 
 
+def _sim_inputs(gen, dev, nb, n, n_pad, c, n_local):
+    """Class-probability rows, the client of each flat slot (slot // n_pad),
+    95 % of each client's first n_local slots targets."""
+    h = torch.softmax(3 * torch.randn((nb, n, c), generator=gen, device=dev), -1)
+    slot = torch.arange(n, device=dev)
+    cid = (slot // n_pad).to(torch.int32)            # client of each flat slot
+    node = (torch.rand((nb, n), generator=gen, device=dev) < 0.95).float()
+    return h, cid, node * ((slot % n_pad) < n_local).float()
+
+
 def _check_sim(dev, gen):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import sim_topk as ksim
 
-    def inputs(nb, n, n_pad, c, n_local):
-        h = torch.softmax(3 * torch.randn((nb, n, c), generator=gen, device=dev), -1)
-        slot = torch.arange(n, device=dev)
-        cid = (slot // n_pad).to(torch.int32)            # client of each flat slot
-        node = (torch.rand((nb, n), generator=gen, device=dev) < 0.95).float()
-        return h, cid, node * ((slot % n_pad) < n_local).float()
+    def inputs(*shape):
+        return _sim_inputs(gen, dev, *shape)
 
     k = 4
     # Ragged with shifted indices; a shape whose candidate axis the kernel
@@ -552,6 +583,88 @@ def _check_sim(dev, gen):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "bound_full_gram_ms": full_ms, "chunks": chunks,
             "shape": f"[{nb},{n},{c}] k={k}"}
+
+
+def _check_sim_ring(dev, gen):
+    """The ring top-k's folds at Coauthor-CS's imputation shape [3, 12246, 15],
+    k = 4: the candidate axis in 2, 3 and 4 slabs, each query shard folded
+    over every slab in ring order (``core.ring_topk.fold_slab``, the
+    kernel's general form with a running list), as the ranks of a mesh would,
+    in one process. Bit for bit the one-call kernel's result, and the plain
+    version's under the tie rule. One fold timed at each slab count against
+    its plain version, the library's ``bmm`` + mask + ``topk`` on the slab
+    and a ``topk`` merge with the running list, and its bound (the pairs of
+    a row and another client's target in the slab; bytes: both shards, ids
+    and masks read once, the running list read and the result written)."""
+    from repro_torch.core import ring_topk
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sim_topk as ksim
+
+    nb, n, n_pad, c, n_local, k = 3, 12246, 6123, 15, 6111, 4
+    h, cid, tmask = _sim_inputs(gen, dev, nb, n, n_pad, c, n_local)
+    cid = cid.expand(nb, n)
+    want_v, want_i = ksim.launch(h, cid, tmask, k)
+    rv, ri = ref.sim_topk(h, cid, tmask, k)
+    out = {}
+    for slabs in RING_SLABS:
+        shard = -(-n // slabs)
+        hp = ring_topk._pad_axis(h, 1, slabs, 0.0)
+        cp = ring_topk._pad_axis(cid, 1, slabs, -1)
+        mp = ring_topk._pad_axis(tmask, 1, slabs, 0.0)
+        part = [slice(r * shard, (r + 1) * shard) for r in range(slabs)]
+        got_v, got_i = [], []
+        for me in range(slabs):
+            run = None
+            for step in range(slabs):
+                o = (me - step) % slabs
+                run = ring_topk.fold_slab(run, hp[:, part[me]], cp[:, part[me]], hp[:, part[o]],
+                                          cp[:, part[o]], mp[:, part[o]], k, o * shard)
+                if me == 0 and step == 1:
+                    run0, first = (run[0].clone(), run[1].clone()), part[o]
+            got_v.append(run[0])
+            got_i.append(run[1])
+        got_v, got_i = torch.cat(got_v, 1)[:, :n], torch.cat(got_i, 1)[:, :n]
+        if not (torch.equal(got_i, want_i) and torch.equal(got_v, want_v)):
+            raise AssertionError(f"ring top-k over {slabs} slabs differs from the one-call "
+                                 f"kernel")
+        err, gap, nd = _topk_err(h, got_v, got_i, rv, ri)
+        if not (err <= 1e-5 and gap <= 1e-5):
+            raise AssertionError(f"ring top-k over {slabs} slabs disagrees with the plain "
+                                 f"version: err={err} tie_gap={gap}")
+        # One fold: shard 0's rows against the slab before it, with shard 0's
+        # list after its first fold.
+        q, qc = hp[:, part[0]], cp[:, part[0]]
+        cand, cc, cm = hp[:, first], cp[:, first], mp[:, first]
+        off = first.start
+        ms = _time_ms(lambda: ops.sim_topk(cand, cc, cm, k, col_offset=off, rows=q,  # noqa: B023
+                                           row_cid=qc, run=run0), 20)  # noqa: B023
+        plain_ms = _time_ms(lambda: ref.sim_topk(cand, cc, cm, k, off, rows=q,  # noqa: B023
+                                                 row_cid=qc, run=run0), 3)  # noqa: B023
+
+        def library():
+            gram = torch.bmm(q, cand.transpose(1, 2))  # noqa: B023
+            keep = (qc[:, :, None] != cc[:, None, :]) & (cm[:, None, :] > 0)  # noqa: B023
+            v, i = torch.topk(gram.masked_fill_(~keep, -math.inf), k, dim=-1)
+            return torch.topk(torch.cat([run0[0], v], -1), k, dim=-1)  # noqa: B023
+        lib_ms = _time_ms(library, 3)
+        own = torch.stack([((cm[b] > 0)[None, :] & (cc[b][None, :] == qc[b][:, None])).sum(1)
+                           for b in range(nb)])
+        pairs = ((cm > 0).sum(1, keepdim=True) - own).clamp_min(0).sum().item()
+        nbytes = 4.0 * nb * shard * (2 * c + 3) + 2 * 8.0 * nb * shard * k
+        bound_ms, bound_by = _bound(2.0 * pairs * c, nbytes)
+        chunks = ksim.plan(nb, shard, c, k, nq=shard)[0]
+        print(f"[smoke] sim_topk ring {slabs} slabs of [{nb},{shard},{c}] k={k}: bit for bit the "
+              f"one-call kernel; idx_differ_from_plain={nd} max_abs_err={err:.3g} "
+              f"max_tie_gap={gap:.3g}; one fold ms={ms:.4f} plain_ms={plain_ms:.3f} "
+              f"library_ms={lib_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}, {pairs:.0f} "
+              f"pairs) chunks={chunks}; {slabs} folds a rank per imputation round")
+        out[str(slabs)] = {"shape": f"[{nb},{shard},{c}] x [{nb},{shard},{c}] k={k}",
+                           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "folds_per_round": slabs, "max_abs_err": err}
+    del h, hp
+    torch.cuda.empty_cache()
+    return out
 
 
 def _check_flash(dev, gen):
@@ -1484,7 +1597,7 @@ def _main_path(args):
     counts = _launches()
     _check_run(f"fgl_train {' '.join(args)} (data included)", hist, counts,
                _expected_launches(flags), wall)
-    return counts
+    return counts, hist
 
 
 def _engine_paths():
@@ -1552,6 +1665,205 @@ def _engine_paths():
     print(f"[smoke] path {what} stopped after rounds 0-1 and resumed for round 2: "
           f"rounds 0-2 equal the whole run's bit for bit")
     print(f"[smoke] the rest of the FGL engine: {time.perf_counter() - t_phase:.1f} s wall")
+    return runs, hists
+
+
+def _edge_rank(argvs):
+    """One rank of the edge mesh (started by ``mesh.spawn``): the Coauthor-CS
+    batch built once, then ``fgl_train.main`` for each of ``argvs``, each
+    with the launch counters set to 0 just before and read just after."""
+    from repro_torch.launch import fgl_train
+
+    data = fgl_train.build_data(fgl_train.parse(argvs[0]))
+    out = []
+    for argv in argvs:
+        _reset_launches()
+        t0 = time.perf_counter()
+        hist = fgl_train.main(argv, data=data)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        out.append({"hist": hist, "launches": _launches(),
+                    "wall": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    return out
+
+
+def _same_history(what, got, want, tol):
+    """Rounds equal, and loss, accuracy and F1 within ``tol`` a round (0:
+    bit for bit)."""
+    if got["round"] != want["round"]:
+        raise AssertionError(f"{what}: rounds {got['round']} against {want['round']}")
+    for key in ("loss", "acc", "f1"):
+        gap = max(abs(a - b) for a, b in zip(got[key], want[key]))
+        if not gap <= tol:
+            raise AssertionError(f"{what}: {key} {got[key]} against {want[key]} "
+                                 f"(largest gap {gap:.3g} > {tol})")
+
+
+def _edge_paths(spread_hist, gossip_hist):
+    """The distributed edge layer's FGL paths, each run with the launch
+    counters set to 0 just before it and read just after: (b) the main
+    path's flags with ``--edge-mesh --sim-shard`` in this process, where
+    both meshes have size 1, bit for bit the plain run; (c) the same flags,
+    and with ``--gossip-every 2``, on ``EDGE_RANKS`` gloo ranks sharing the
+    card, one server each (``mesh.spawn``), every rank within 1e-4 a round
+    of the run in one process and launching per rank what its flags imply,
+    ``sim_topk`` once per slab of the ring; then ``launch.edge_mesh
+    --devices 3`` at its own size, within 1e-4 of the same launcher in one
+    process. Returns each run's launches, every rank's included."""
+    from repro_torch.launch import edge_mesh, fgl_train
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    argv = SPREAD_ARGS + EDGE_FLAGS
+    flags = fgl_train.parse(argv)
+    _reset_launches()
+    t0 = time.perf_counter()
+    hist = fgl_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    one = _launches()
+    _check_run(f"fgl_train {' '.join(argv)} (size-1 meshes, data included)", hist, one,
+               _expected_launches(flags), wall)
+    _same_history("size-1 meshes", hist, spread_hist, 0.0)
+    print("[smoke] path with --edge-mesh --sim-shard in one process: bit for bit the plain run")
+    torch.cuda.empty_cache()
+
+    argvs = [SPREAD_ARGS + EDGE_FLAGS,
+             ENGINE_ARGS + ["--gossip-every", "2", "--rounds", "3"] + EDGE_FLAGS]
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(_edge_rank, EDGE_RANKS, "cuda", args=(argvs,))
+    wall = time.perf_counter() - t0
+    runs = [one]
+    for i, (argv, want_hist) in enumerate(zip(argvs, (spread_hist, gossip_hist))):
+        want = _expected_launches(fgl_train.parse(argv))
+        want["sim_topk"] *= EDGE_RANKS          # one fold per slab of the ring
+        for r, rank in enumerate(ranks):
+            got = rank[i]
+            _check_run(f"rank {r} of {EDGE_RANKS} (gloo, one card): fgl_train "
+                       f"{' '.join(argv)}", got["hist"], got["launches"], want, got["wall"])
+            _same_history(f"rank {r}: {' '.join(argv)}", got["hist"], want_hist, 1e-4)
+            runs.append(got["launches"])
+    print(f"[smoke] paths on {EDGE_RANKS} gloo ranks sharing the card: {wall:.1f} s wall "
+          f"(rank start, data and both runs); every rank within 1e-4 a round of one process")
+    from repro_torch.core import ring_topk
+    # A server's flat slots: its clients' n_pad = 6123 (Coauthor-CS, 6 clients).
+    n_flat = flags.clients // flags.servers * 6123
+    per_send = flags.servers * ring_topk.ring_rotation_bytes(n_flat, 15, EDGE_RANKS)
+    print(f"[smoke] ring rotation on {EDGE_RANKS} ranks: {per_send:.0f} bytes a send "
+          f"({flags.servers} servers' slabs of [{-(-n_flat // EDGE_RANKS)},15] with ids and "
+          f"mask), {EDGE_RANKS - 1} sends a rank an imputation round: "
+          f"{flags.servers * ring_topk.ring_total_bytes(n_flat, 15, EDGE_RANKS):.0f} bytes "
+          f"(an all-gather of the candidates: "
+          f"{flags.servers * ring_topk.allgather_bytes(n_flat, 15, EDGE_RANKS):.0f})")
+
+    t0 = time.perf_counter()
+    spread = edge_mesh.main(EDGE_MESH_ARGS + ["--devices", str(EDGE_RANKS)])
+    wall = time.perf_counter() - t0
+    alone = edge_mesh.main(EDGE_MESH_ARGS)
+    _same_history("launch.edge_mesh --devices 3", spread, alone, 1e-4)
+    print(f"[smoke] launch.edge_mesh {' '.join(EDGE_MESH_ARGS)} --devices {EDGE_RANKS}: "
+          f"{wall:.1f} s wall, losses {[round(v, 4) for v in spread['loss']]}, within 1e-4 a "
+          f"round of one process")
+    print(f"[smoke] the distributed FGL paths: {time.perf_counter() - t_phase:.1f} s wall")
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _spread_pod(args):
+    """One pod of spread training (started by ``mesh.spawn``):
+    ``launch.train.spread_rank`` with the launch counters set to 0 just
+    before and read just after, and every gossip exchange checked: the mean
+    over the pods of the f32 averages it computes (before their cast to the
+    parameters' dtype) against the mean of the parameters before it,
+    elementwise, relative to the largest |mean|. The exchange's host seconds
+    and the check's are summed apart."""
+    from repro_torch.core import gossip
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+
+    average = gossip._ring_average
+    rel, spent = [], {"exchange_s": 0.0, "check_s": 0.0}
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def checked(p, mesh):
+        sync()
+        t0 = time.perf_counter()
+        out = average(p, mesh)
+        sync()
+        t1 = time.perf_counter()
+        before = mesh_lib.all_reduce_sum(mesh, p.float())
+        after = mesh_lib.all_reduce_sum(mesh, out)
+        rel.append(((after - before).abs().max()
+                    / before.abs().max().clamp_min(1e-30)).item())
+        spent["exchange_s"] += t1 - t0
+        spent["check_s"] += time.perf_counter() - t1
+        return out
+
+    gossip._ring_average = checked
+    _reset_launches()
+    out = train.spread_rank(args)
+    sync()
+    return dict(out, **spent, launches=_launches(), mean_rel=max(rel, default=None),
+                exchanges=len(rel))
+
+
+def _spread_train_path():
+    """``launch.train --aggregation spread --pods 2 --gossip-every 2`` on
+    Qwen3-4B at full width cut to ``SPREAD_LAYERS`` layers, both pods on
+    the card over gloo, 4 steps: per rank its step seconds, tokens a second,
+    peak memory and launches, and the mean of the pods' parameters kept by
+    every gossip step (1e-5 relative)."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+
+    flags = train._parser().parse_args(SPREAD_TRAIN_ARGS)
+    cfg = configs.get_config(flags.arch, flags.variant, num_layers=flags.layers)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(_spread_pod, flags.pods, "cuda", args=(flags,))
+    wall = time.perf_counter() - t0
+    gossip_steps = sum((i + 1) % flags.gossip_every == 0 for i in range(flags.steps))
+    per_step = {"flash_attention_tc_lse": cfg.num_layers * (2 if cfg.remat else 1),
+                "flash_attention_bwd_tc": cfg.num_layers, "flash_attention_bwd_f32": 0,
+                "flash_attention_tc": 0, "flash_attention_f32": 0}
+    want = {name: n * flags.steps for name, n in per_step.items()}
+    rows = flags.batch // flags.pods
+    plain = [i for i in range(1, flags.steps) if (i + 1) % flags.gossip_every]
+    runs = []
+    for r, rank in enumerate(ranks):
+        secs, losses = rank["seconds"], rank["losses"]
+        step_s = float(np.median([secs[i] for i in plain]))
+        gossip_s = [secs[i] for i in range(flags.steps) if (i + 1) % flags.gossip_every == 0]
+        got = {name: rank["launches"][name] for name in want}
+        print(f"[smoke] spread train pod {r} of {flags.pods} (gloo, one card): {cfg.num_layers} "
+              f"layers, {rows} x {flags.seq} tokens a step; losses "
+              f"{[round(x, 4) for x in losses]}; step seconds {[round(x, 3) for x in secs]}; "
+              f"steps {plain} without gossip {step_s:.3f} s, {rows * flags.seq / step_s:.0f} "
+              f"tokens/s; gossip steps {[round(x, 3) for x in gossip_s]} s, of which the "
+              f"exchange {rank['exchange_s']:.3f} s and the check's all-reduces "
+              f"{rank['check_s']:.3f} s in all; peak memory {rank['peak_bytes'] / 1e9:.2f} GB; "
+              f"{rank['exchanges']} leaf exchanges, pods' mean kept within "
+              f"{rank['mean_rel']:.3g} relative; launches {got} (expected {want})")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"spread train pod {r}: non-finite loss {losses}")
+        if got != want:
+            raise AssertionError(f"spread train pod {r}: launched {got}, expected {want}")
+        if rank["exchanges"] == 0 or rank["exchanges"] % gossip_steps:
+            raise AssertionError(f"spread train pod {r}: {rank['exchanges']} exchanges in "
+                                 f"{gossip_steps} gossip steps")
+        if not rank["mean_rel"] <= 1e-5:
+            raise AssertionError(f"spread train pod {r}: gossip moved the pods' mean by "
+                                 f"{rank['mean_rel']:.3g} relative")
+        runs.append(rank["launches"])
+    if ranks[0]["losses"] == ranks[1]["losses"]:
+        raise AssertionError("spread train: both pods report the same losses on other rows")
+    print(f"[smoke] spread train {' '.join(SPREAD_TRAIN_ARGS)}: {wall:.1f} s wall (pod start, "
+          f"build and steps)")
     return runs
 
 
@@ -1930,6 +2242,7 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     sage, sim = _check_sage(dev, gen), _check_sim(dev, gen)
+    sim["ring"] = _check_sim_ring(dev, gen)
     flash_tc, flash_f32 = _check_flash(dev, gen)
     flash_tc["cases"] = (_check_flash_cases(dev, gen, D128_CASES)
                          + _check_flash_cases(dev, gen, D64_CASES))
@@ -1946,13 +2259,18 @@ def main() -> int:
     _check_whole_step(dev, "float32")
 
     # Each path's launches, counted from 0 just before it.
-    runs = [_main_path(SPREAD_ARGS), _main_path(FEDGL_ARGS)]
+    spread_counts, spread_hist = _main_path(SPREAD_ARGS)
+    runs = [spread_counts, _main_path(FEDGL_ARGS)[0]]
     torch.cuda.empty_cache()
-    runs += _engine_paths()
+    engine_runs, engine_hists = _engine_paths()
+    runs += engine_runs
+    edge_runs = _edge_paths(spread_hist, engine_hists["spreadfgl_gossip"])
+    runs += edge_runs
     runs.append(_serve_main_path(SERVE_ARGS))
     torch.cuda.empty_cache()
     runs.append(_f32_serve_path(dev))
     runs.append(_train_main_path())
+    runs += _spread_train_path()
     runs.append(_f32_train_path(dev))
     runs += _moe_vlm_serve_paths(dev)
     runs.append(_olmoe_train_path(dev))
@@ -1964,6 +2282,7 @@ def main() -> int:
                            (flash_bwd, "flash_attention_bwd_tc"),
                            (flash_bwd_f32, "flash_attention_bwd_f32")):
         entry["launches"] = sum(run[counter] for run in runs)
+    sim["ring"]["launches"] = sum(run["sim_topk"] for run in edge_runs)
     kernels = [sage, sim, flash_tc, flash_f32, block, flash_lse, flash_bwd, flash_bwd_f32]
 
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,9 @@ Leaves are tensors (restored on the template's device, in its dtype; bf16
 is stored as 2-byte void, as numpy writes it without a bf16 type), numpy
 arrays, Python scalars (restored as Python scalars, so ``FGLState.round``
 comes back an int) and ``torch.Generator``s, stored as their state bytes,
-so the port's own save and resume continues a run bit for bit.
+so the port's own save and resume continues a run bit for bit. An
+``FGLState`` also writes the reference's PRNG ``key`` leaf
+(``FGLState.reference_leaves``), so the JAX package resumes the file.
 """
 from __future__ import annotations
 
@@ -68,10 +70,16 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def save(path, tree: PyTree) -> None:
-    """Write every leaf of ``tree`` to the ``.npz`` at ``path``."""
+    """Write every leaf of ``tree`` to the ``.npz`` at ``path``, and the
+    leaves its ``reference_leaves()`` gives, where it has that method (an
+    ``FGLState``'s PRNG ``key`` for the JAX package)."""
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(path, **{name: _to_numpy(leaf) for name, leaf in _leaves(tree)})
+    leaves = {name: _to_numpy(leaf) for name, leaf in _leaves(tree)}
+    extra = getattr(tree, "reference_leaves", None)
+    if extra is not None:
+        leaves.update(extra())
+    np.savez(path, **leaves)
 
 
 def _restore_leaf(name: str, arr: np.ndarray, leaf):

@@ -20,10 +20,18 @@ Layout: client classifiers are stacked on a leading [M] axis, clients grouped
 contiguously per server; per-server generator state is stacked on a leading
 [N] axis. Where the reference vmaps, the port runs one batched pass: the
 local step over all M clients, and the imputation round over all N servers
-(one ``sim_topk`` launch per round for all of them). Where it scans, the port
-loops in Python. Randomness comes from a ``torch.Generator`` seeded from
-``cfg.seed``; it draws the initial weights and then lives in the state, where
-each imputation round draws its noise S from it. The participation masks
+(one ``sim_topk`` launch per round for all of them). Where it scans, the
+port loops in Python. With ``edge_mesh`` (a ``launch.mesh.Mesh``, one
+process per device) each rank runs the generator round for its ``N / size``
+servers and all-gathers the outputs, so every rank continues with the whole
+state, the result the reference's placement of the [N] axis on its mesh
+gives; the rest of the round runs whole on every rank, and the round's
+noise S is drawn for all N servers from the one generator on every rank,
+which keeps the ranks in step.
+
+Randomness comes from a ``torch.Generator`` seeded from ``cfg.seed``; it
+draws the initial weights and then lives in the state, where each
+imputation round draws its noise S from it. The participation masks
 and async schedules draw from CPU generators of their own, seeded from
 ``(cfg.seed, salt, round)``, so they never touch the training stream and do
 not depend on the device.
@@ -44,6 +52,7 @@ import torch
 from repro_torch.core import assessor as assessor_lib
 from repro_torch.core import gnn, imputation, strategies
 from repro_torch.core.types import ClientBatch, FGLConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.optim.adam import Adam, AdamState
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -64,6 +73,16 @@ class FGLState:
     gen: torch.Generator  # draws each imputation round's noise S
     round: int = 0
 
+    def reference_leaves(self) -> Dict[str, np.ndarray]:
+        """Leaves a checkpoint holds for the JAX package beside the state's
+        own: ``key``, the reference's PRNG key as ``jax.random.key_data`` of a
+        threefry key (uint32 [2]), the round in its high word and the
+        generator's seed in its low one; at round 0 that is
+        ``jax.random.key(seed)``'s. The reference's ``checkpoint.io.restore``
+        then takes the file, and its run goes on under its own randomness."""
+        return {"key": np.array([int(self.round) & 0xFFFFFFFF,
+                                 self.gen.initial_seed() & 0xFFFFFFFF], dtype=np.uint32)}
+
 
 def _cross_entropy(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Eq. (7): masked CE per client; logits [.., n, c], y [.., n] (-1 unlabeled)."""
@@ -79,6 +98,17 @@ def _trace_reg(params: PyTree) -> torch.Tensor:
     last = params["layers"][-1]
     return sum(torch.sum(torch.square(w), dim=(-2, -1))
                for k, w in last.items() if k != "b")
+
+
+def _map_nodes(fn: Callable, tree):
+    """``tree_map`` that also walks the named tuples of optimizer state."""
+    if isinstance(tree, AdamState):
+        return AdamState(*(_map_nodes(fn, x) for x in tree))
+    if isinstance(tree, dict):
+        return {k: _map_nodes(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_nodes(fn, v) for v in tree)
+    return fn(tree)
 
 
 def resolve_device(device) -> torch.device:
@@ -117,9 +147,6 @@ class FGLTrainer:
         if cfg.gnn_kind not in gnn.KINDS:
             raise ValueError(f"unknown gnn_kind {cfg.gnn_kind!r}; "
                              f"expected one of {tuple(gnn.KINDS)}")
-        if edge_mesh is not None:
-            raise NotImplementedError("the edge mesh is not ported yet "
-                                      "(ROADMAP.md, queue 1, item 11)")
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -152,6 +179,10 @@ class FGLTrainer:
         self._agg_period = max(1, int(getattr(self.aggregator, "period", 1)))
         self.opt = Adam(lr=cfg.lr_classifier)
         self.gen_opt = Adam(lr=cfg.lr_generator)
+        self.edge_mesh = edge_mesh
+        if edge_mesh is not None and self.n_servers % edge_mesh.size:
+            raise ValueError(f"N={self.n_servers} servers must divide across the "
+                             f"{edge_mesh.size}-device edge mesh")
 
     # -- initialization ------------------------------------------------------
 
@@ -173,6 +204,36 @@ class FGLTrainer:
                         ae_params=ae_params, ae_opt=self.gen_opt.init(ae_params, lead=(n,)),
                         as_params=as_params, as_opt=self.gen_opt.init(as_params, lead=(n,)),
                         batch=batch.to(self.device), gen=gen)
+
+    # -- the edge mesh ----------------------------------------------------------
+
+    def _place_edge(self, state: FGLState) -> FGLState:
+        """The stacked [N] generator state on this rank's device. Every rank
+        holds it whole: each computes its block of servers and gathers the
+        rest (:meth:`on_edge`)."""
+        if self.edge_mesh is None:
+            return state
+        moved = _map_nodes(lambda x: x.to(self.device),
+                           (state.ae_params, state.ae_opt, state.as_params, state.as_opt))
+        return dataclasses.replace(state, ae_params=moved[0], ae_opt=moved[1],
+                                   as_params=moved[2], as_opt=moved[3])
+
+    def on_edge(self, fn: Callable, stacked: tuple, *shared):
+        """``fn(*stacked, *shared)`` with the leading [N] server axis of every
+        tensor in ``stacked`` split over the edge mesh: this rank runs its
+        ``N / size`` servers, and every tensor of the result is gathered
+        along that axis, so every rank holds the whole result. Without a
+        mesh (or on a size-1 one) it is the plain call."""
+        mesh = self.edge_mesh
+        if mesh is None or mesh.size == 1:
+            return fn(*stacked, *shared)
+        nb = self.n_servers // mesh.size
+        lo = mesh.rank * nb
+        out = fn(*_map_nodes(lambda x: x[lo:lo + nb], stacked), *shared)
+        leaves: list = []
+        _map_nodes(leaves.append, out)
+        gathered = iter(mesh_lib.all_gather_tree(mesh, leaves))
+        return _map_nodes(lambda _: next(gathered), out)
 
     # -- local training (Algorithm 1 lines 8-9) ------------------------------
 
@@ -394,6 +455,8 @@ class FGLTrainer:
             state = self.init(batch)
         elif batch is not None:
             raise ValueError("fit(state=...) resumes from the state's own batch")
+        else:
+            state = self._place_edge(state)
         rounds = rounds if rounds is not None else self.cfg.global_rounds
         metrics, seconds = [], []
         for _ in range(rounds):

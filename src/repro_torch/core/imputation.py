@@ -1,14 +1,13 @@
 """Adaptive graph imputation generator (Sec. III-C).
 
-Counterpart of ``repro.core.imputation`` (the ring-mesh branch of
-``similarity_topk`` is still to port). Every function takes tensors that
+Counterpart of ``repro.core.imputation``. Every function takes tensors that
 may carry a leading ``[N]`` server axis, so the whole imputation round runs
 once over all N servers where the reference vmaps one server's round.
 
 1. Fuse client embeddings into the globally-shared information H^j (Eq. 9).
 2. Keep, per node, the top-k most similar *cross-subgraph* nodes of
    A̅ = H Hᵀ as imputed links: the fused masked ``sim_topk`` kernel, one
-   launch for all N servers.
+   launch for all N servers, or the ring over a mesh (``ring_topk``).
 3. An autoencoder maps noise S through f ({c,16,d}) to imputed features
    X̅ = f(S) and back through h ({d,16,c}) (Eq. 10), trained adversarially
    against the assessor (``assessor.py``).
@@ -43,18 +42,25 @@ def client_of_flat(num_clients: int, n_pad: int, device=None) -> torch.Tensor:
 
 
 def similarity_topk(h: torch.Tensor, flat_mask: torch.Tensor, client_ids: torch.Tensor,
-                    k: int, *, target_mask: Optional[torch.Tensor] = None
+                    k: int, *, target_mask: Optional[torch.Tensor] = None, mesh=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k most-similar cross-subgraph nodes per node, batched over [N].
 
     ``flat_mask`` marks valid *source* rows; ``target_mask`` (defaults to
-    ``flat_mask``) marks slots allowed as link targets. Returns (scores
-    [.., n, k], idx [.., n, k] int32); rows with mask 0 and unfilled
-    candidate slots get idx -1 / score 0, as in the reference.
+    ``flat_mask``) marks slots allowed as link targets. With ``mesh`` (a
+    ``launch.mesh.Mesh``) the candidate axis is sharded over its ranks and
+    slabs rotate around the ring (``core/ring_topk.py``); otherwise one
+    ``sim_topk`` call covers every server. Returns (scores [.., n, k], idx
+    [.., n, k] int32); rows with mask 0 and unfilled candidate slots get
+    idx -1 / score 0, as in the reference.
     """
     if target_mask is None:
         target_mask = flat_mask
-    scores, idx = ops.sim_topk(h, client_ids, target_mask, k)
+    if mesh is not None:
+        from repro_torch.core.ring_topk import ring_similarity_topk
+        scores, idx = ring_similarity_topk(h, client_ids, target_mask, k, mesh=mesh)
+    else:
+        scores, idx = ops.sim_topk(h, client_ids, target_mask, k)
     valid = (flat_mask[..., None] > 0) & torch.isfinite(scores)
     idx = torch.where(valid, idx.to(torch.int32), torch.full_like(idx, -1))
     scores = torch.where(valid, scores, torch.zeros_like(scores))

@@ -1,7 +1,10 @@
 """SpreadFGL / FedGL as strategy compositions (Sec. III-B and III-E).
 
-Counterpart of ``repro.core.spreadfgl`` (without the sharded similarity
-search, ``sim_mesh``):
+Counterpart of ``repro.core.spreadfgl``. Every builder takes ``sim_mesh=``
+(the similarity search's candidate axis sharded over a mesh,
+``core/ring_topk.py``) and passes ``edge_mesh=`` (the [N] server axis
+placed on a mesh) to the trainer; ``spreadfgl_gossip`` also exchanges over
+it:
 
 - ``make_fedgl`` (``"FedGL"``): star topology (one edge server covering all
   clients), FedAvg aggregation, SpreadFGL generator round.
@@ -32,18 +35,19 @@ from repro_torch.core.types import ClientBatch, FGLConfig
 
 
 @register("FedGL")
-def make_fedgl(cfg: FGLConfig, batch: ClientBatch, **kw) -> FGLTrainer:
+def make_fedgl(cfg: FGLConfig, batch: ClientBatch, *, sim_mesh=None, **kw) -> FGLTrainer:
     return FGLTrainer(cfg, batch, topology=S.StarTopology(),
                       aggregator=S.FedAvgAggregator(),
-                      imputation=S.SpreadImputation(), **kw)
+                      imputation=S.SpreadImputation(sim_mesh=sim_mesh), **kw)
 
 
 @register("SpreadFGL")
 def make_spreadfgl(cfg: FGLConfig, batch: ClientBatch, *, num_servers: int = 3,
-                   adjacency: Optional[np.ndarray] = None, **kw) -> FGLTrainer:
+                   adjacency: Optional[np.ndarray] = None, sim_mesh=None,
+                   **kw) -> FGLTrainer:
     return FGLTrainer(cfg, batch, topology=_topology(num_servers, adjacency),
                       aggregator=S.NeighborAggregator(),
-                      imputation=S.SpreadImputation(), **kw)
+                      imputation=S.SpreadImputation(sim_mesh=sim_mesh), **kw)
 
 
 def _topology(num_servers: int, adjacency: Optional[np.ndarray]) -> S.Topology:
@@ -59,22 +63,24 @@ def _topology(num_servers: int, adjacency: Optional[np.ndarray]) -> S.Topology:
 def make_spreadfgl_gossip(cfg: FGLConfig, batch: ClientBatch, *,
                           num_servers: int = 3, gossip_every: Optional[int] = None,
                           adjacency: Optional[np.ndarray] = None,
-                          edge_mesh=None, **kw) -> FGLTrainer:
+                          edge_mesh=None, sim_mesh=None, **kw) -> FGLTrainer:
     """SpreadFGL whose servers FedAvg their own clients every round and
     exchange with topology neighbors only every ``gossip_every`` rounds
-    (default ``cfg.gossip_every``). ``edge_mesh`` is not ported."""
+    (default ``cfg.gossip_every``), over the ranks of ``edge_mesh`` when
+    it is given."""
     every = int(gossip_every) if gossip_every is not None else cfg.gossip_every
     aggregator = S.GossipAggregator(topology="ring" if adjacency is None else "adjacency",
                                     every_k=every, mesh=edge_mesh)
     return FGLTrainer(cfg, batch, topology=_topology(num_servers, adjacency),
-                      aggregator=aggregator, imputation=S.SpreadImputation(),
+                      aggregator=aggregator, imputation=S.SpreadImputation(sim_mesh=sim_mesh),
                       edge_mesh=edge_mesh, **kw)
 
 
 @register("spreadfgl_async")
 def make_spreadfgl_async(cfg: FGLConfig, batch: ClientBatch, *,
                          num_servers: int = 3, async_buffer: Optional[int] = None,
-                         adjacency: Optional[np.ndarray] = None, **kw) -> FGLTrainer:
+                         adjacency: Optional[np.ndarray] = None, sim_mesh=None,
+                         **kw) -> FGLTrainer:
     """SpreadFGL (async FedGL when ``num_servers == 1``) with buffered
     aggregation: delays from ``cfg.delay_dist``, dropouts at
     ``cfg.dropout_rate``, a flush once ``async_buffer`` (default
@@ -95,4 +101,4 @@ def make_spreadfgl_async(cfg: FGLConfig, batch: ClientBatch, *,
         dropout_rate=cfg.dropout_rate, max_delay=cfg.async_max_delay,
         seed=cfg.seed)
     return FGLTrainer(cfg, batch, topology=topology, aggregator=aggregator,
-                      imputation=S.SpreadImputation(), **kw)
+                      imputation=S.SpreadImputation(sim_mesh=sim_mesh), **kw)

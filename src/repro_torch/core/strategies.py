@@ -14,8 +14,10 @@ Counterpart of ``repro.core.strategies``:
 The per-round schedules (participation masks, async delays and dropouts)
 draw from CPU ``torch.Generator``s seeded from ``(seed, salt, round)``, so
 the same run on the card and on the CPU draws the same schedule, and a
-restored checkpoint replays it from its round. Only the edge mesh (the
-gossip ``mesh``) is not ported.
+restored checkpoint replays it from its round. A mesh here is a
+``launch.mesh.Mesh`` (one process per device): the gossip ``mesh`` places
+the exchange's server blocks on its ranks, and ``SpreadImputation``'s
+``sim_mesh`` shards the similarity search's candidate axis over them.
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ import torch
 from repro_torch.core import gossip, imputation, patcher
 from repro_torch.core.partition import group_clients_by_server, ring_adjacency
 from repro_torch.core.types import ClientBatch
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.optim.adam import Adam
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
@@ -234,7 +237,10 @@ class GossipAggregator:
     ``"adjacency"`` through :func:`gossip.adjacency_gossip`. With
     ``every_k=1`` it equals :class:`NeighborAggregator`; on skip rounds,
     per-server FedAvg. Under a mask, participation gates the edge-client
-    leg only. The exchange runs on one host: a ``mesh`` is not ported.
+    leg only. With ``mesh`` (the edge mesh) each rank exchanges its block
+    of ``N / size`` servers with its ring neighbors (one boundary slice each
+    way) or, for an adjacency, through an all-gather, and the blocks are
+    gathered back, so every rank holds the whole [N] result.
     """
 
     topology: str = "ring"        # "ring" | "adjacency"
@@ -247,9 +253,6 @@ class GossipAggregator:
                              f"expected 'ring' or 'adjacency'")
         if self.every_k < 1:
             raise ValueError(f"every_k must be >= 1, got {self.every_k}")
-        if self.mesh is not None:
-            raise NotImplementedError("a gossip mesh (the edge mesh) is not ported "
-                                      "yet (ROADMAP.md, queue 1, item 11)")
 
     @property
     def period(self) -> int:
@@ -269,11 +272,22 @@ class GossipAggregator:
 
         w = tree_map(server_mean, params)                          # [N, ...]
         if num_servers > 1 and (round + 1) % self.every_k == 0:
-            if self.topology == "ring" and num_servers >= 3:
-                w = gossip.block_ring_gossip(w)
-            else:
-                w = gossip.adjacency_gossip(w, adj)
+            w = self._exchange(w, adj, num_servers)
         return tree_map(lambda leaf: torch.repeat_interleave(leaf, m_per, dim=0), w)
+
+    def _exchange(self, w: PyTree, adj, num_servers: int) -> PyTree:
+        use_ring = self.topology == "ring" and num_servers >= 3
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1:
+            return gossip.block_ring_gossip(w) if use_ring else gossip.adjacency_gossip(w, adj)
+        if num_servers % mesh.size:
+            raise ValueError(f"N={num_servers} servers must divide across the "
+                             f"{mesh.size}-device edge mesh")
+        nb = num_servers // mesh.size
+        blk = tree_map(lambda x: x[mesh.rank * nb:(mesh.rank + 1) * nb], w)
+        blk = (gossip.block_ring_gossip(blk, mesh) if use_ring
+               else gossip.adjacency_gossip(blk, adj, mesh))
+        return tree_unflatten(blk, mesh_lib.all_gather_tree(mesh, tree_leaves(blk)))
 
 
 # ---------------------------------------------------------------------------
@@ -480,19 +494,30 @@ class NoImputation:
         return state
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class SpreadImputation:
     """SpreadFGL's generator round (Algorithm 1 lines 11-24).
 
     Fuse client embeddings per server, train the AE/assessor pair
     adversarially, take cross-subgraph top-k similarity links, and fix every
     client graph. The [N] server axis is one batched pass (the similarity
-    top-k is one kernel launch for all servers); per-server results are
-    stitched back to the global flat index space.
+    top-k is one kernel launch for all servers), or, on the engine's edge
+    mesh, one pass per rank over its block of servers
+    (``FGLTrainer.on_edge``); per-server results are stitched back to the
+    global flat index space.
+
+    With ``sim_mesh`` the similarity top-k is lifted out of the server
+    round: the generator half runs over [N] (on the edge mesh, if any), and
+    one ring call (``core/ring_topk.py``) over the fused ``[N, n_flat, c]``
+    embeddings, whole on every rank, shards the candidate axis over the
+    mesh's ranks. The ring's result is the one-call result.
 
     ``noise`` is the round's S, ``[N, M_per*n_pad, c]``; when None it is
-    drawn from the state's generator. Tests hand in the reference's S.
+    drawn for all N servers from the state's generator. Tests hand in the
+    reference's S.
     """
+
+    sim_mesh: Any = None
 
     active = True
 
@@ -512,8 +537,21 @@ class SpreadImputation:
             noise = imputation.sample_noise(state.gen, mp * n_pad,
                                             engine.num_classes, lead=(n,))
         client_ids = imputation.client_of_flat(mp, n_pad, device=emb.device)
-        return engine._server_round(state.ae_params, state.ae_opt, state.as_params,
-                                    state.as_opt, emb_g, mask_g, client_ids, noise)
+        stacked = (state.ae_params, state.ae_opt, state.as_params, state.as_opt,
+                   emb_g, mask_g, noise)
+        if self.sim_mesh is None:
+            def server_round(ae, aeo, asr, aso, emb_j, mask_j, s_noise):
+                return engine._server_round(ae, aeo, asr, aso, emb_j, mask_j, client_ids,
+                                            s_noise)
+            return engine.on_edge(server_round, stacked)
+        ae, aeo, asr, aso, x_bar, h_all, fmask_all = engine.on_edge(
+            engine._server_round_gen, stacked)
+        tmask_all = fmask_all * imputation.local_slot_mask(
+            mp, n_pad, engine.n_local, device=fmask_all.device)[None, :]
+        scores, idx = imputation.similarity_topk(
+            h_all, fmask_all, client_ids, engine.cfg.top_k_links,
+            target_mask=tmask_all, mesh=self.sim_mesh)
+        return ae, aeo, asr, aso, scores, idx, x_bar
 
     def impute(self, engine, state, noise=None):
         (ae_params, ae_opt, as_params, as_opt, scores, idx,

@@ -29,6 +29,8 @@ SIGNATURES = {
     "sage_aggregate_f32": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "sim_topk_plan": ([_I, _I, _I, _I, _P], _I),
     "sim_topk_f32": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "sim_topk_plan_rows": ([_I] * 5 + [_P], _I),
+    "sim_topk_rows_f32": ([_P] * 12 + [_I] * 8 + [_P], _I),
     "sim_block_fwd": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "flash_attention_f32": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
     "flash_attention_tc_bf16": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),

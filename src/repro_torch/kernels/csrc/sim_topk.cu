@@ -1,6 +1,13 @@
-// Fused masked similarity top-k: for every row r of h[b] (one edge server b),
-// the k candidates j maximising <h[b, r], h[b, j]> among those owned by another
-// client (cid[b, j] != cid[b, r]) and allowed as targets (mask[b, j] > 0).
+// Fused masked similarity top-k: for every query row r of q[b] (one edge
+// server b), the k candidates j of h[b] maximising <q[b, r], h[b, j]> among
+// those owned by another client (cid[b, j] != qcid[b, r]) and allowed as
+// targets (mask[b, j] > 0). In the square call the query rows are the
+// candidates (q = h, qcid = cid). In the general call they are another set,
+// as in the TPU kernel, which takes `rows` apart from the candidate slab `h`:
+// the ring top-k (core/ring_topk.py) scores its shard of query rows against
+// each visiting slab of candidates, at a `col_offset` that makes the slab's
+// indices global, and folds the result into its running list, which the
+// merge kernel takes as one more chunk.
 //
 // Replaces the TPU kernel `sim_topk` / `_sim_topk_kernel` (with its merge
 // `topk_merge`) in src/repro/kernels/sim_topk.py, wrapper in
@@ -63,6 +70,13 @@
 // - Scores of a row against two candidates with the same features are
 //   bit-identical wherever the candidates lie, since each dot is summed in
 //   one fixed order; exact ties are decided by index alone.
+// - The merge takes a running list (vals, idx [batch, nq, k], global indices,
+//   from an earlier call) as one more chunk, its indices shifted by
+//   -col_offset into the slab's frame (an order-preserving shift), so a
+//   fold over slabs gives the one call's result bit for bit, whatever the
+//   order in which the slabs come. The fold costs one more list per row in
+//   the merge and nothing in the scoring kernel: the running list does not
+//   seed the shared bound.
 //
 // Why not the tensor cores: a 3xTF32 mma.sync product would reach f32
 // accuracy, but spreads each row's scores over a quad of lanes, so every
@@ -148,18 +162,19 @@ __device__ __forceinline__ float from_order_key(int i) {
   return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
-// One block: rows [row0, row0 + ROWS) of server blockIdx.z against the
+// One block: query rows [row0, row0 + ROWS) of server blockIdx.z against the
 // candidates of chunk blockIdx.y; writes each row's top-K of that chunk to
-// part_v / part_i [batch, chunks, n, K]. bound [batch, n] holds, per row, the
-// largest K-th value any chunk's list has reached, as order_key (INT_MIN
-// before any, which decodes to a NaN that fmaxf passes over): a full list
-// holds K allowed candidates, so no score below it can be among the row's
-// k best, and a block admits none.
+// part_v / part_i [batch, chunks, nq, K], with slab-local candidate indices.
+// bound [batch, nq] holds, per row, the largest K-th value any chunk's list
+// has reached, as order_key (INT_MIN before any, which decodes to a NaN that
+// fmaxf passes over): a full list holds K allowed candidates, so no score
+// below it can be among the row's k best, and a block admits none.
 template <int K, int CPAD>
 __global__ void __launch_bounds__(THREADS)
-sim_topk_kernel(const float* __restrict__ h, const int* __restrict__ cid,
+sim_topk_kernel(const float* __restrict__ q_rows, const int* __restrict__ qcid,
+                const float* __restrict__ h, const int* __restrict__ cid,
                 const float* __restrict__ mask, float* __restrict__ part_v,
-                int* __restrict__ part_i, int* __restrict__ bound, int n, int c,
+                int* __restrict__ part_i, int* __restrict__ bound, int nq, int n, int c,
                 int chunk_len) {
   constexpr int V = CPAD / 4;  // float4 per staged candidate
   __shared__ __align__(16) float hs[2][TC * CPAD];
@@ -172,6 +187,13 @@ sim_topk_kernel(const float* __restrict__ h, const int* __restrict__ cid,
   const float* H = h + b * (size_t)n * c;
   const int* C = cid + b * (size_t)n;
   const float* Mk = mask + b * (size_t)n;
+  // The square call (the rows are h and cid themselves) reads its rows
+  // through H and C: so built, the scoring loop is scheduled as it was
+  // before the general form, 3 % faster at [3, 12246, 15] than through the
+  // rows' own pointers (tools/sim_topk_ablation.py --against, in turns).
+  const bool square = q_rows == h && qcid == cid && nq == n;
+  const float* Q = square ? H : q_rows + b * (size_t)nq * c;
+  const int* QC = square ? C : qcid + b * (size_t)nq;
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * ROWS;
   // This block's chunk: candidates [j_begin, j_end), in tiles of TC.
@@ -182,7 +204,7 @@ sim_topk_kernel(const float* __restrict__ h, const int* __restrict__ cid,
 
   // Columns c..CPAD-1 of the staged rows are never copied to: zero them once.
   for (int e = tid; e < 2 * TC * CPAD; e += THREADS) (&hs[0][0])[e] = 0.0f;
-  if (tid == 0) first_client = C[row0];
+  if (tid == 0) first_client = QC[row0];
   if (tid < MAX_TILES / 32) useful[tid] = 0u;
 
   float q[R][CPAD];
@@ -191,17 +213,17 @@ sim_topk_kernel(const float* __restrict__ h, const int* __restrict__ cid,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r * THREADS + tid;
-    live[r] = row < n;
+    live[r] = row < nq;
 #pragma unroll
-    for (int t = 0; t < CPAD; ++t) q[r][t] = (live[r] && t < c) ? H[(size_t)row * c + t] : 0.0f;
-    rc[r] = live[r] ? C[row] : 0;
+    for (int t = 0; t < CPAD; ++t) q[r][t] = (live[r] && t < c) ? Q[(size_t)row * c + t] : 0.0f;
+    rc[r] = live[r] ? QC[row] : 0;
   }
   float v[R][K];
   int ix[R][K];
   float thr[R];   // a score is admitted only above this: the list's K-th value,
                   // or just below the shared bound if that is higher
   int seen[R];    // the shared bound as the last atomic read it, folded in a tile later
-  int* B = bound + b * (size_t)n + row0 + tid;
+  int* B = bound + b * (size_t)nq + row0 + tid;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
 #pragma unroll
@@ -357,7 +379,7 @@ sim_topk_kernel(const float* __restrict__ h, const int* __restrict__ cid,
   }
   cp_async_wait_all();
 
-  const size_t base = (b * chunks + chunk) * (size_t)n;
+  const size_t base = (b * chunks + chunk) * (size_t)nq;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (!live[r]) continue;
@@ -370,16 +392,22 @@ sim_topk_kernel(const float* __restrict__ h, const int* __restrict__ cid,
   }
 }
 
-// One thread per row: fold the chunks' sorted lists by (value desc, index
-// asc) and write the first k, indices shifted by col_offset, -1 where unfilled.
+// One thread per query row: fold the chunks' sorted lists and the running
+// list run_v / run_i [batch, nq, k] where given, by (value desc, index asc),
+// and write the first k, indices shifted by col_offset, -1 where unfilled.
+// The chunks' lists hold slab-local indices; the running list's global ones
+// are taken in as local (i - col_offset, negative for an earlier slab's),
+// the same order. An unfilled slot is one whose value is -inf: no list
+// admits a -inf score.
 template <int K>
 __global__ void __launch_bounds__(THREADS)
 sim_topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
-                      float* __restrict__ vals, int* __restrict__ idx, int n, int k,
+                      const float* __restrict__ run_v, const int* __restrict__ run_i,
+                      float* __restrict__ vals, int* __restrict__ idx, int nq, int k,
                       int chunks, int col_offset) {
   const size_t b = blockIdx.y;
   const int row = blockIdx.x * THREADS + threadIdx.x;
-  if (row >= n) return;
+  if (row >= nq) return;
   float v[K];
   int ix[K];
 #pragma unroll
@@ -388,7 +416,7 @@ sim_topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ 
     ix[t] = -1;
   }
   for (int s = 0; s < chunks; ++s) {
-    const size_t o = ((b * chunks + s) * n + row) * K;
+    const size_t o = ((b * chunks + s) * nq + row) * K;
 #pragma unroll
     for (int t = 0; t < K; ++t) {
       const float x = part_v[o + t];
@@ -399,13 +427,20 @@ sim_topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ 
       insert<true>(v, ix, x, i);
     }
   }
-  float* vo = vals + (b * (size_t)n + row) * k;
-  int* io = idx + (b * (size_t)n + row) * k;
+  const size_t out = (b * (size_t)nq + row) * k;
+  if (run_v != nullptr) {
+    // The running list, taken whole: nothing is assumed of its order.
+    for (int t = 0; t < k; ++t) {
+      const float x = run_v[out + t];
+      const int i = run_i[out + t] - col_offset;
+      if (x > -CUDART_INF_F && before(x, i, v[K - 1], ix[K - 1])) insert<true>(v, ix, x, i);
+    }
+  }
 #pragma unroll
   for (int t = 0; t < K; ++t) {
     if (t < k) {
-      vo[t] = v[t];
-      io[t] = ix[t] >= 0 ? ix[t] + col_offset : -1;
+      vals[out + t] = v[t];
+      idx[out + t] = v[t] > -CUDART_INF_F ? ix[t] + col_offset : -1;
     }
   }
 }
@@ -430,19 +465,19 @@ int with_instance(int k, int c, F&& f) {
   }
 }
 
-bool shape_ok(int batch, int n, int c, int k) {
-  return batch >= 1 && n >= 1 && c >= 1 && c <= MAX_C && k >= 1 && k <= 16 && k <= n;
+bool shape_ok(int batch, int nq, int n, int c, int k) {
+  return batch >= 1 && nq >= 1 && n >= 1 && c >= 1 && c <= MAX_C && k >= 1 && k <= 16;
 }
 
 }  // namespace
 
-// The split of the candidate axis for h [batch, n, c] and a top-k:
-// plan[0] = chunks, plan[1] = chunk_len (candidates per chunk, a multiple of
-// the 128-candidate tile), plan[2] = depth (entries per partial list, the
-// instance's K >= k). The workspace sim_topk_f32 takes is [batch, chunks, n,
-// depth] floats and as many ints. Returns a cudaError_t.
-extern "C" int sim_topk_plan(int batch, int n, int c, int k, int* plan) {
-  if (!shape_ok(batch, n, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+// The split of the candidate axis for nq query rows against h [batch, n, c]
+// and a top-k: plan[0] = chunks, plan[1] = chunk_len (candidates per chunk, a
+// multiple of the 128-candidate tile), plan[2] = depth (entries per partial
+// list, the instance's K >= k). The workspace sim_topk_rows_f32 takes is
+// [batch, chunks, nq, depth] floats and as many ints. Returns a cudaError_t.
+extern "C" int sim_topk_plan_rows(int batch, int nq, int n, int c, int k, int* plan) {
+  if (!shape_ok(batch, nq, n, c, k)) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -453,7 +488,7 @@ extern "C" int sim_topk_plan(int batch, int n, int c, int k, int* plan) {
     const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, sim_topk_kernel<I::K, I::CPAD>, THREADS, 0);
     if (occ != cudaSuccess) return static_cast<int>(occ);
-    const long long base = (long long)((n + ROWS - 1) / ROWS) * batch;
+    const long long base = (long long)((nq + ROWS - 1) / ROWS) * batch;
     const long long want = 3LL * sms * (per_sm > 0 ? per_sm : 1) / 2;
     long long chunks = (want + base - 1) / base;
     const long long most = (n + MIN_CHUNK - 1) / MIN_CHUNK;
@@ -469,32 +504,55 @@ extern "C" int sim_topk_plan(int batch, int n, int c, int k, int* plan) {
   });
 }
 
-// h [batch, n, c] float32, cid [batch, n] int32, mask [batch, n] float32;
-// part_v / part_i [batch, chunks, n, depth] the workspace of sim_topk_plan;
-// bound [batch, n] int32 filled with INT_MIN; vals [batch, n, k] float32 and
-// idx [batch, n, k] int32 are written. All contiguous on the device;
-// 1 <= k <= min(n, 16), 1 <= c <= 16, and chunks of chunk_len candidates (a
-// multiple of 128, at most 128 tiles) must cover n. Launches both kernels on
-// `stream` and returns the cudaError_t of the launches.
-extern "C" int sim_topk_f32(const float* h, const int* cid, const float* mask,
-                            float* part_v, int* part_i, int* bound, float* vals, int* idx,
-                            int batch, int n, int c, int k, int chunks, int chunk_len,
-                            int col_offset, void* stream) {
-  if (!shape_ok(batch, n, c, k) || chunks < 1 || chunk_len < TC || chunk_len % TC ||
-      chunk_len > MAX_TILES * TC || (long long)chunks * chunk_len < n)
+// The square call's plan (the rows are the n candidates), for sim_topk_f32.
+extern "C" int sim_topk_plan(int batch, int n, int c, int k, int* plan) {
+  return sim_topk_plan_rows(batch, n, n, c, k, plan);
+}
+
+// q [batch, nq, c] float32 and qcid [batch, nq] int32: the query rows; h
+// [batch, n, c] float32, cid [batch, n] int32 and mask [batch, n] float32: the
+// candidates; run_v / run_i [batch, nq, k] the running list to fold in
+// (float32 / int32, global indices), or both null; part_v / part_i [batch,
+// chunks, nq, depth] the workspace of sim_topk_plan_rows; bound [batch, nq]
+// int32 filled with INT_MIN; vals [batch, nq, k] float32 and idx [batch, nq,
+// k] int32 are written (never run_v / run_i themselves). All contiguous on the
+// device; 1 <= k <= 16 (k may exceed n: the rest stays unfilled),
+// 1 <= c <= 16, and chunks of chunk_len candidates (a multiple of 128, at
+// most 128 tiles) must cover n. Launches both kernels on `stream` and
+// returns the cudaError_t of the launches.
+extern "C" int sim_topk_rows_f32(const float* q, const int* qcid, const float* h,
+                                 const int* cid, const float* mask, const float* run_v,
+                                 const int* run_i, float* part_v, int* part_i, int* bound,
+                                 float* vals, int* idx, int batch, int nq, int n, int c, int k,
+                                 int chunks, int chunk_len, int col_offset, void* stream) {
+  if (!shape_ok(batch, nq, n, c, k) || chunks < 1 || chunk_len < TC || chunk_len % TC ||
+      chunk_len > MAX_TILES * TC || (long long)chunks * chunk_len < n ||
+      (run_v == nullptr) != (run_i == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_instance(k, c, [&](auto inst) {
     using I = decltype(inst);
-    const dim3 grid((n + ROWS - 1) / ROWS, chunks, batch);
+    const dim3 grid((nq + ROWS - 1) / ROWS, chunks, batch);
     if (ABLATE != 4)
-      sim_topk_kernel<I::K, I::CPAD><<<grid, THREADS, 0, s>>>(h, cid, mask, part_v, part_i,
-                                                               bound, n, c, chunk_len);
+      sim_topk_kernel<I::K, I::CPAD><<<grid, THREADS, 0, s>>>(
+          q, qcid, h, cid, mask, part_v, part_i, bound, nq, n, c, chunk_len);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 merge_grid((n + THREADS - 1) / THREADS, batch);
-    sim_topk_merge_kernel<I::K><<<merge_grid, THREADS, 0, s>>>(part_v, part_i, vals, idx, n,
-                                                                k, chunks, col_offset);
+    const dim3 merge_grid((nq + THREADS - 1) / THREADS, batch);
+    sim_topk_merge_kernel<I::K><<<merge_grid, THREADS, 0, s>>>(
+        part_v, part_i, run_v, run_i, vals, idx, nq, k, chunks, col_offset);
     return static_cast<int>(cudaGetLastError());
   });
+}
+
+// The square call: every row of h [batch, n, c] against h itself, k <= n,
+// with no running list; the workspace of sim_topk_plan.
+extern "C" int sim_topk_f32(const float* h, const int* cid, const float* mask,
+                            float* part_v, int* part_i, int* bound, float* vals, int* idx,
+                            int batch, int n, int c, int k, int chunks, int chunk_len,
+                            int col_offset, void* stream) {
+  if (k > n) return static_cast<int>(cudaErrorInvalidValue);
+  return sim_topk_rows_f32(h, cid, h, cid, mask, nullptr, nullptr, part_v, part_i, bound,
+                           vals, idx, batch, n, n, c, k, chunks, chunk_len, col_offset,
+                           stream);
 }

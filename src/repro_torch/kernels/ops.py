@@ -63,20 +63,41 @@ def sage_aggregate(adj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 
 def sim_topk(h: torch.Tensor, client_ids: torch.Tensor, target_mask: torch.Tensor,
-             k: int, *, col_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+             k: int, *, col_offset: int = 0, rows: Optional[torch.Tensor] = None,
+             row_cid: Optional[torch.Tensor] = None,
+             run: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused masked top-k similarity, batched over a leading [N] axis.
 
-    h: [N, n, c] or [n, c]; client_ids: [n] or [N, n]; target_mask: like h
-    without c. Per row of h: the k most similar rows of h whose client id
-    differs and whose target mask is set. Returns (vals [.., n, k] f32 with
-    -inf on missing candidates, idx [.., n, k] int32 with -1 there).
+    h: [N, n, c] or [n, c], the candidates; client_ids: [n] or [N, n];
+    target_mask: like h without c. Per query row: the k most similar
+    candidates whose client id differs from the row's and whose target mask
+    is set, candidate j as index ``col_offset + j``. The query rows are h
+    itself (the square call), or ``rows`` [.., q, c] of clients ``row_cid``
+    [.., q] (or [q]). ``run``, a running (vals, idx) [.., q, k] with global
+    indices, is folded in, ties going to the smallest global index. Returns
+    (vals [.., q, k] f32 with -inf on missing candidates, idx [.., q, k]
+    int32 with -1 there).
     """
+    if (rows is None) != (row_cid is None):
+        raise ValueError("sim_topk: pass rows and row_cid together")
     if _route(h, "sim_topk") == "cpu":
-        return ref.sim_topk(h, client_ids, target_mask, k, col_offset)
-    if h.ndim == 2:
-        vals, idx = _sim.launch(h[None], client_ids, target_mask, k, col_offset)
-        return vals[0], idx[0]
-    return _sim.launch(h, client_ids, target_mask, k, col_offset)
+        return ref.sim_topk(h, client_ids, target_mask, k, col_offset, rows=rows,
+                            row_cid=row_cid, run=run)
+    flat = h.ndim == 2
+    if flat:
+        h = h[None]
+        rows = None if rows is None else rows[None]
+        run = None if run is None else (run[0][None], run[1][None])
+    if rows is None and run is None:
+        vals, idx = _sim.launch(h, client_ids, target_mask, k, col_offset)
+    elif rows is None:
+        vals, idx = _sim.launch_rows(h, client_ids, h, client_ids, target_mask, k, col_offset,
+                                     run)
+    else:
+        vals, idx = _sim.launch_rows(rows, row_cid, h, client_ids, target_mask, k, col_offset,
+                                     run)
+    return (vals[0], idx[0]) if flat else (vals, idx)
 
 
 def sim_block(rows: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

@@ -144,25 +144,41 @@ def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def sim_topk(h: torch.Tensor, client_ids: torch.Tensor, target_mask: torch.Tensor,
-             k: int, col_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked top-k over the gram ``h @ hᵀ``, batched over leading axes.
+             k: int, col_offset: int = 0, *, rows: Optional[torch.Tensor] = None,
+             row_cid: Optional[torch.Tensor] = None,
+             run: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k over the gram ``rows @ hᵀ``, batched over leading axes.
 
-    h: [..., n, c]; client_ids: [..., n] (or [n], broadcast); target_mask:
-    [..., n]. Row r's candidates are the columns of another client whose
-    target mask is set. Returns (vals [..., n, k] f32 with -inf on unfilled
-    slots, idx [..., n, k] int32 with -1 there); ``col_offset`` shifts the
-    emitted indices. Ties go to the smallest index.
+    h: [..., n, c], the candidates; client_ids: [..., n] (or [n],
+    broadcast); target_mask: [..., n]. The query rows are h itself (the
+    square call, k <= n), or ``rows`` [..., q, c] of clients ``row_cid``
+    [..., q] (or [q]). Row r's candidates are the columns of another client
+    whose target mask is set. Returns (vals [..., q, k] f32 with -inf on
+    unfilled slots, idx [..., q, k] int32 with -1 there); ``col_offset``
+    shifts the emitted indices. Ties go to the smallest index. ``run``, a
+    running (vals, idx) [..., q, k] with global indices, is folded in by
+    :func:`topk_merge`'s rule; with rows or a running list, k may exceed n.
     """
     n = h.shape[-2]
-    if not 1 <= k <= n:
+    square = rows is None and run is None
+    if square and not 1 <= k <= n:
         raise ValueError(f"need 1 <= k <= n, got k={k}, n={n}")
+    if rows is None:
+        rows, row_cid = h, client_ids
     hf = h.float()
-    gram = hf @ hf.transpose(-1, -2)
-    cid = client_ids.to(torch.int32)
-    keep = (cid[..., :, None] != cid[..., None, :]) & (target_mask[..., None, :] > 0)
+    gram = rows.float() @ hf.transpose(-1, -2)
+    keep = ((row_cid.to(torch.int32)[..., :, None] != client_ids.to(torch.int32)[..., None, :])
+            & (target_mask[..., None, :] > 0))
     gram = torch.where(keep, gram, -torch.inf)
-    vals, idx = stable_topk(gram, k)
+    vals, idx = stable_topk(gram, min(k, n))
     idx = torch.where(vals > -torch.inf, idx.to(torch.int32) + col_offset, -1)
+    if k > n:
+        pad = vals.shape[:-1] + (k - n,)
+        vals = torch.cat([vals, vals.new_full(pad, -torch.inf)], -1)
+        idx = torch.cat([idx, idx.new_full(pad, -1)], -1)
+    if run is not None:
+        vals, idx = topk_merge(run[0].float(), run[1].to(torch.int32), vals, idx)
     return vals, idx
 
 

@@ -13,12 +13,26 @@ falling back). Every method of the reference's registry runs.
 and SpreadFGL into ``spreadfgl_async`` (delays from ``--delay-dist``,
 dropouts at ``--dropout-rate``); ``--participation R`` lets ceil(R·M)
 clients into each round's aggregation. ``--save-state`` writes the final
-``FGLState`` to an ``.npz``; ``--resume`` continues one at its round. A
+``FGLState`` to an ``.npz`` (with the reference's PRNG ``key`` leaf, so the
+JAX package resumes it too); ``--resume`` continues one at its round. A
 checkpoint the JAX package wrote resumes too: every leaf but its PRNG
 ``key`` is taken, and the port's generator starts from ``--seed``, so its
-later imputation noise differs from the reference's. ``--edge-mesh`` and
-``--sim-shard`` need several devices and raise ``NotImplementedError``. Each
-round's wall time is printed after the round lines.
+later imputation noise differs from the reference's. Each round's wall
+time is printed after the round lines.
+
+``--edge-mesh`` places the [N] server axis on a mesh of ranks
+(``launch.mesh.make_edge_mesh``) and ``--sim-shard`` rotates the
+imputation's candidate axis around one (``core/ring_topk.py``), one mesh for
+both roles when both are given, as in the reference. Alone the process has
+no process group and the meshes have size 1; under ``torchrun`` (env
+rendezvous) they span the ranks of the world (``nccl`` when each rank has a
+card of its own, ``gloo`` otherwise):
+
+  torchrun --nproc-per-node 3 -m repro_torch.launch.fgl_train \\
+      --dataset coauthor_cs --scale 1.0 --clients 6 --servers 3 --edge-mesh --sim-shard
+
+``launch.edge_mesh --devices N`` starts the ranks itself. Only rank 0
+prints and writes files.
 """
 from __future__ import annotations
 
@@ -29,6 +43,7 @@ import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import registry
@@ -38,6 +53,10 @@ from repro_torch.core.partition import (PARTITIONERS, count_missing_links,
                                         partition_graph)
 from repro_torch.core.types import ClientBatch, FGLConfig, Graph
 from repro_torch.data.synthetic_graphs import DATASETS, make_sbm_graph
+from repro_torch.launch import mesh as mesh_lib
+
+SERVER_METHODS = ("SpreadFGL", "spreadfgl_gossip", "spreadfgl_async")
+IMPUTING_METHODS = ("FedGL",) + SERVER_METHODS
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -85,9 +104,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", default="",
                     help="restore an FGLState .npz and continue at its round")
     ap.add_argument("--edge-mesh", action="store_true",
-                    help="not ported yet (ROADMAP.md, queue 1, item 11)")
+                    help="shard the stacked [N] edge-server axis over the ranks "
+                         "(launch/mesh.py)")
     ap.add_argument("--sim-shard", action="store_true",
-                    help="not ported yet (ROADMAP.md, queue 1, item 10)")
+                    help="ring-rotate the imputation candidate axis around the "
+                         "ranks (core/ring_topk.py)")
     return ap
 
 
@@ -120,12 +141,9 @@ def _resolve_method(ap: argparse.ArgumentParser, args: argparse.Namespace) -> No
                      f"spreadfgl_async, not --method {args.method}")
     elif args.method == "spreadfgl_async":
         ap.error("--method spreadfgl_async needs --async-buffer >= 1")
-    if args.edge_mesh:
-        raise NotImplementedError("--edge-mesh is not ported to repro_torch yet "
-                                  "(ROADMAP.md, queue 1, item 11)")
-    if args.sim_shard:
-        raise NotImplementedError("--sim-shard is not ported to repro_torch yet "
-                                  "(ROADMAP.md, queue 1, item 10)")
+    if args.sim_shard and args.method not in IMPUTING_METHODS:
+        ap.error(f"--sim-shard needs an imputation round to shard; "
+                 f"--method {args.method} has none")
 
 
 def resume_state(path: str, template: FGLState) -> FGLState:
@@ -184,47 +202,73 @@ def main(argv: Optional[Sequence[str]] = None, *,
     already built it."""
     args = parse(argv)
     resolve_device(args.device)   # fail before building data, not after
+    joined = mesh_lib.init_from_env(args.device)
+    try:
+        return _run(args, data)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace,
+         data: Optional[Tuple[ClientBatch, Graph, np.ndarray]]) -> Dict[str, list]:
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    say = _printer(lead)
     batch, graph, assign = data if data is not None else build_data(args)
     ent = label_skew_entropy(assign, graph.y, args.clients)
-    print(f"[fgl] {args.dataset}: {graph.num_nodes} nodes, "
-          f"{count_missing_links(graph, assign)} missing cross-client links")
-    print(f"[fgl] partitioner={args.partitioner} "
-          f"mean client label entropy={ent.mean():.3f} nats")
+    say(f"[fgl] {args.dataset}: {graph.num_nodes} nodes, "
+        f"{count_missing_links(graph, assign)} missing cross-client links")
+    say(f"[fgl] partitioner={args.partitioner} "
+        f"mean client label entropy={ent.mean():.3f} nats")
     if args.participation < 1.0:
         n_part = max(1, math.ceil(args.participation * args.clients))
-        print(f"[fgl] partial participation: rho={args.participation} "
-              f"({n_part} of {args.clients} clients aggregate per round)")
+        say(f"[fgl] partial participation: rho={args.participation} "
+            f"({n_part} of {args.clients} clients aggregate per round)")
     cfg = config(args)
     kw = {"device": args.device}
-    if args.method in ("SpreadFGL", "spreadfgl_gossip", "spreadfgl_async"):
+    if args.method in SERVER_METHODS:
         kw["num_servers"] = args.servers
+        if args.edge_mesh:
+            kw["edge_mesh"] = mesh_lib.make_edge_mesh(args.servers)
+            say(f"[fgl] edge mesh: {kw['edge_mesh'].size} device(s) for "
+                f"N={args.servers} ({mesh_lib.describe(kw['edge_mesh'])})")
+    if args.sim_shard:
+        # One mesh, two roles: the [N] server axis is split over it, and the
+        # candidate axis rotates around it as a ring.
+        kw["sim_mesh"] = kw["edge_mesh"] if "edge_mesh" in kw else mesh_lib.make_sim_mesh()
+        say(f"[fgl] sim shard: candidate axis over {kw['sim_mesh'].size} device(s)")
     if args.method == "spreadfgl_gossip":
-        print(f"[fgl] gossip aggregation: cross-server exchange every "
-              f"{args.gossip_every} round(s)")
+        say(f"[fgl] gossip aggregation: cross-server exchange every "
+            f"{args.gossip_every} round(s)")
     if args.method == "spreadfgl_async":
-        print(f"[fgl] async aggregation: buffer B={args.async_buffer} of "
-              f"M={args.clients}, delays={args.delay_dist}, "
-              f"dropout={args.dropout_rate}")
+        say(f"[fgl] async aggregation: buffer B={args.async_buffer} of "
+            f"M={args.clients}, delays={args.delay_dist}, "
+            f"dropout={args.dropout_rate}")
     tr = registry.build(args.method, cfg, batch, **kw)
     if args.resume:
         state = resume_state(args.resume, tr.init(batch))
-        print(f"[fgl] resumed {args.resume} at round {state.round}")
+        say(f"[fgl] resumed {args.resume} at round {state.round}")
         state, hist = tr.fit(state=state, rounds=args.rounds)
     else:
         state, hist = tr.fit(batch, rounds=args.rounds)
     for i, r in enumerate(hist["round"]):
-        print(f"[fgl] round {r:3d} loss={hist['loss'][i]:8.4f} "
-              f"acc={hist['acc'][i]:.3f} f1={hist['f1'][i]:.3f}")
-    print(f"[fgl] best acc={max(hist['acc']):.3f} f1={max(hist['f1']):.3f}")
-    print("[fgl] round seconds: "
-          + " ".join(f"{s:.3f}" for s in hist["seconds"]) + f" ({args.device})")
-    if args.save_state:
+        say(f"[fgl] round {r:3d} loss={hist['loss'][i]:8.4f} "
+            f"acc={hist['acc'][i]:.3f} f1={hist['f1'][i]:.3f}")
+    say(f"[fgl] best acc={max(hist['acc']):.3f} f1={max(hist['f1']):.3f}")
+    say("[fgl] round seconds: "
+        + " ".join(f"{s:.3f}" for s in hist["seconds"]) + f" ({args.device})")
+    if args.save_state and lead:
         ckpt_io.save(args.save_state, state)
-        print(f"[fgl] saved FGLState (round {state.round}) to {args.save_state}")
-    if args.json_out:
+        say(f"[fgl] saved FGLState (round {state.round}) to {args.save_state}")
+    if args.json_out and lead:
         with open(args.json_out, "w") as f:
             json.dump(hist, f)
     return hist
+
+
+def _printer(lead: bool):
+    """``print`` on rank 0 (or without a process group), silence elsewhere."""
+    return print if lead else (lambda *a, **k: None)
 
 
 if __name__ == "__main__":

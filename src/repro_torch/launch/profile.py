@@ -26,7 +26,13 @@ expert GEMMs and their activation; ``moe.combine``); likewise the mamba
 scan (``ssm.scan``, ``ssm.step`` in decode), the xLSTM recurrences
 (``xlstm.mlstm``, ``xlstm.slstm``), the plain cross-attention
 (``attention.cross``: the vlm's and whisper's memory k/v and attention,
-and whisper's encoder self-attention) and whisper's ``encoder``. The profiler's own
+and whisper's encoder self-attention) and whisper's ``encoder``; and the
+distributed edge layer's ``ring_topk.fold`` (one ``sim_topk`` call on a
+visiting slab), ``ring_topk.rotate`` (a slab sent to the next rank) and
+``gossip.exchange`` (parameters or boundary slices sent to neighbors), each
+also with its host time, the time in collectives (run ``fgl_train
+--edge-mesh --sim-shard`` under ``torchrun``: each rank reports its own).
+The profiler's own
 cost lengthens the windows, so a busy share is a lower bound. Needs a CUDA
 device.
 """
@@ -56,7 +62,7 @@ _KINDS = (("attention backward", ("flash_attention_bwd",)),
 # record_function ranges of the port's modules: their device time is that
 # of the kernels launched inside them, never a kernel of its own. The
 # encoder's range holds its self-attention's "attention.cross" ranges.
-_RANGES = ("moe.", "ssm.", "xlstm.", "attention.cross", "encoder")
+_RANGES = ("moe.", "ssm.", "xlstm.", "attention.cross", "encoder", "ring_topk.", "gossip.")
 
 
 def _kind(name: str) -> str:
@@ -92,7 +98,8 @@ def _report(prof, label: str, window_s: float, top: int, *, skip_upload: bool = 
     for e in sorted((e for e in events if e.device_type == DeviceType.CPU
                      and e.key.startswith(_RANGES)), key=lambda e: e.key):
         print(f"[profile] {label} range {e.key}: {e.device_time_total / 1e3:.2f} ms of device "
-              f"time in {e.count} calls ({100 * e.device_time_total / max(total_us, 1):.1f}%)")
+              f"time in {e.count} calls ({100 * e.device_time_total / max(total_us, 1):.1f}%), "
+              f"{e.cpu_time_total / 1e3:.2f} ms of host time")
 
 
 def _profile():

@@ -18,9 +18,13 @@ Attention runs through ``kernels.ops.mha`` in both passes (the CUDA forward
 and backward kernels on the card), and with ``cfg.remat`` each layer group
 is recomputed in the backward pass (``models.transformer.forward``).
 
-``aggregation="spread"`` (the paper's Eq. 16 as gossip between pods)
-places pods on several cards and raises ``NotImplementedError`` (ROADMAP.md
-queue 1, item 11).
+``aggregation="spread"`` is the paper's Eq. 16 as gossip between pods:
+each pod is a rank of a mesh (``launch.mesh.make_host_mesh``) holding the
+whole model and its share of the batch; its gradients are not averaged with
+the other pods', and after the optimizer update its parameters are averaged
+with its two ring neighbors' every ``gossip_every`` steps
+(``core.gossip.maybe_gossip``), as the reference's step does inside
+``shard_map`` over its ``pod`` axis.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import gossip
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
@@ -120,24 +125,31 @@ def loss_and_grads(model: Transformer, cfg: ModelConfig, batch: Batch, microbatc
 
 
 def make_train_step(cfg: ModelConfig, optimizer, *, aggregation: str = "allreduce",
-                    gossip_every: int = 1, pod_axis: Optional[str] = None,
-                    microbatch: int = 1
+                    gossip_every: int = 1, pod_axis=None, microbatch: int = 1
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """aggregation: "allreduce" (one card: the plain step). "spread" gossips
-    parameters between pods on several cards and is not ported yet.
-    ``microbatch`` > 1 accumulates gradients over that many chunks of the
-    batch (peak activation memory / microbatch)."""
-    if aggregation == "spread":
-        raise NotImplementedError("aggregation='spread' places pods on several cards and "
-                                  "is not ported yet (ROADMAP.md, queue 1, item 11)")
-    if aggregation != "allreduce":
+    """aggregation: "allreduce" (the plain step on one card) or "spread"
+    (the paper's gossip): with ``pod_axis``, the pod mesh (a
+    ``launch.mesh.Mesh``, the counterpart of the reference's axis name),
+    each step's update is followed by ``maybe_gossip`` of the parameters
+    over it every ``gossip_every`` steps, leaf by leaf in place; without
+    it, as in the reference, the plain step. ``microbatch`` > 1 accumulates
+    gradients over that many chunks of the batch (peak activation memory /
+    microbatch)."""
+    if aggregation not in ("allreduce", "spread"):
         raise ValueError(f"unknown aggregation {aggregation!r}")
-    del gossip_every, pod_axis      # used by "spread" only
+    pods = pod_axis if aggregation == "spread" else None
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         total, metrics, grads = loss_and_grads(state.params, cfg, batch, microbatch)
-        opt_state = optimizer.update_(grads, state.opt_state, leaves(state.params))
+        named = leaves(state.params)
+        opt_state = optimizer.update_(grads, state.opt_state, named)
         del grads
+        if pods is not None:
+            with torch.no_grad():
+                for p in named.values():
+                    new = gossip.maybe_gossip(p, state.step, pods, every=gossip_every)
+                    if new is not p:
+                        p.copy_(new)
         return (TrainState(params=state.params, opt_state=opt_state, step=state.step + 1),
                 dict(metrics, total=total))
 

@@ -125,7 +125,7 @@ def test_leaf_names_are_the_references(spread, tmp_path):
     jio.save(tmp_path / "j.npz", j2)
     pio.save(tmp_path / "p.npz", port_state(j2))
     jnames, pnames = set(np.load(tmp_path / "j.npz").files), set(np.load(tmp_path / "p.npz").files)
-    assert jnames - {"key"} == pnames - {"gen"}
+    assert jnames == pnames - {"gen"}     # the port writes the reference's key too
 
 
 def test_own_save_and_resume_is_bit_for_bit(spread, tmp_path):
@@ -154,6 +154,34 @@ def test_resume_reads_a_jax_written_fgl_checkpoint(spread, tmp_path):
     noises = replay_noises(jtr_, j2, 2)
     _, jh = jtr_.fit(state=j2, rounds=2)
     _, ph = ptr.fit(state=restored, rounds=2, noise=noises.get,
+                    mask=lambda r: torch.from_numpy(np.array(jtr_._participation_mask(r))))
+    assert_histories_close(ph, jh)
+
+
+def test_jax_package_resumes_a_port_checkpoint(spread, tmp_path):
+    """A state the port saved is restored by the JAX package's
+    ``checkpoint.io.restore``, its key derived from the seed and the round,
+    and continued by the reference's ``FGLTrainer.fit(state=)``; the port,
+    continuing from the same file with the reference's noise and masks,
+    follows it."""
+    jtr_, ptr, j2 = spread
+    pstate, _ = ptr.fit(state=port_state(j2), rounds=1,
+                        noise=replay_noises(jtr_, j2, 1).get,
+                        mask=lambda r: torch.from_numpy(np.array(jtr_._participation_mask(r))))
+    pio.save(tmp_path / "p.npz", pstate)
+    restored = jio.restore(tmp_path / "p.npz", jtr_.init(jax.random.key(5), j2.batch))
+    assert restored.round == 3 and type(restored.round) is int
+    np.testing.assert_array_equal(np.asarray(jax.random.key_data(restored.key)),
+                                  np.array([3, jtr_.cfg.seed], np.uint32))
+    np.testing.assert_array_equal(  # at round 0 the key is jax.random.key(seed)'s
+        pio.save(tmp_path / "r0.npz", dataclasses.replace(pstate, round=0)) or
+        np.load(tmp_path / "r0.npz")["key"], jax.random.key_data(jax.random.key(jtr_.cfg.seed)))
+    _same(port_state(restored), dataclasses.replace(pstate, gen=port_state(restored).gen))
+    noises = replay_noises(jtr_, restored, 2)
+    _, jh = jtr_.fit(state=restored, rounds=2)
+    assert jh["round"] == [3, 4] and np.all(np.isfinite(jh["loss"]))
+    resumed = fgl_train.resume_state(tmp_path / "p.npz", ptr.init(port_batch(j2.batch)))
+    _, ph = ptr.fit(state=resumed, rounds=2, noise=noises.get,
                     mask=lambda r: torch.from_numpy(np.array(jtr_._participation_mask(r))))
     assert_histories_close(ph, jh)
 

@@ -247,6 +247,77 @@ def test_sim_topk_refuses_what_it_cannot_run(dev):
                      torch.ones((1, 40), device=dev), 17)
 
 
+def _rows_scores(rows, cand):
+    """scores_of for query rows against candidates: float64 row of rows @ candᵀ."""
+    r64, c64 = np.asarray(rows, np.float64), np.asarray(cand, np.float64)
+
+    def scores_of(lead, row):
+        return (c64[lead] if lead else c64) @ (r64[lead] if lead else r64)[row]
+    return scores_of
+
+
+# (nb, q, m, c, k, col_offset): query rows apart from the candidates, fewer
+# or more of them, shifted indices, k above the candidate count.
+@pytest.mark.parametrize("nb,q,m,c,k,off", [(3, 700, 1237, 7, 4, 0), (2, 2100, 900, 15, 4, 4000),
+                                            (1, 50, 3, 5, 8, 17), (2, 333, 2600, 16, 16, 0)])
+def test_sim_topk_rows_match_plain(dev, nb, q, m, c, k, off):
+    """The general form: query rows of their own clients against a candidate
+    slab, against ``ref.sim_topk``'s rows form; one launch."""
+    gen = torch.Generator(device=dev).manual_seed(q + m + k)
+    cand, cid, mask = _sim(gen, nb, m, c, dev) if m > 40 else (
+        torch.randn((nb, m, c), generator=gen, device=dev),
+        torch.arange(m, dtype=torch.int32, device=dev), torch.ones((nb, m), device=dev))
+    rows = torch.randn((nb, q, c), generator=gen, device=dev)
+    rows[:, 5] = cand[:, m // 2]                # a row that meets its own copy
+    rcid = torch.randint(0, 4, (nb, q), generator=gen, device=dev).to(torch.int32)
+    before = ksim.launches
+    kv, ki = ops.sim_topk(cand, cid, mask, k, col_offset=off, rows=rows, row_cid=rcid)
+    torch.cuda.synchronize()
+    assert ksim.launches == before + 1
+    rv, ri = ref.sim_topk(cand, cid, mask, k, col_offset=off, rows=rows, row_cid=rcid)
+    unshift = lambda i: np.where(i >= 0, i - off, -1)  # noqa: E731
+    assert_topk_match(kv.cpu().numpy(), unshift(ki.cpu().numpy()), rv.cpu().numpy(),
+                      unshift(ri.cpu().numpy()), _rows_scores(rows.cpu(), cand.cpu()),
+                      atol=1e-5)
+
+
+@pytest.mark.parametrize("slabs", [2, 3, 4])
+@pytest.mark.parametrize("ints", [False, True])
+def test_sim_topk_fold_over_slabs_is_the_square_call(dev, slabs, ints):
+    """Query shards folded over candidate slabs in ring order (each shard's
+    own slab first, then the one before it, ...), at the slabs' offsets,
+    with the running list folded in by the merge kernel: bit for bit the
+    square call's result, random or integer (tie-heavy) features."""
+    nb, n, c, k = 3, 2900, 15, 4
+    gen = torch.Generator(device=dev).manual_seed(slabs)
+    h = (torch.randint(-2, 3, (nb, n, c), generator=gen, device=dev).float() if ints
+         else torch.randn((nb, n, c), generator=gen, device=dev))
+    cid = _client_ids("blocks", n, gen, dev)
+    mask = (torch.rand((nb, n), generator=gen, device=dev) < 0.8).float()
+    want_v, want_i = ops.sim_topk(h, cid, mask, k)
+    shard = -(-n // slabs)
+    pad = shard * slabs - n
+    hp = torch.cat([h, h.new_zeros((nb, pad, c))], 1)
+    cp = torch.cat([cid, cid.new_full((pad,), -1)])
+    mp = torch.cat([mask, mask.new_zeros((nb, pad))], 1)
+    got_v, got_i = [], []
+    before = ksim.launches
+    for me in range(slabs):
+        q = slice(me * shard, (me + 1) * shard)
+        run = None
+        for step in range(slabs):
+            owner = (me - step) % slabs
+            o = slice(owner * shard, (owner + 1) * shard)
+            run = ops.sim_topk(hp[:, o], cp[o], mp[:, o], k, col_offset=owner * shard,
+                               rows=hp[:, q], row_cid=cp[q], run=run)
+        got_v.append(run[0])
+        got_i.append(run[1])
+    torch.cuda.synchronize()
+    assert ksim.launches == before + slabs * slabs
+    got_v, got_i = torch.cat(got_v, 1)[:, :n], torch.cat(got_i, 1)[:, :n]
+    assert torch.equal(got_i, want_i) and torch.equal(got_v, want_v)
+
+
 # (b, hq, hkv, sq, skv, d, window, dtype): ragged with a window and GQA 2:1;
 # a 40-token prompt (the reference's ops.mha is wrong below 128); MQA at
 # D = 128; decode-style end alignment; more queries than keys (rows before

@@ -182,6 +182,11 @@ def test_cli_ported_flags_run(flag, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--edge-mesh"], ["--sim-shard"]])
-def test_cli_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError):
-        fgl_train.main(["--device", "cpu", *flag])
+def test_cli_mesh_flags_alone_change_nothing(flag):
+    """Without a process group the meshes have size 1: the history is the
+    plain run's bit for bit."""
+    base = ["--device", "cpu", "--dataset", "cora", "--scale", "0.06", "--clients", "4",
+            "--servers", "2", "--rounds", "2", "--local-rounds", "1", "-K", "1", "--top-k", "3"]
+    plain, meshed = fgl_train.main(base), fgl_train.main(base + flag)
+    for key in ("round", "loss", "acc", "f1"):
+        assert meshed[key] == plain[key], key

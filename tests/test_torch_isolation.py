@@ -5,7 +5,8 @@
   package.
 - The trainer, the launchers (FGL training, LM training) and the builders of
   LM weights and FGL state raise without CUDA unless told to use the CPU.
-- Only what needs several devices (the edge mesh) still raises.
+- The modules of the distributed edge layer (ring top-k, meshes, the edge
+  mesh launcher) are among those imported with jax blocked.
 """
 import ast
 import subprocess
@@ -128,7 +129,20 @@ def test_ported_config_builds(tiny_batch, field, value):
 
 
 @pytest.mark.parametrize("build", [make_fedgl, make_spreadfgl_gossip])
-def test_unported_config_raises(tiny_batch, build):
-    """The edge mesh (and with it a gossip mesh) needs several devices."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build(FGLConfig(hidden_dim=4), tiny_batch, edge_mesh=object(), device="cpu")
+def test_mesh_config_builds(tiny_batch, build):
+    """Without a process group every mesh has size 1: the builders take one."""
+    from repro_torch.launch import mesh
+    kw = ({"sim_mesh": mesh.make_sim_mesh()} if build is make_fedgl
+          else {"edge_mesh": mesh.make_edge_mesh(2), "num_servers": 2})
+    tr = build(FGLConfig(hidden_dim=4), tiny_batch, device="cpu", **kw)
+    got = tr.imputation.sim_mesh if build is make_fedgl else tr.edge_mesh
+    assert got.size == 1 and got.rank == 0
+
+
+def test_mesh_modules_are_covered():
+    """The ring top-k and the mesh modules are among those imported with jax
+    blocked, and scanned for imports."""
+    assert {"repro_torch.core.ring_topk", "repro_torch.launch.mesh",
+            "repro_torch.launch.edge_mesh"} <= set(_modules())
+    assert {PORT / "core" / "ring_topk.py", PORT / "launch" / "mesh.py",
+            PORT / "launch" / "edge_mesh.py"} <= set(SOURCES)

@@ -369,8 +369,9 @@ class TestGossip:
             PS.GossipAggregator(topology="mesh")
         with pytest.raises(ValueError, match="every_k"):
             PS.GossipAggregator(every_k=0)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            PS.GossipAggregator(mesh=object())
+        from repro_torch.launch import mesh
+        one = mesh.make_edge_mesh(3)           # no process group: size 1
+        assert PS.GossipAggregator(mesh=one).mesh.size == 1
 
     def test_builder_takes_every_k_from_cfg(self, small):
         batch, cfg = small

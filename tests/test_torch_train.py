@@ -359,11 +359,16 @@ def test_launcher_runs_and_refuses():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ptrain.main(["--arch", "qwen3-4b", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ptrain.main(["--device", "cpu", "--arch", "qwen3-4b", "--aggregation", "spread"])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="aggregation"):
         pstep.make_train_step(pconfigs.get_config("qwen3-4b", "smoke"), padam.Adam(),
-                              aggregation="spread")
+                              aggregation="gossip")
+    # One pod and no process group: spread is the plain step.
+    small = ["--device", "cpu", "--arch", "qwen3-4b", "--steps", "2", "--batch", "2",
+             "--seq", "16"]
+    plain = ptrain.main(small)
+    spread = ptrain.main(small + ["--aggregation", "spread", "--pods", "1",
+                                  "--gossip-every", "1"])
+    assert spread["losses"] == plain["losses"]
     out = ptrain.main(["--device", "cpu", "--arch", "qwen3-4b", "--steps", "3", "--batch",
                        "4", "--seq", "33", "--microbatch", "2", "--remat"])
     assert len(out["losses"]) == len(out["seconds"]) == 3

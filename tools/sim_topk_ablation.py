@@ -2,7 +2,7 @@
 """Time the CUDA ``sim_topk`` at the FGL main paths' shapes, with its split of
 the candidate axis swept and its mechanisms taken out one at a time.
 
-    python3 tools/sim_topk_ablation.py
+    python3 tools/sim_topk_ablation.py [--against DIR ...]
 
 Needs one CUDA card and ``nvcc``. Prints, for SpreadFGL on Coauthor-CS
 (``[3,12246,15]``) and FedGL on Cora (``[1,5484,7]``), k = 4, with the main
@@ -18,12 +18,20 @@ path's client layout (client = slot // n_pad) and target mask:
   no other chunk's), ``no_skip`` (no tile voted out), ``merge_only`` (the
   merge kernel alone, on whatever the workspace holds).
 
+``--against DIR`` (repeatable) builds the ``csrc/sim_topk.cu`` of another
+checkout unpacked at DIR (``git archive <commit> | tar -x -C DIR``) under
+``build/ablation/against<i>/`` and times its kernels at the planned chunks
+in turns with this tree's (this, other, other, this), after checking that
+both give the same lists bit for bit. The square call's C entry,
+``sim_topk_f32``, has the same signature in every tree since the split.
+
 Each time is the mean of 20 back-to-back calls after one warm-up, by CUDA
 events. The ``no_insert`` and ``merge_only`` builds give wrong results by
 design and are only timed.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -43,16 +51,22 @@ from repro_torch.kernels import sim_topk as ksim  # noqa: E402
 ABLATIONS = {"no_insert": 1, "no_shared_bound": 2, "no_skip": 3, "merge_only": 4}
 
 
-def _ablated_libs():
+def _ablated_libs(against=()):
     """One shared library per ablation, built from the kernel's source with
-    its switch set, under build/ablation/<name>/, all nvcc runs at once."""
+    its switch set, under build/ablation/<name>/, and one per other tree in
+    ``against`` (build/ablation/against<i>/), all nvcc runs at once."""
+    builds = {name: (build.CSRC / "sim_topk.cu", [f"-DSIM_TOPK_ABLATE={value}"])
+              for name, value in ABLATIONS.items()}
+    for i, tree in enumerate(against):
+        src = Path(tree).resolve() / "src" / "repro_torch" / "kernels" / "csrc" / "sim_topk.cu"
+        builds[f"against{i}"] = (src, [])
     procs = {}
-    for name, value in ABLATIONS.items():
+    for name, (src, defines) in builds.items():
         out = ROOT / "build" / "ablation" / name
         out.mkdir(parents=True, exist_ok=True)
         procs[name] = (out / "lib.so", subprocess.Popen(
-            [build._nvcc(), *build.ARCH, *build.FLAGS, f"-DSIM_TOPK_ABLATE={value}",
-             "-shared", "-o", str(out / "lib.so"), str(build.CSRC / "sim_topk.cu")],
+            [build._nvcc(), *build.ARCH, *build.FLAGS, *defines,
+             "-shared", "-o", str(out / "lib.so"), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -77,12 +91,16 @@ def _inputs(gen, nb, n, n_pad, c, n_local):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--against", action="append", default=[],
+                    help="another checkout's root, timed in turns with this one")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("sim_topk_ablation: no CUDA device", file=sys.stderr)
         return 1
     print(f"card: {_card_line()}")
     lib = build.load()
-    libs = {"committed": lib, **_ablated_libs()}
+    libs = {"committed": lib, **_ablated_libs(args.against)}
     gen = torch.Generator(device="cuda").manual_seed(0)
     k = 4
     for nb, n, n_pad, c, n_local in ((3, 12246, 6123, 15, 6111), (1, 5484, 914, 7, 902)):
@@ -121,9 +139,23 @@ def main() -> int:
             print(f"{shape}: committed chunks={s} chunk_len={length} kernels {ms:.4f} ms "
                   f"(max |score - plain| {err:.3g}, indices differing {differ})")
         for name, which in libs.items():
-            if name != "committed":
-                ms = _time_ms(lambda: call(which, chunks, chunk_len), 20)  # noqa: B023
-                print(f"{shape}: {name} chunks={chunks} kernels {ms:.4f} ms")
+            if name == "committed" or name.startswith("against"):
+                continue
+            ms = _time_ms(lambda: call(which, chunks, chunk_len), 20)  # noqa: B023
+            print(f"{shape}: {name} chunks={chunks} kernels {ms:.4f} ms")
+        for i, tree in enumerate(args.against):
+            other = libs[f"against{i}"]
+            call(lib, chunks, chunk_len)
+            mine = (vals.clone(), idx.clone())
+            call(other, chunks, chunk_len)
+            same = torch.equal(vals, mine[0]) and torch.equal(idx, mine[1])
+            turns = [_time_ms(lambda w=w: call(w, chunks, chunk_len), 20)
+                     for w in (lib, other, other, lib)]
+            print(f"{shape}: turns this {turns[0]:.4f}, {tree} {turns[1]:.4f}, "
+                  f"{tree} {turns[2]:.4f}, this {turns[3]:.4f} ms (kernels); "
+                  f"same lists bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"{tree}'s sim_topk gives other lists")
     return 0
 
 
