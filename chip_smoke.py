@@ -112,6 +112,12 @@ Phases (any failure raises, and the script exits non-zero):
    2048, 64 steps across the 1024-slot ring buffers; training 2 x 2048);
    xLSTM-125M (batch 8 x 2048, 64 steps; training 8 x 2048; no kernel on
    its path). Each prints its times, peak memory and flash launches.
+   After the serving and training main paths of Qwen3-4B, the H100 cost
+   model (``launch.dryrun.run_one``, counted on meta tensors, no card time)
+   of the same prefill and training step on the one-card mesh is held
+   against their measured seconds (its ``compute_s`` a bound) and peak
+   memory (the step's within 10 %); then the fleet's Qwen3-4B records and
+   ``gossip_dryrun``'s line are printed.
 5. One JSON line describing every kernel, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -140,12 +146,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
+from repro_torch.roofline import hw  # noqa: E402
+
+# The H100's data-sheet rates: float32 outside the tensor cores, dense TF32
 # and bf16 on the tensor cores, and HBM3.
-F32_FLOPS = 67e12
-TF32_FLOPS = 495e12
-BF16_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS, TF32_FLOPS, BF16_FLOPS = hw.PEAK_FLOPS_F32, hw.PEAK_FLOPS_TF32, hw.PEAK_FLOPS_BF16
+HBM_BYTES_PER_S = hw.HBM_BW
 
 SPREAD_ARGS = ["--dataset", "coauthor_cs", "--scale", "1.0", "--method", "SpreadFGL",
                "--clients", "6", "--servers", "3", "--rounds", "3", "-K", "2"]
@@ -1867,12 +1873,13 @@ def _spread_train_path():
     return runs
 
 
-def _serve_main_path(args, model=None):
+def _serve_main_path(args, model=None, measured: Optional[dict] = None):
     """``launch.serve.main(args, model=model)`` with the launch counters set to
     0 just before and read just after: prefill seconds, decode ms a step, peak
     memory and flash launches; for an MoE config the share of (token, k)
     slots that capacity dropped in each prefill layer; for a vlm, a second
-    prefill with other image embeddings, whose logits must differ."""
+    prefill with other image embeddings, whose logits must differ. The
+    prefill seconds and peak go into ``measured`` when given."""
     from repro_torch import configs
     from repro_torch.data.lm_data import memory_stub
     from repro_torch.launch import serve
@@ -1888,6 +1895,9 @@ def _serve_main_path(args, model=None):
     counts = _launches()
     drops, cos = ([float(t) for t in log[key]] for key in ("drop", "cos"))
     peak = torch.cuda.max_memory_allocated()
+    if measured is not None:
+        measured.update(seconds=out["prefill_s"], peak=peak, batch=flags.batch,
+                        seq=flags.prompt_len)
     logits, tokens = out["logits"], out["tokens"]
     n_params = sum(p.numel() for p in out["engine"].model.parameters())
     print(f"[smoke] main path serve {' '.join(args)}: {cfg.num_layers} layers, "
@@ -2010,10 +2020,11 @@ def _f32_serve_path(dev):
     return counts
 
 
-def _train_main_path():
+def _train_main_path(measured: Optional[dict] = None):
     """Qwen3-4B at full width and depth training in bf16 with remat, batch
     2 x 2048, 6 steps through ``launch.train.main``, with the launch
-    counters set to 0 just before and read just after."""
+    counters set to 0 just before and read just after. The median step's
+    seconds and the peak go into ``measured`` when given."""
     from repro_torch import configs
     from repro_torch.launch import train
 
@@ -2028,6 +2039,8 @@ def _train_main_path():
     losses, secs = out["losses"], out["seconds"]
     n_params = sum(p.numel() for p in out["state"].params.parameters())
     step_s = float(np.median(secs[1:]))
+    if measured is not None:
+        measured.update(seconds=step_s, peak=peak, batch=flags.batch, seq=flags.seq)
     tokens = flags.batch * flags.seq
     share = 6.0 * n_params * tokens / step_s / BF16_FLOPS
     per_step = {"flash_attention_tc_lse": cfg.num_layers * (2 if cfg.remat else 1),
@@ -2049,6 +2062,61 @@ def _train_main_path():
     del out
     torch.cuda.empty_cache()
     return counts
+
+
+def _check_dryrun(serve: dict, train: dict, card: str) -> None:
+    """The H100 cost model (``launch.dryrun.run_one``, counted on meta
+    tensors on the host) on the one-card mesh, held against what the serving
+    and training main paths measured just before: no card time of its own.
+    ``compute_s`` is a bound, so it may not exceed the measured seconds; the
+    training step's counted peak must lie within 10 % of
+    ``torch.cuda.max_memory_allocated``. Then the fleet's records of
+    Qwen3-4B and ``gossip_dryrun``'s line, as the cost model gives them."""
+    from repro_torch import configs
+    from repro_torch.configs import INPUT_SHAPES, InputShape
+    from repro_torch.launch import dryrun, gossip_dryrun
+    from repro_torch.launch.mesh import make_card_mesh, make_production_mesh
+
+    cfg = configs.get_config("qwen3-4b", "full")
+    for what, got, kind in (("prefill", serve, "prefill"), ("train step", train, "train")):
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(cfg, InputShape(what, got["seq"], got["batch"], kind),
+                             make_card_mesh())
+        counted = time.perf_counter() - t0
+        secs, peak = got["seconds"], got["peak"]
+        print(f"[smoke] dry-run {cfg.name} {what} {got['batch']} x {got['seq']} on one card "
+              f"(counted on meta in {counted:.1f} s, {rec['extra']['ops']} ops): compute_s "
+              f"{rec['compute_s']:.4f} ({rec['flops'] / 1e12:.2f} TFLOP), memory_s "
+              f"{rec['memory_s']:.4f} ({rec['hbm_bytes'] / 1e9:.1f} GB eager traffic), "
+              f"collective_s {rec['collective_s']:.4f}, memory/device "
+              f"{rec['memory_per_device'] / 1e9:.2f} GB; measured {secs:.4f} s, "
+              f"{peak / 1e9:.2f} GB peak; measured/compute_s {secs / rec['compute_s']:.2f}, "
+              f"measured/memory_s {secs / rec['memory_s']:.2f}, "
+              f"peak/memory_per_device {peak / rec['memory_per_device']:.4f}; card {card}")
+        if rec["collective_s"] != 0:
+            raise AssertionError(f"dry-run {what}: one card has no collectives, got "
+                                 f"{rec['collective_s']}")
+        if not rec["compute_s"] <= secs:
+            raise AssertionError(f"dry-run {what}: compute_s {rec['compute_s']:.4f} is no bound "
+                                 f"of the measured {secs:.4f} s")
+        if kind == "train" and not abs(rec["memory_per_device"] / peak - 1) <= 0.10:
+            raise AssertionError(f"dry-run train step: memory_per_device "
+                                 f"{rec['memory_per_device'] / 1e9:.2f} GB is not within 10 % "
+                                 f"of the measured peak {peak / 1e9:.2f} GB")
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        for multi in (False, True):
+            rec = dryrun.run_one(cfg, INPUT_SHAPES[shape], make_production_mesh(multi_pod=multi),
+                                 arch=cfg.name)
+            print(f"[smoke] dry-run {cfg.name} x {shape} x {rec['mesh']} ({rec['chips']} H100): "
+                  f"compute_s {rec['compute_s']:.4f}, memory_s {rec['memory_s']:.4f}, "
+                  f"collective_s {rec['collective_s']:.4f} "
+                  f"({ {a: round(v, 4) for a, v in rec['axis_seconds'].items()} }), dominant "
+                  f"{rec['dominant']}, memory/device {rec['memory_per_device'] / 1e9:.2f} GB")
+    g = gossip_dryrun.run(cfg.name, 8)
+    print(f"[smoke] gossip dry-run {cfg.name} K=8 over {g['link']}: allreduce "
+          f"{g['allreduce_bytes'] / 1e9:.3f} GB ({g['allreduce_s'] * 1e3:.2f} ms), spread "
+          f"{g['spread_bytes_per_step'] / 1e9:.3f} GB a step ({g['spread_s_per_step'] * 1e3:.2f} "
+          f"ms), ratio {g['ratio']:.3f}")
 
 
 def _lm_train_path(args, model=None, what: str = ""):
@@ -2266,10 +2334,12 @@ def main() -> int:
     runs += engine_runs
     edge_runs = _edge_paths(spread_hist, engine_hists["spreadfgl_gossip"])
     runs += edge_runs
-    runs.append(_serve_main_path(SERVE_ARGS))
+    serve_measured, train_measured = {}, {}
+    runs.append(_serve_main_path(SERVE_ARGS, measured=serve_measured))
     torch.cuda.empty_cache()
     runs.append(_f32_serve_path(dev))
-    runs.append(_train_main_path())
+    runs.append(_train_main_path(train_measured))
+    _check_dryrun(serve_measured, train_measured, card)
     runs += _spread_train_path()
     runs.append(_f32_train_path(dev))
     runs += _moe_vlm_serve_paths(dev)

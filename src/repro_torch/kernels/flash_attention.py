@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 # Kernel launches, read by chip_smoke.py: each forward kernel and
 # `launches` (their sum); each backward route and `launches_bwd` (theirs).
@@ -155,16 +155,18 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
 class FlashAttention(torch.autograd.Function):
     """Causal attention with a gradient: on CUDA tensors the forward kernel
     (keeping each row's log-sum-exp) and the backward kernel; on CPU tensors
-    their plain versions, ``ref.flash_attention`` (with
-    ``ref.flash_attention_lse``) and ``ref.flash_attention_bwd``."""
+    their plain versions, ``ref.flash_attention`` (keeping the log-sum-exp
+    too) and ``ref.flash_attention_bwd``; on meta tensors their shapes
+    (``kernels.meta``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, window):
         if q.device.type == "cuda":
             out, lse = launch(q, k, v, window=window, with_lse=True)
+        elif q.device.type == "meta":
+            out, lse = meta.flash_attention(q, k, v, with_lse=True)
         else:
-            out = ref.flash_attention(q, k, v, causal=True, window=window)
-            lse = ref.flash_attention_lse(q, k, window=window)
+            out, lse = ref.flash_attention(q, k, v, causal=True, window=window, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.window = window
         return out
@@ -172,6 +174,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = launch_bwd if q.device.type == "cuda" else ref.flash_attention_bwd
+        bwd = {"cuda": launch_bwd, "meta": meta.flash_attention_bwd}.get(
+            q.device.type, ref.flash_attention_bwd)
         dq, dk, dv = bwd(q, k, v, out, do, lse, window=ctx.window)
         return dq, dk, dv, None

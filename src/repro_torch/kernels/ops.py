@@ -2,8 +2,9 @@
 
 Counterpart of ``repro.kernels.ops``. A tensor on the CPU runs the plain
 version in ``ref``; a CUDA tensor launches the hand-written kernel, or the
-launch raises. There is no fallback from one to the other, and no other
-device is accepted.
+launch raises. There is no fallback from one to the other. ``mha`` also
+takes ``meta`` tensors (``kernels.meta``: the kernel's output shapes, its
+work charged to the dry-run's counter); no other device is accepted.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels import sage_aggregate as _sage
 from repro_torch.kernels import sim_topk as _sim
 
@@ -35,7 +36,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tru
     lengths itself. Where a gradient is wanted (grad mode on and one of
     q, k, v requiring it) it runs through ``FlashAttention``: on the card the
     forward kernel keeps each row's log-sum-exp and the backward kernel
-    gives the gradients; on the CPU their plain versions.
+    gives the gradients; on the CPU their plain versions; on ``meta``
+    tensors (a dry-run) their output shapes, or the active counter's
+    replacement (``meta.attention_override``: plain or chunked attention).
     """
     if not causal:
         raise ValueError("mha is causal only; non-causal (cross) attention takes "
@@ -43,11 +46,15 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tru
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"mha: q, k, v on different devices ({q.device}, {k.device}, "
                          f"{v.device})")
-    route = _route(q, "mha")
+    if q.device.type == "meta" and meta.attention_override() is not None:
+        return meta.attention_override()(q, k, v, window=window)
+    route = "meta" if q.device.type == "meta" else _route(q, "mha")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _fa.FlashAttention.apply(q, k, v, window)
     if route == "cpu":
         return ref.flash_attention(q, k, v, causal=True, window=window)
+    if route == "meta":
+        return meta.flash_attention(q, k, v)
     return _fa.launch(q, k, v, window=window)
 
 

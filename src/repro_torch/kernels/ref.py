@@ -45,7 +45,7 @@ def _scores(q: torch.Tensor, k: torch.Tensor, scale: Optional[float]) -> torch.T
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, with_lse: bool = False):
     """Masked softmax attention with f32 math; the plain flash kernel.
 
     q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] with ``Hq % Hkv == 0`` (q head
@@ -53,7 +53,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query i sits at position ``i + Skv - Sq`` (queries end-aligned with the
     keys); with ``causal`` it sees keys at positions <= its own, and with
     ``window`` only keys at positions > its own minus ``window``. Fully
-    masked rows give 0. The output has q's dtype. Counterpart of
+    masked rows give 0. The output has q's dtype. With ``with_lse``, the
+    pair (output, ``flash_attention_lse``'s log-sum-exp from the same
+    scores), as the forward kernels give it. Counterpart of
     ``repro.kernels.ref.flash_attention``, which takes kv heads already
     repeated to Hq.
     """
@@ -62,8 +64,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = _visible(sq, k.shape[2], causal, window, q.device)
     logits = logits.masked_fill(~mask, -torch.inf)
     probs = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
-    out = probs @ v.to(probs.dtype)[:, :, None]
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    out = (probs @ v.to(probs.dtype)[:, :, None]).reshape(b, hq, sq, d).to(q.dtype)
+    if with_lse:
+        return out, torch.logsumexp(logits, dim=-1).reshape(b, hq, sq)
+    return out
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, *, window: Optional[int] = None,

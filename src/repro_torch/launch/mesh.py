@@ -15,8 +15,12 @@ on it, the axis name and the device it computes on.
 - :func:`make_host_mesh` carries the ``pod`` axis of spread LM training.
 
 With no process group initialised every mesh has size 1, the degenerate mesh
-the reference has on a 1-device host. The reference's ``make_production_mesh``
-(a TPU v5e pod) has no counterpart here (ROADMAP queue 1, item 12).
+the reference has on a 1-device host.
+
+:func:`make_production_mesh` and :func:`make_card_mesh` describe the meshes
+the dry-run (``launch.dryrun``) lays a model over: a frozen
+:class:`ProductionMesh` of axis sizes and the link each axis runs over, not a
+process group.
 
 :func:`spawn` starts ``world_size`` ranks of a function, the counterpart of
 the reference's ``--devices N`` host emulation: rank r computes on
@@ -29,14 +33,17 @@ does.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import pickle
 import shutil
 import tempfile
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.roofline import hw
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -53,6 +60,50 @@ class Mesh:
     def peer(self, shift: int) -> int:
         """The global rank ``shift`` coordinates along the ring from this one."""
         return self.ranks[(self.rank + shift) % self.size]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ProductionMesh:
+    """Axis sizes (``shape``, as ``sharding.rules`` reads a mesh) and the
+    link each axis's collectives run over: ``(name, bytes/s each way)``."""
+
+    name: str
+    shape: Dict[str, int]
+    links: Dict[str, Tuple[str, float]]
+
+    @property
+    def chips(self) -> int:
+        return math.prod(self.shape.values())
+
+
+_NVLINK = ("NVLink", hw.NVLINK_BW)
+_IB = ("InfiniBand NDR", hw.IB_BW)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The H100 fleet: 256 cards as ``(data 32, model 8)``, or 512 as
+    ``(pod 2, data 32, model 8)``; the ``pod`` axis carries SpreadFGL's
+    edge-server topology (``core/gossip.py``).
+
+    ``model`` is the 8 cards of one HGX node, joined by NVLink; ``data`` and
+    ``pod`` cross nodes over InfiniBand (one NDR adapter a card). The
+    reference's TPU layout, ``(data 16, model 16)``, would stretch tensor
+    parallelism over two nodes: its per-layer all-reduces would then run at
+    InfiniBand's 50 GB/s instead of NVLink's 450.
+    """
+    model = hw.GPUS_PER_NODE
+    data = hw.CHIPS_SINGLE_POD // model
+    if multi_pod:
+        pods = hw.CHIPS_MULTI_POD // hw.CHIPS_SINGLE_POD
+        return ProductionMesh("multi", {"pod": pods, "data": data, "model": model},
+                              {"pod": _IB, "data": _IB, "model": _NVLINK})
+    return ProductionMesh("single", {"data": data, "model": model},
+                          {"data": _IB, "model": _NVLINK})
+
+
+def make_card_mesh() -> ProductionMesh:
+    """One card: every axis of size 1, so nothing is sharded or exchanged."""
+    return ProductionMesh("card", {"data": 1, "model": 1}, {"data": _IB, "model": _NVLINK})
 
 
 def _device() -> torch.device:

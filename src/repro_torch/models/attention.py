@@ -10,9 +10,8 @@ stay plain PyTorch, as the reference's are plain jnp.
 Sliding-window layers keep a ring-buffer cache of ``window`` entries; global
 layers keep the full-sequence cache. window == 0 means global.
 
-Not ported: ``_sdpa_chunked``, reached only through the reference's
-``attention_impl="chunked"``, which the port has no counterpart of
-(ROADMAP.md, queue 1, item 9(e)).
+``_sdpa_chunked`` is the reference's attention over query chunks; its one
+caller is the dry-run's ``--attention-impl chunked`` (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -53,6 +52,21 @@ class Attention(nn.Module):
         for t in (self.bq, self.bk, self.bv, self.bo):
             if t is not None:
                 t.data.zero_()
+
+
+def axes_attention(*, qk_norm: bool, use_bias: bool) -> dict:
+    """Logical axes of ``Attention``'s parameters (``repro.models.attention.axes_attention``)."""
+    p = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+         "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if qk_norm:
+        p["q_norm"] = (None,)
+        p["k_norm"] = (None,)
+    if use_bias:
+        p["bq"] = ("heads",)
+        p["bk"] = ("kv_heads",)
+        p["bv"] = ("kv_heads",)
+        p["bo"] = ("embed",)
+    return p
 
 
 def init_attention(gen: torch.Generator, d: int, num_heads: int, num_kv_heads: int,
@@ -104,6 +118,53 @@ def _sdpa(q, k, v, *, causal: bool, window: int, q_offset: int = 0,
     probs = torch.softmax(logits.masked_fill(~mask, -1e30), dim=-1)
     out = probs @ v.float()[:, :, None]
     return out.reshape(b, hq, sq, dh).to(q.dtype)
+
+
+def _sdpa_chunked(q, k, v, *, causal: bool, window: int, chunk: int = 1024,
+                  band: bool = True) -> torch.Tensor:
+    """``_sdpa`` over query chunks of ``chunk`` rows, so only ``[chunk x
+    Skv]`` score slabs exist at once; the same math as the reference's
+    ``_sdpa_chunked`` (f32 scores, masked logits -1e30, queries end-aligned
+    with the keys), with kv heads grouped instead of repeated.
+
+    A causal windowed layer with ``band`` (the reference's default, which
+    its ``REPRO_DISABLE_WINDOW_BAND`` environment switch turns off) scores
+    each chunk against only the band of keys it can see: ``chunk`` rounded
+    up past ``window + chunk``, the keys padded at the front so that every
+    band has that width. A ragged ``Sq`` takes one chunk.
+    """
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    chunk = min(chunk, sq)
+    if sq % chunk:
+        chunk = sq
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]     # [B, Hkv, 1, Skv, D]
+    offset = skv - sq
+    width = 0
+    if band and window and causal and window + chunk < skv:
+        width = chunk * -(-(window + chunk) // chunk)          # a multiple of chunk
+        kf = torch.nn.functional.pad(kf, (0, 0, width, 0))
+        vf = torch.nn.functional.pad(vf, (0, 0, width, 0))
+    rows = torch.arange(chunk, device=q.device)[:, None]
+    outs = []
+    for ci in range(sq // chunk):
+        qb = q[:, :, ci * chunk:(ci + 1) * chunk].float().reshape(b, hkv, g, chunk, dh)
+        if width:
+            start = ci * chunk + offset        # the band-padded keys' start for this chunk
+            kb, vb = (t[:, :, :, start:start + width + chunk] for t in (kf, vf))
+            qpos, kpos = rows + width, torch.arange(width + chunk, device=q.device)[None]
+            mask = (kpos <= qpos) & (kpos > qpos - window) & (kpos + start >= width)
+        else:
+            kb, vb = kf, vf
+            qpos, kpos = rows + ci * chunk + offset, torch.arange(skv, device=q.device)[None]
+            mask = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+            if window:
+                mask = mask & (kpos > qpos - window)
+        logits = (qb @ kb.transpose(-1, -2)) / (dh ** 0.5)
+        probs = torch.softmax(logits.masked_fill(~mask, -1e30), dim=-1)
+        outs.append(probs @ vb)
+    return torch.cat(outs, dim=3).reshape(b, hq, sq, dh).to(q.dtype)
 
 
 def _merge_heads(out: torch.Tensor) -> torch.Tensor:

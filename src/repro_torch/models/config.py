@@ -4,9 +4,10 @@ Counterpart of ``repro.models.config`` (a copy; this package imports nothing
 of the reference). ``attention_impl`` is gone: the tensors' device chooses the
 attention implementation (``kernels.ops.mha``). ``remat`` is honoured in
 training: ``transformer.forward`` recomputes each layer group in the backward
-pass (``torch.utils.checkpoint``). ``scan_layers`` and
-``seq_parallel_activations`` are carried so that the configs read the same;
-the port runs eagerly on one card, layer by layer, and ignores them.
+pass (``torch.utils.checkpoint``). ``scan_layers`` is carried so that the
+configs read the same; the port runs its layers one by one and ignores it.
+``seq_parallel_activations`` changes only the dry-run's collectives
+(``roofline.analysis``): the port runs no sequence-parallel program.
 
 One frozen dataclass describes dense / MoE / SSM / hybrid / VLM / audio
 (enc-dec) transformers. Per-layer heterogeneity (local vs global attention,

@@ -84,6 +84,14 @@ def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> to
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def axes_norm(kind: str) -> dict:
+    """Logical axes of ``Norm``'s parameters (``repro.models.layers.axes_norm``)."""
+    p = {"scale": ("embed",)}
+    if kind == "layernorm":
+        p["bias"] = ("embed",)
+    return p
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -148,6 +156,17 @@ class MLP(nn.Module):
         return out
 
 
+def axes_mlp(act: str, use_bias: bool) -> dict:
+    """Logical axes of ``MLP``'s parameters."""
+    p = {"w_up": ("embed", "ff"), "w_down": ("ff", "embed")}
+    if act == "silu":
+        p["w_gate"] = ("embed", "ff")
+    if use_bias:
+        p["b_up"] = ("ff",)
+        p["b_down"] = ("embed",)
+    return p
+
+
 # ---------------------------------------------------------------------------
 # Embeddings / unembedding
 # ---------------------------------------------------------------------------
@@ -171,6 +190,16 @@ class Embed(nn.Module):
             self.unembed.data.copy_(truncated_normal(gen, (d, vocab), d ** -0.5, dt))
         if self.positions is not None:
             self.positions.data.copy_(truncated_normal(gen, self.positions.shape, 0.02, dt))
+
+
+def axes_embed(*, tie: bool, max_positions: int = 0) -> dict:
+    """Logical axes of ``Embed``'s parameters."""
+    p = {"tokens": ("vocab", "embed")}
+    if not tie:
+        p["unembed"] = ("embed", "vocab")
+    if max_positions:
+        p["positions"] = (None, "embed")
+    return p
 
 
 def embed_tokens(p: Embed, tokens: torch.Tensor, *, scale: bool = True) -> torch.Tensor:

@@ -59,6 +59,16 @@ class MoE(nn.Module):
             self.w_gate.data.copy_(L.truncated_normal(gen, (e, d, ff), d ** -0.5, dt))
 
 
+def axes_moe(act: str) -> dict:
+    """Logical axes of ``MoE``'s parameters (``repro.models.moe.axes_moe``)."""
+    p = {"router": ("embed", None),
+         "w_up": ("experts", "embed", "expert_ff"),
+         "w_down": ("experts", "expert_ff", "embed")}
+    if act == "silu":
+        p["w_gate"] = ("experts", "embed", "expert_ff")
+    return p
+
+
 def init_moe(gen: torch.Generator, d: int, ff: int, num_experts: int, act: str,
              dtype) -> MoE:
     p = MoE(d, ff, num_experts, act, dtype=dtype, device=gen.device)

@@ -60,6 +60,14 @@ class Mamba(nn.Module):
         self.out_proj.data.copy_(L.truncated_normal(gen, (di, d), di ** -0.5, dt))
 
 
+def axes_mamba() -> dict:
+    """Logical axes of ``Mamba``'s parameters (``repro.models.ssm.axes_mamba``)."""
+    return {"in_proj": ("embed", "inner"), "w_bc": ("inner", None),
+            "w_dt": ("inner", None), "b_dt": (None,),
+            "a_log": ("inner", None), "d_skip": ("inner",),
+            "out_proj": ("inner", "embed")}
+
+
 def init_mamba(gen: torch.Generator, d: int, *, expand: int, state: int, dtype) -> Mamba:
     p = Mamba(d, expand=expand, state=state, dtype=dtype, device=gen.device)
     p.init_(gen)

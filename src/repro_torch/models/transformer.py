@@ -200,6 +200,47 @@ def apply_block(bp: Block, x: torch.Tensor, cfg: ModelConfig, kind: str, *, wind
     return x, aux
 
 
+def axes_block(cfg: ModelConfig, kind: str) -> Dict[str, Tuple]:
+    """Logical axes of a ``Block``'s parameters by their names within it
+    (``attn.wq``, ...): the reference's ``axes_block`` without its stacked
+    ``layers`` axis, which the port's per-layer blocks do not have."""
+    p: Dict[str, dict] = {"ln1": L.axes_norm(cfg.norm_kind)}
+    if kind == "mlstm":
+        p["mlstm"] = X.axes_mlstm()
+    elif kind == "slstm":
+        p["slstm"] = X.axes_slstm()
+    else:
+        p["attn"] = A.axes_attention(qk_norm=cfg.qk_norm, use_bias=cfg.use_bias)
+        p["ln2"] = L.axes_norm(cfg.norm_kind)
+        if cfg.is_moe:
+            p["moe"] = M.axes_moe(cfg.act)
+        else:
+            p["mlp"] = L.axes_mlp(cfg.act, cfg.use_bias)
+    if kind == "hybrid":
+        p["mamba"] = S.axes_mamba()
+    if kind == "encdec_dec":
+        p["ln_cross"] = L.axes_norm(cfg.norm_kind)
+        p["cross"] = A.axes_attention(qk_norm=False, use_bias=cfg.use_bias)
+    return _flat(p)
+
+
+def axes_cross_block(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical axes of a ``CrossBlock``'s parameters."""
+    return _flat({"ln": L.axes_norm(cfg.norm_kind),
+                  "attn": A.axes_attention(qk_norm=False, use_bias=cfg.use_bias),
+                  "gate": ()})
+
+
+def _flat(tree: dict, prefix: str = "") -> Dict[str, Tuple]:
+    out: Dict[str, Tuple] = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flat(val, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = tuple(val)
+    return out
+
+
 class CrossBlock(nn.Module):
     """Gated image cross-attention (llama-3.2-vision): ``ln``, ``attn``
     (no qk-norm) and a scalar ``gate``, 0 at init."""
@@ -302,6 +343,27 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Transformer
     model = Transformer(cfg, device=dev)
     model.init_(gen)
     return model
+
+
+def model_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical axes of every parameter of ``Transformer(cfg)``, keyed by its
+    name in ``named_parameters()`` (``blocks.{i}.attn.wq``, ...): the
+    counterpart of the reference's ``model_axes``. A per-layer leaf has no
+    ``layers`` axis (the reference's stacked dim, which never shards)."""
+    axes = _flat({"embed": L.axes_embed(
+        tie=cfg.tie_embeddings, max_positions=cfg.max_target_positions if cfg.is_encdec else 0),
+        "final_norm": L.axes_norm(cfg.norm_kind)})
+    for i in range(cfg.num_layers):
+        axes.update(_flat(axes_block(cfg, _block_kind(cfg, i)), f"blocks.{i}."))
+    if cfg.cross_attn_interval:
+        for i in range(cfg.num_layers // group_size(cfg)):
+            axes.update(_flat(axes_cross_block(cfg), f"cross_blocks.{i}."))
+    if cfg.is_encdec:
+        axes["encoder.positions"] = (None, "embed")
+        for i in range(cfg.encoder_layers):
+            axes.update(_flat(axes_block(cfg, "encoder"), f"encoder.blocks.{i}."))
+        axes.update(_flat(L.axes_norm(cfg.norm_kind), "encoder.final_norm."))
+    return axes
 
 
 def check_memory(cfg: ModelConfig, memory: Optional[torch.Tensor]) -> None:

@@ -61,6 +61,14 @@ class MLSTM(nn.Module):
         self.out_proj.data.copy_(L.truncated_normal(gen, (di, d), di ** -0.5, self.wq.dtype))
 
 
+def axes_mlstm() -> dict:
+    """Logical axes of ``MLSTM``'s parameters (``repro.models.xlstm.axes_mlstm``)."""
+    return {"wq": ("embed", "inner"), "wk": ("embed", "inner"),
+            "wv": ("embed", "inner"), "w_igate": ("embed", None),
+            "w_fgate": ("embed", None), "b_fgate": (None,), "b_igate": (None,),
+            "w_ogate": ("embed", "inner"), "out_proj": ("inner", "embed")}
+
+
 def init_mlstm(gen: torch.Generator, d: int, num_heads: int, *, expand: int = 2,
                dtype=torch.bfloat16) -> MLSTM:
     p = MLSTM(d, num_heads, expand=expand, dtype=dtype, device=gen.device)
@@ -187,6 +195,13 @@ class SLSTM(nn.Module):
             w.data.copy_(L.truncated_normal(gen, tuple(w.shape), d ** -0.5, w.dtype))
         self.b_in.data.zero_()
         self.b_in.data[2 * d:3 * d] = 3.0   # the forget gate's bias: start remembering
+
+
+def axes_slstm() -> dict:
+    """Logical axes of ``SLSTM``'s parameters; ``out_proj``'s second "embed"
+    falls back to replication, as in the reference."""
+    return {"w_in": ("embed", "inner"), "r_in": ("embed", "inner"),
+            "b_in": ("inner",), "out_proj": ("embed", "embed")}
 
 
 def init_slstm(gen: torch.Generator, d: int, num_heads: int, dtype=torch.bfloat16) -> SLSTM:
