@@ -41,7 +41,12 @@ Phases (any failure raises, and the script exits non-zero):
    and Whisper-medium's decoder prompt (q [8,16,224,64]); the bf16 training
    forward and backward at Hymba's training shape (q [2,25,2048,64], kv 5
    heads, window 1024) and Whisper's decoder's (q [8,16,448,64]), two
-   backward runs bit for bit; each held and timed as above.
+   backward runs bit for bit; each held and timed as above. At gemma3-12b's
+   head dim, D = 240: the bf16 forward at its prefill (q [8,16,2048,240], kv
+   [8,8,2048,240], global and window 1024), the bf16 training forward and
+   backward at its training shape (q [2,16,2048,240], kv 8 heads, window
+   1024 and global), and the f32 route's forward and backward there
+   (global), each held and timed as above, two backward runs bit for bit.
 3. Small training runs of every method and option (SpreadFGL, FedSage+,
    partial participation, async and gossip aggregation, GCN and GAT) and
    small f32 serving runs (the qwen3-4b, gemma3-12b, olmoe-1b-7b,
@@ -53,13 +58,15 @@ Phases (any failure raises, and the script exits non-zero):
    prompts; the trainers draw their own participation masks and async
    schedules on both; whisper-medium's smoke config with its frames through
    the encoder, hymba-1.5b's at d_model 160 (``HYMBA_SMOKE``: head dim 32
-   where the smoke config's 20 has no kernel instance) and xlstm-125m's.
+   where the smoke config's 20 has no kernel instance), xlstm-125m's, and
+   gemma3-12b's at head dim 240 (``GEMMA_D240_SMOKE``, its full config's).
    Then the qwen3-4b and olmoe-1b-7b smoke configs in
    bf16 on the card, the prefill through the tensor-core kernel against the
    same prefill with the plain version patched in. Small LM training runs
    (``repro_torch.launch.train``, the qwen3-4b, olmoe-1b-7b (also at
-   ``TIGHT_CAPACITY``, dropping slots), llama-3.2-vision-11b, gemma3-12b,
-   whisper-medium, hymba-1.5b (``HYMBA_SMOKE``) and xlstm-125m smoke configs
+   ``TIGHT_CAPACITY``, dropping slots), llama-3.2-vision-11b, gemma3-12b
+   (also at head dim 240), whisper-medium, hymba-1.5b (``HYMBA_SMOKE``) and
+   xlstm-125m smoke configs
    in f32, 3 steps, remat on and off, 2 microbatches) on the
    card against the CPU, and a checkpoint written on the card served by
    ``repro_torch.launch.serve --checkpoint``. One training step of Qwen3-4B
@@ -111,7 +118,14 @@ Phases (any failure raises, and the script exits non-zero):
    move with the frames; training batch 8 x 448); Hymba-1.5B (batch 8 x
    2048, 64 steps across the 1024-slot ring buffers; training 2 x 2048);
    xLSTM-125M (batch 8 x 2048, 64 steps; training 8 x 2048; no kernel on
-   its path). Each prints its times, peak memory and flash launches.
+   its path). Each prints its times, peak memory and flash launches. Then
+   gemma3-12b (head dim 240), bf16 with random weights: served at full width
+   and depth (48 layers, batch 8 x 2048, 64 decode steps across the
+   1024-slot ring buffers; 48 bf16 forward launches a prefill), its prefill
+   beside the dry-run's one-card record; trained at full width cut to 12
+   layers (2 steps) and 18 (4 steps, remat, batch 2 x 2048), the second the
+   deepest multiple of 6 whose peak stays under 90 % of the card's memory
+   by the bytes a layer adds between the two.
    After the serving and training main paths of Qwen3-4B, the H100 cost
    model (``launch.dryrun.run_one``, counted on meta tensors, no card time)
    of the same prefill and training step on the one-card mesh is held
@@ -195,6 +209,10 @@ TIGHT_CAPACITY = 0.5
 # kernels do not take: its card runs use the smoke config at this width and
 # head dim 32, on both devices.
 HYMBA_SMOKE = {"d_model": 160, "head_dim": 32}
+# gemma3-12b's smoke config at its full config's head dim, 240 (d_model 128,
+# 4 q heads of 240): its small runs, card against CPU, take the D = 240
+# instances on a model's path.
+GEMMA_D240_SMOKE = {"head_dim": 240}
 # Small training runs, card against CPU: (arch, extra flags, smoke config
 # overrides). The last one's checkpoint is served by serve --checkpoint.
 SMALL_TRAIN_RUNS = (("qwen3-4b", ["--no-remat"], {}),
@@ -206,6 +224,7 @@ SMALL_TRAIN_RUNS = (("qwen3-4b", ["--no-remat"], {}),
                     ("whisper-medium", ["--remat"], {}),
                     ("hymba-1.5b", ["--remat"], HYMBA_SMOKE),
                     ("xlstm-125m", ["--no-remat", "--microbatch", "2"], {}),
+                    ("gemma3-12b", ["--remat", "--microbatch", "2"], GEMMA_D240_SMOKE),
                     ("gemma3-12b", ["--remat"], {}))
 # The MoE and vlm paths: OLMoE-1B-7B serving at full width and depth;
 # Mixtral-8x7B at full width cut to MIXTRAL_LAYERS of 32 layers, its
@@ -246,6 +265,21 @@ XLSTM_SERVE_ARGS = ["--arch", "xlstm-125m", "--variant", "full", "--batch", "8",
                     "--prompt-len", "2048", "--steps", "64"]
 XLSTM_TRAIN_ARGS = ["--arch", "xlstm-125m", "--variant", "full", "--batch", "8",
                     "--seq", "2048", "--steps", "4", "--lr", "3e-4", "--log-every", "1"]
+# gemma3-12b, whose head dim is 240 (3840 / 16 heads): served at full width
+# and depth (48 layers, 5 local of window 1024 : 1 global), 2048-token
+# prompts past the 1024-slot ring buffers; trained at full width cut to
+# GEMMA_TRAIN_LAYERS of 48 (a multiple of 6 keeps the 5:1 pattern). Memory
+# forces the cut: 18 layers peaked at 72.1 GB, and each layer adds ~2.66 GB
+# of bf16 weights and gradients and f32 moments (12 bytes a parameter), so
+# 24 would pass 90 % of the card's 85 GB. _gemma_paths measures the bytes a
+# layer adds (GEMMA_PROBE_LAYERS against GEMMA_TRAIN_LAYERS) and holds the
+# cut to that rule.
+GEMMA_SERVE_ARGS = ["--arch", "gemma3-12b", "--variant", "full", "--batch", "8",
+                    "--prompt-len", "2048", "--steps", "64"]
+GEMMA_TRAIN_LAYERS = 18
+GEMMA_PROBE_LAYERS = 12
+GEMMA_TRAIN_ARGS = ["--arch", "gemma3-12b", "--variant", "full", "--batch", "2", "--seq",
+                    "2048", "--lr", "3e-4", "--log-every", "1"]
 
 
 def _card_line() -> str:
@@ -801,6 +835,10 @@ D128_CASES = (("OLMoE-1B-7B prefill", 8, 16, 16, 2048, 128, None),
 D64_CASES = (("Hymba-1.5B prefill, windowed layers", 8, 25, 5, 2048, 64, 1024),
              ("Hymba-1.5B prefill, global layers", 8, 25, 5, 2048, 64, None),
              ("Whisper-medium decoder prefill", 8, 16, 16, 224, 64, None))
+# At gemma3-12b's head dim, D = 240: its prefill (GQA 16:8) on its global
+# layers and its local ones (window 1024).
+D240_CASES = (("Gemma3-12B prefill, global layers", 8, 16, 8, 2048, 240, None),
+              ("Gemma3-12B prefill, local layers", 8, 16, 8, 2048, 240, 1024))
 
 
 def _check_flash_cases(dev, gen, shapes):
@@ -1098,6 +1136,12 @@ def _check_flash_bwd(dev, gen):
 # window 1024) and Whisper's decoder (batch 8 x 448, MHA).
 D64_TRAIN_CASES = (("Hymba-1.5B training", 2, 25, 5, 2048, 64, 1024),
                    ("Whisper-medium decoder training", 8, 16, 16, 448, 64, None))
+# And at gemma3-12b's training shape (batch 2 x 2048, GQA 16:8), on its local
+# layers (window 1024) and its global ones: in bf16 (these cases), and in f32
+# on the 3-pass TF32 routes (D240_F32_CASES, _check_flash_f32_cases).
+D240_TRAIN_CASES = (("Gemma3-12B training, local layers", 2, 16, 8, 2048, 240, 1024),
+                    ("Gemma3-12B training, global layers", 2, 16, 8, 2048, 240, None))
+D240_F32_CASES = (("Gemma3-12B training, global layers", 2, 16, 8, 2048, 240),)
 
 
 def _check_flash_train_cases(dev, gen, shapes):
@@ -1196,6 +1240,99 @@ def _check_flash_train_cases(dev, gen, shapes):
     return fwd_cases, bwd_cases
 
 
+def _check_flash_f32_cases(dev, gen, shapes):
+    """The f32 route's forward (keeping the row log-sum-exp) and backward at
+    each of ``shapes`` (what, b, hq, hkv, s, d; causal, no window), from f32
+    draws, with _check_flash_bwd's limits: the output within 1e-5 of the
+    plain version, the row log-sum-exp within 1e-5, each gradient within
+    1e-5 of its max |grad| of the plain formula in float64 (or within the
+    plain f32 version's own error against it, where that is larger), a
+    second backward bit for bit. Each pass is timed (the forward as serving
+    calls it, without the log-sum-exp, and with it) against SDPA in f32
+    without TF32 (its backward through autograd) and the bound of three TF32
+    passes of its products over the causal pairs, two forward and five
+    backward, at the TF32 peak, beside one f32 pass on the CUDA cores.
+    Returns (forward cases, backward cases)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    fwd_cases, bwd_cases = [], []
+    for what, b, hq, hkv, s, d in shapes:
+        q, do = (torch.randn((b, hq, s, d), generator=gen, device=dev) for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev) for _ in range(2))
+        before = (kflash.launches_f32, kflash.launches_bwd_f32)
+        o, lse = kflash.launch(q, k, v, with_lse=True)
+        got = kflash.launch_bwd(q, k, v, o, do, lse)
+        again = kflash.launch_bwd(q, k, v, o, do, lse)
+        if (kflash.launches_f32, kflash.launches_bwd_f32) != (before[0] + 1, before[1] + 2):
+            raise AssertionError("flash_attention f32 training kernels did not take their "
+                                 "routes (launches_f32, launches_bwd_f32)")
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        o_err = (o - ref.flash_attention(q, k, v)).abs().max().item()
+        lse_err = (lse - ref.flash_attention_lse(q, k)).abs().max().item()
+        plain = ref.flash_attention_bwd(q, k, v, o, do, lse)
+        exact = ref.flash_attention_bwd(*(t.double() for t in (q, k, v, o, do, lse)))
+        errs, line = [], []
+        for gname, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+            err = (g.double() - e).abs().max().item()
+            own = (p.double() - e).abs().max().item()
+            limit = max(1e-5 * e.abs().max().item(), own)
+            line.append(f"{gname} {err:.3g} (limit {limit:.3g}: plain's own {own:.3g})")
+            if not err <= limit:
+                raise AssertionError(f"flash_attention backward f32 ({what}) {gname} "
+                                     f"disagrees with its plain version: {err} > {limit}")
+            errs.append(err)
+        del got, plain, exact
+        shape = f"q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}] f32 causal"
+        print(f"[smoke] flash_attention f32 training forward {what} {shape}: output "
+              f"max_abs_err {o_err:.3g} (limit 1e-05); lse max_abs_err {lse_err:.3g} (limit "
+              f"1e-05); backward max_abs_err {'; '.join(line)}; two runs bit for bit: {same}")
+        if not (o_err <= 1e-5 and lse_err <= 1e-5 and same):
+            raise AssertionError(f"flash_attention f32 kernels at {what}: output {o_err}, "
+                                 f"lse {lse_err}, bit for bit {same}")
+
+        pairs = b * hq * _causal_pairs(s, s, None)
+        io = 2 * b * hq * s * d + 2 * b * hkv * s * d
+        fwd_ms = _time_ms(lambda: kflash.launch(q, k, v), 10)
+        lse_ms = _time_ms(lambda: kflash.launch(q, k, v, with_lse=True), 10)
+        fwd_plain = _time_ms(lambda: ref.flash_attention(q, k, v), 3)
+        fwd_lib = _time_ms(lambda: sdpa(q, k, v), 10)
+        fwd_bound, fwd_by = _bound(3 * 4.0 * d * pairs, 4 * io, peak=TF32_FLOPS)
+        bwd_ms = _time_ms(lambda: kflash.launch_bwd(q, k, v, o, do, lse), 5)
+        bwd_plain = _time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, do, lse), 2)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = sdpa(qg, kg, vg)
+        bwd_lib = _time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                       retain_graph=True), 5)
+        bwd_bytes = 4 * (2 * io) + 4 * b * hq * s
+        bwd_bound, bwd_by = _bound(3 * 10.0 * d * pairs, bwd_bytes, peak=TF32_FLOPS)
+        f32_fwd, f32_bwd = _bound(4.0 * d * pairs, 4 * io)[0], _bound(10.0 * d * pairs,
+                                                                      bwd_bytes)[0]
+        print(f"[smoke] flash_attention f32 (3 TF32 passes) {what} {shape}: forward "
+              f"ms={fwd_ms:.3f} (with the row log-sum-exp {lse_ms:.3f}) plain_ms={fwd_plain:.3f} "
+              f"library_ms={fwd_lib:.3f} (SDPA f32) bound_ms={fwd_bound:.4f} ({fwd_by}, 3 TF32 "
+              f"passes) bound_f32_ms={f32_fwd:.4f}; backward ms={bwd_ms:.3f} "
+              f"plain_ms={bwd_plain:.3f} library_ms={bwd_lib:.3f} (SDPA f32 backward) "
+              f"bound_ms={bwd_bound:.4f} ({bwd_by}, 3 TF32 passes of five products) "
+              f"bound_f32_ms={f32_bwd:.4f} -> {10.0 * d * pairs / bwd_ms / 1e9:.1f} TFLOP/s of "
+              f"five products")
+        fwd_cases.append({"what": what, "shape": shape, "max_abs_err": o_err, "ms": fwd_ms,
+                          "ms_with_lse": lse_ms, "plain_ms": fwd_plain, "bound_ms": fwd_bound,
+                          "bound_by": fwd_by, "bound_f32_ms": f32_fwd, "library_ms": fwd_lib})
+        bwd_cases.append({"what": what, "shape": shape, "max_abs_err": max(errs), "ms": bwd_ms,
+                          "plain_ms": bwd_plain, "bound_ms": bwd_bound, "bound_by": bwd_by,
+                          "bound_f32_ms": f32_bwd, "library_ms": bwd_lib})
+        del q, k, v, o, do, lse, qg, kg, vg, out
+        torch.cuda.empty_cache()
+    return fwd_cases, bwd_cases
+
+
 # -- phase 3: the card's training run against the CPU's ----------------------
 
 SMALL_RUNS = (  # (what, registry method, builder keywords, FGLConfig fields)
@@ -1273,7 +1410,8 @@ def _check_small_serve(dev):
     # image embeddings and its cross-block gates at CROSS_GATE; whisper-medium's
     # with memory_stub's frames through the encoder; hymba-1.5b's at
     # HYMBA_SMOKE's width, a 128-token prompt past its window-64 layer's ring
-    # buffer; xlstm-125m's with a 256-token prompt across a chunk. Same weights
+    # buffer; xlstm-125m's with a 256-token prompt across a chunk; gemma3-12b's
+    # again at head dim 240 (GEMMA_D240_SMOKE), its full config's. Same weights
     # on both devices (drawn on the CPU), f32: the card's prefill takes the
     # f32 route, once per attention layer (none for xlstm).
     for arch, prompt_len, over in (("qwen3-4b", 40, {}), ("gemma3-12b", 200, {}),
@@ -1282,7 +1420,7 @@ def _check_small_serve(dev):
                                    ("mixtral-8x7b", 200, {}),
                                    ("llama-3.2-vision-11b", 40, {}),
                                    ("whisper-medium", 40, {}), ("hymba-1.5b", 128, HYMBA_SMOKE),
-                                   ("xlstm-125m", 256, {})):
+                                   ("xlstm-125m", 256, {}), ("gemma3-12b", 200, GEMMA_D240_SMOKE)):
         cfg = configs.get_config(arch, "smoke", **over)
         cpu_model = _open_gates(transformer.init_model(cfg, seed=0, device="cpu"))
         prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, prompt_len))
@@ -1306,7 +1444,8 @@ def _check_small_serve(dev):
         tight = "capacity_factor" in over
         print(f"[smoke] small {cfg.name} serving run {dev.type} vs cpu, prompt "
               f"{prompt_len}{f', capacity factor {cfg.capacity_factor}' if tight else ''}"
-              f"{f', d_model {cfg.d_model}' if 'd_model' in over else ''}: "
+              f"{f', d_model {cfg.d_model}' if 'd_model' in over else ''}"
+              f"{f', head dim {cfg.head_dim}' if 'head_dim' in over else ''}: "
               f"prefill logits max |d| = {err:.3g}, 8 greedy tokens identical: {same}; card "
               f"prefill launches {routes}" + (
                   f"; dropped share of (token, k) slots by layer, card "
@@ -1464,7 +1603,8 @@ def _check_small_train(dev):
         if "capacity_factor" in over and not all(min(d) > 0 for d in drops.values()):
             raise AssertionError(f"small train {arch} at capacity factor "
                                  f"{cfg.capacity_factor}: a layer dropped nothing ({drops})")
-        print(f"[smoke] small train {arch} {' '.join(extra)} {dev.type} vs cpu: 3 steps, "
+        print(f"[smoke] small train {arch} {' '.join(extra)}{f' {over}' if over else ''} "
+              f"{dev.type} vs cpu: 3 steps, "
               f"max |d| loss {dloss:.3g} params {dparam:.3g} (limit 1e-4); each step's "
               f"change vs the cpu's {[float(f'{x:.3g}') for x in dstep]} of its leaf's "
               f"largest (limit 1e-2, over {100 * share:.2f} % of the elements); card "
@@ -2064,6 +2204,41 @@ def _train_main_path(measured: Optional[dict] = None):
     return counts
 
 
+def _dryrun_held(cfg, what: str, got: dict, kind: str, card: str) -> None:
+    """``launch.dryrun.run_one`` of ``cfg`` at the batch and length a main
+    path just ran (``got``: seconds, peak, batch, seq) on the one-card mesh,
+    printed beside the measured seconds and peak: ``compute_s`` may not
+    exceed the measured seconds, ``collective_s`` is 0, and a training
+    step's counted peak lies within 10 % of ``max_memory_allocated``."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_card_mesh
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_one(cfg, InputShape(what, got["seq"], got["batch"], kind), make_card_mesh())
+    counted = time.perf_counter() - t0
+    secs, peak = got["seconds"], got["peak"]
+    print(f"[smoke] dry-run {cfg.name} {what} {got['batch']} x {got['seq']} on one card "
+          f"(counted on meta in {counted:.1f} s, {rec['extra']['ops']} ops): compute_s "
+          f"{rec['compute_s']:.4f} ({rec['flops'] / 1e12:.2f} TFLOP), memory_s "
+          f"{rec['memory_s']:.4f} ({rec['hbm_bytes'] / 1e9:.1f} GB eager traffic), "
+          f"collective_s {rec['collective_s']:.4f}, memory/device "
+          f"{rec['memory_per_device'] / 1e9:.2f} GB; measured {secs:.4f} s, "
+          f"{peak / 1e9:.2f} GB peak; measured/compute_s {secs / rec['compute_s']:.2f}, "
+          f"measured/memory_s {secs / rec['memory_s']:.2f}, "
+          f"peak/memory_per_device {peak / rec['memory_per_device']:.4f}; card {card}")
+    if rec["collective_s"] != 0:
+        raise AssertionError(f"dry-run {what}: one card has no collectives, got "
+                             f"{rec['collective_s']}")
+    if not rec["compute_s"] <= secs:
+        raise AssertionError(f"dry-run {cfg.name} {what}: compute_s {rec['compute_s']:.4f} is "
+                             f"no bound of the measured {secs:.4f} s")
+    if kind == "train" and not abs(rec["memory_per_device"] / peak - 1) <= 0.10:
+        raise AssertionError(f"dry-run train step: memory_per_device "
+                             f"{rec['memory_per_device'] / 1e9:.2f} GB is not within 10 % "
+                             f"of the measured peak {peak / 1e9:.2f} GB")
+
+
 def _check_dryrun(serve: dict, train: dict, card: str) -> None:
     """The H100 cost model (``launch.dryrun.run_one``, counted on meta
     tensors on the host) on the one-card mesh, held against what the serving
@@ -2073,36 +2248,13 @@ def _check_dryrun(serve: dict, train: dict, card: str) -> None:
     ``torch.cuda.max_memory_allocated``. Then the fleet's records of
     Qwen3-4B and ``gossip_dryrun``'s line, as the cost model gives them."""
     from repro_torch import configs
-    from repro_torch.configs import INPUT_SHAPES, InputShape
+    from repro_torch.configs import INPUT_SHAPES
     from repro_torch.launch import dryrun, gossip_dryrun
-    from repro_torch.launch.mesh import make_card_mesh, make_production_mesh
+    from repro_torch.launch.mesh import make_production_mesh
 
     cfg = configs.get_config("qwen3-4b", "full")
     for what, got, kind in (("prefill", serve, "prefill"), ("train step", train, "train")):
-        t0 = time.perf_counter()
-        rec = dryrun.run_one(cfg, InputShape(what, got["seq"], got["batch"], kind),
-                             make_card_mesh())
-        counted = time.perf_counter() - t0
-        secs, peak = got["seconds"], got["peak"]
-        print(f"[smoke] dry-run {cfg.name} {what} {got['batch']} x {got['seq']} on one card "
-              f"(counted on meta in {counted:.1f} s, {rec['extra']['ops']} ops): compute_s "
-              f"{rec['compute_s']:.4f} ({rec['flops'] / 1e12:.2f} TFLOP), memory_s "
-              f"{rec['memory_s']:.4f} ({rec['hbm_bytes'] / 1e9:.1f} GB eager traffic), "
-              f"collective_s {rec['collective_s']:.4f}, memory/device "
-              f"{rec['memory_per_device'] / 1e9:.2f} GB; measured {secs:.4f} s, "
-              f"{peak / 1e9:.2f} GB peak; measured/compute_s {secs / rec['compute_s']:.2f}, "
-              f"measured/memory_s {secs / rec['memory_s']:.2f}, "
-              f"peak/memory_per_device {peak / rec['memory_per_device']:.4f}; card {card}")
-        if rec["collective_s"] != 0:
-            raise AssertionError(f"dry-run {what}: one card has no collectives, got "
-                                 f"{rec['collective_s']}")
-        if not rec["compute_s"] <= secs:
-            raise AssertionError(f"dry-run {what}: compute_s {rec['compute_s']:.4f} is no bound "
-                                 f"of the measured {secs:.4f} s")
-        if kind == "train" and not abs(rec["memory_per_device"] / peak - 1) <= 0.10:
-            raise AssertionError(f"dry-run train step: memory_per_device "
-                                 f"{rec['memory_per_device'] / 1e9:.2f} GB is not within 10 % "
-                                 f"of the measured peak {peak / 1e9:.2f} GB")
+        _dryrun_held(cfg, what, got, kind, card)
     for shape in ("train_4k", "prefill_32k", "decode_32k"):
         for multi in (False, True):
             rec = dryrun.run_one(cfg, INPUT_SHAPES[shape], make_production_mesh(multi_pod=multi),
@@ -2119,7 +2271,7 @@ def _check_dryrun(serve: dict, train: dict, card: str) -> None:
           f"ms), ratio {g['ratio']:.3f}")
 
 
-def _lm_train_path(args, model=None, what: str = ""):
+def _lm_train_path(args, model=None, what: str = "", measured: Optional[dict] = None):
     """``launch.train.main(args, model=model)`` in bf16 with remat (the full
     config's), with the launch counters set to 0 just before and read just
     after: each step one forward keeping the row log-sum-exp per attention
@@ -2128,12 +2280,15 @@ def _lm_train_path(args, model=None, what: str = ""):
     seconds, tokens/s, the share of the bf16 peak that 6 x active parameters
     x tokens make (decoder tokens; an encoder-decoder's encoder adds more),
     peak memory and the launches; losses (and an MoE's aux losses, above 0)
-    finite."""
+    finite. The median step's seconds and the peak go into ``measured``
+    when given."""
     from repro_torch import configs
     from repro_torch.launch import train
 
     flags = train._parser().parse_args(args)
     cfg = configs.get_config(flags.arch, flags.variant) if model is None else model.cfg
+    if model is None and flags.layers:
+        cfg = configs.cut_depth(cfg, flags.layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2144,6 +2299,8 @@ def _lm_train_path(args, model=None, what: str = ""):
     losses, auxes, secs = out["losses"], out["aux"], out["seconds"]
     n_params = sum(p.numel() for p in out["state"].params.parameters())
     step_s = float(np.median(secs[1:]))
+    if measured is not None:
+        measured.update(seconds=step_s, peak=peak, batch=flags.batch, seq=flags.seq)
     tokens = flags.batch * flags.seq
     share = 6.0 * cfg.active_params() * tokens / step_s / BF16_FLOPS
     layers = _attn_layers(cfg)
@@ -2199,6 +2356,43 @@ def _family_paths():
                                    (XLSTM_SERVE_ARGS, XLSTM_TRAIN_ARGS)):
         runs.append(_serve_main_path(serve_args))
         runs.append(_lm_train_path(train_args))
+    return runs
+
+
+def _gemma_paths(card: str):
+    """gemma3-12b (head dim 240), bf16 with random weights. Served at full
+    width and depth through ``launch.serve.main`` (48 bf16 forward launches
+    a prefill), its prefill beside the dry-run's one-card record
+    (``_dryrun_held``: ``compute_s`` a bound of the measured seconds, no
+    memory tolerance for a prefill). Trained through ``launch.train.main``
+    at full width, remat, batch 2 x 2048: cut to ``GEMMA_PROBE_LAYERS`` for 2
+    steps, then to ``GEMMA_TRAIN_LAYERS`` for 4 (the LSE forward twice and
+    the bf16 backward once per layer a step). The two peaks give the bytes a
+    layer adds; the cut must be the deepest multiple of 6 layers whose peak
+    stays under 90 % of the card's memory."""
+    from repro_torch import configs
+
+    measured = {}
+    runs = [_serve_main_path(GEMMA_SERVE_ARGS, measured=measured)]
+    _dryrun_held(configs.get_config("gemma3-12b", "full"), "prefill", measured, "prefill", card)
+    peaks = {}
+    for layers, steps in ((GEMMA_PROBE_LAYERS, 2), (GEMMA_TRAIN_LAYERS, 4)):
+        got = {}
+        args = [*GEMMA_TRAIN_ARGS, "--layers", str(layers), "--steps", str(steps)]
+        runs.append(_lm_train_path(args, what=f" ({layers} of 48 layers)", measured=got))
+        peaks[layers] = got["peak"]
+    per_layer = (peaks[GEMMA_TRAIN_LAYERS] - peaks[GEMMA_PROBE_LAYERS]) / (
+        GEMMA_TRAIN_LAYERS - GEMMA_PROBE_LAYERS)
+    total = torch.cuda.get_device_properties(0).total_memory
+    deeper = peaks[GEMMA_TRAIN_LAYERS] + 6 * per_layer
+    print(f"[smoke] gemma3-12b training depth: peak {peaks[GEMMA_PROBE_LAYERS] / 1e9:.3f} GB at "
+          f"{GEMMA_PROBE_LAYERS} layers, {peaks[GEMMA_TRAIN_LAYERS] / 1e9:.3f} GB at "
+          f"{GEMMA_TRAIN_LAYERS}: {per_layer / 1e9:.3f} GB a layer, so "
+          f"{GEMMA_TRAIN_LAYERS + 6} layers would peak at {deeper / 1e9:.2f} GB; 90 % of the "
+          f"card's {total / 1e9:.2f} GB is {0.9 * total / 1e9:.2f} GB")
+    if not peaks[GEMMA_TRAIN_LAYERS] <= 0.9 * total < deeper:
+        raise AssertionError(f"gemma3-12b training: {GEMMA_TRAIN_LAYERS} layers is not the "
+                             f"deepest multiple of 6 under 90 % of the card's memory")
     return runs
 
 
@@ -2313,12 +2507,14 @@ def main() -> int:
     sim["ring"] = _check_sim_ring(dev, gen)
     flash_tc, flash_f32 = _check_flash(dev, gen)
     flash_tc["cases"] = (_check_flash_cases(dev, gen, D128_CASES)
-                         + _check_flash_cases(dev, gen, D64_CASES))
+                         + _check_flash_cases(dev, gen, D64_CASES)
+                         + _check_flash_cases(dev, gen, D240_CASES))
     block = _check_sim_block(dev, gen)
     flash_lse, flash_bwd, flash_bwd_f32 = _check_flash_bwd(dev, gen)
-    fwd_cases, bwd_cases = _check_flash_train_cases(dev, gen, D64_TRAIN_CASES)
+    fwd_cases, bwd_cases = _check_flash_train_cases(dev, gen, D64_TRAIN_CASES + D240_TRAIN_CASES)
     flash_lse["cases"] += fwd_cases
     flash_bwd["cases"] += bwd_cases
+    flash_f32["cases"], flash_bwd_f32["cases"] = _check_flash_f32_cases(dev, gen, D240_F32_CASES)
     _check_small_run(dev)
     _check_small_serve(dev)
     _check_bf16_serve(dev)
@@ -2345,6 +2541,7 @@ def main() -> int:
     runs += _moe_vlm_serve_paths(dev)
     runs.append(_olmoe_train_path(dev))
     runs += _family_paths()
+    runs += _gemma_paths(card)
     for entry, counter in ((sage, "sage_aggregate"), (sim, "sim_topk"),
                            (flash_tc, "flash_attention_tc"),
                            (flash_f32, "flash_attention_f32"), (block, "sim_block"),

@@ -57,6 +57,16 @@ def get_config(arch_id: str, variant: str = "full", **overrides) -> ModelConfig:
     return cfg
 
 
+def cut_depth(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """The first ``layers`` layers of ``cfg``, its per-layer window and block
+    patterns cut with it (a multiple of a pattern's period keeps its mix)."""
+    if not 0 < layers <= cfg.num_layers:
+        raise ValueError(f"{cfg.name} has {cfg.num_layers} layers; cannot keep {layers}")
+    return dataclasses.replace(cfg, num_layers=layers,
+                               window_pattern=cfg.window_pattern[:layers],
+                               block_pattern=cfg.block_pattern[:layers])
+
+
 def shape_applicable(cfg: ModelConfig, shape: InputShape) -> bool:
     """long_500k only for sub-quadratic archs (full-attn skips -> DESIGN.md)."""
     if shape.name == "long_500k":

@@ -85,6 +85,28 @@
 // than they saved, as did 2 blocks of 4 warps per SM with 32-key tiles; 4
 // warps of two m16 tiles each spilled.
 //
+// The D = 240 tile (gemma3-12b: 3840 / 16 heads). What bounds it is shared
+// memory, then registers. With D = 128's 4 warps and 32-key tiles the Q
+// plane (120 KB), the K and V planes and the two raw tiles come to 325,632
+// B against the 232,448 a block may have; the Q plane alone is half of it
+// and every warp reads it at every k-step, so it stays, and the key tile
+// shrinks to 16 (Tile<240, 4, 16>: 231,936 B, one block of 4 warps an SM,
+// as at D = 128). O is 120 registers a thread, and a fresh accumulator of
+// all 240 columns beside it would be 120 more, so P V goes into fresh
+// accumulators of 48 columns (DCH) at a time, each over the tile's two
+// k-steps, added to O; the source forms P's fragments from S in each chunk
+// (the same bits), which ptxas may keep instead. Each output element gets
+// the same products in the same order as with one accumulator, so the
+// accuracy scheme above is unchanged; tests/test_torch_flash_split.py
+// emulates the 16-key tiles at D = 240. `-Xptxas -v` reports 255 registers
+// and a 156-byte spill. Its cost, by tools/sass_spills.py: per key tile a
+// warp issues 18 spill loads and no spill store beside the tile's 360
+// mma.sync; the stores sit outside the loops. At q [2,16,2048,240] (kv 8
+// heads) the kernel takes 2.74-2.76 ms, 7.0-7.1x the 0.391 ms of its three
+// TF32 passes at the TF32 peak: four warps an SM, with 16-key tiles two
+// barriers and a split pass every 16 keys (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py).
+//
 // FLASH_F32_ABLATE (0 in every normal build) changes one mechanism, for
 // tools/mma_tf32_ceiling.py --ablate only: 1, each warp splits the fragments
 // it reads (the planes hold x where hi would be); 2, no split pass (the
@@ -110,10 +132,12 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // A block of WARPS warps, each owning 16 query rows, over tiles of BKV keys
-// of head dim D.
+// of head dim D. Above D = 128, O += P V goes into fresh accumulators of DCH
+// columns at a time (the registers of one for all D columns beside O's).
 template <int D_, int WARPS_, int BKV_>
 struct Tile {
   static constexpr int D = D_, WARPS = WARPS_, BKV = BKV_;
+  static constexpr int DCH = D <= 128 ? D : 48;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int BQ = 16 * WARPS;       // query rows per block
   static constexpr int LDK = 2 * D + 16;      // K plane rows: hi and lo of each element
@@ -124,13 +148,15 @@ struct Tile {
   static constexpr int R_FLOATS = BKV * LDR;
   static constexpr size_t SMEM =
       sizeof(float) * (size_t)(Q_FLOATS + K_FLOATS + V_FLOATS + 2 * R_FLOATS);
-  static_assert(BKV * D / 4 % THREADS == 0 && BQ * D / 4 % THREADS == 0, "whole copy rounds");
+  static_assert(BQ * D / 4 % THREADS == 0 && D % DCH == 0, "whole Q rounds, whole chunks");
+  static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
 using T32 = Tile<32, 8, 64>;
 using T64 = Tile<64, 8, 64>;
 using T80 = Tile<80, 8, 64>;
 using T128 = Tile<128, 4, 32>;   // 8 warps of 128-wide planes would not fit
+using T240 = Tile<240, 4, 16>;   // 231,936 B of shared memory: the note above
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -265,10 +291,12 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kb0 = (k_lo / BKV) * BKV;
   const int n_tiles = k_hi >= kb0 ? (k_hi - kb0) / BKV + 1 : 0;
 
+  constexpr int KV_ITEMS = BKV * VEC;   // float4 of one raw K or V tile
   auto load_raw = [&](int kb) {   // K and V rows [kb, kb + BKV); past skv as 0
 #pragma unroll
-    for (int it = 0; it < BKV * VEC / THREADS; ++it) {
+    for (int it = 0; it < (KV_ITEMS + THREADS - 1) / THREADS; ++it) {
       const int i = threadIdx.x + it * THREADS;
+      if (KV_ITEMS % THREADS != 0 && i >= KV_ITEMS) break;
       const int r = i / VEC, c = (i - r * VEC) * 4;
       const bool valid = kb + r < skv;
       const size_t src = (size_t)(valid ? kb + r : 0) * D + c;
@@ -314,8 +342,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();          // raw tile j is in; every warp is done with the planes
 #if FLASH_F32_ABLATE != 2
 #pragma unroll
-    for (int it = 0; it < BKV * VEC / THREADS; ++it) {   // K: key-major plane
+    for (int it = 0; it < (KV_ITEMS + THREADS - 1) / THREADS; ++it) {   // K: key-major plane
       const int i = threadIdx.x + it * THREADS;
+      if (KV_ITEMS % THREADS != 0 && i >= KV_ITEMS) break;
       const int r = i / VEC, c = (i - r * VEC) * 4;
       const float4 x = *reinterpret_cast<const float4*>(Kr + r * LDR + c);
       float4* dst = reinterpret_cast<float4*>(Kp + r * LDK + 2 * c);
@@ -412,37 +441,43 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // O += P V into a fresh accumulator, one k-step per 8 keys, then added to
-    // O in f32. P's A fragment is the S accumulator read as mma indices t
-    // (key 2t: c0, c2) and t + 4 (key 2t + 1: c1, c3).
-    float ot[NO][4];
-    zero(ot);
+    // O in f32; DCH columns at a time (one chunk up to D = 128). P's A
+    // fragment is the S accumulator read as mma indices t (key 2t: c0, c2)
+    // and t + 4 (key 2t + 1: c1, c3); each chunk forms it, the same bits,
+    // and the first adds it to the row sums.
+    constexpr int NC = T::DCH / 8;
 #pragma unroll
-    for (int kk = 0; kk < NS; ++kk) {
-      uint32_t p_hi[4], p_lo[4];
+    for (int c0 = 0; c0 < NO; c0 += NC) {
+      float ot[NC][4];
+      zero(ot);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = ex2(fmaf(s[kk][e], scale_log2, -m_use[e >> 1]));
-        l_run[e >> 1] += p;
-        const int a = (e >> 1) | ((e & 1) << 1);   // c0 -> a0, c1 -> a2, c2 -> a1, c3 -> a3
-        p_hi[a] = to_tf32(p);
-        p_lo[a] = to_tf32(p - __uint_as_float(p_hi[a]));
-      }
+      for (int kk = 0; kk < NS; ++kk) {
+        uint32_t p_hi[4], p_lo[4];
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t b_hi[2], b_lo[2];
-        frag_b(vs + n * 8 * LDV + kk * 16, b_hi, b_lo);
-        float(&acc)[4] = FLASH_F32_ABLATE == 4 ? o[n] : ot[n];
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[kk][e], scale_log2, -m_use[e >> 1]));
+          if (c0 == 0) l_run[e >> 1] += p;
+          const int a = (e >> 1) | ((e & 1) << 1);   // c0 -> a0, c1 -> a2, c2 -> a1, c3 -> a3
+          p_hi[a] = to_tf32(p);
+          p_lo[a] = to_tf32(p - __uint_as_float(p_hi[a]));
+        }
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          uint32_t b_hi[2], b_lo[2];
+          frag_b(vs + (c0 + j) * 8 * LDV + kk * 16, b_hi, b_lo);
+          float(&acc)[4] = FLASH_F32_ABLATE == 4 ? o[c0 + j] : ot[j];
 #if FLASH_F32_ABLATE != 3
-        mma_tf32(acc, p_lo, b_hi[0], b_hi[1]);
-        mma_tf32(acc, p_hi, b_lo[0], b_lo[1]);
+          mma_tf32(acc, p_lo, b_hi[0], b_hi[1]);
+          mma_tf32(acc, p_hi, b_lo[0], b_lo[1]);
 #endif
-        mma_tf32(acc, p_hi, b_hi[0], b_hi[1]);
+          mma_tf32(acc, p_hi, b_hi[0], b_hi[1]);
+        }
       }
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[c0 + j][e] += ot[j][e];
     }
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] += ot[n][e];
   }
 
   // Normalise and store: l is 0 only for a fully masked row (written as 0),
@@ -482,8 +517,8 @@ int launch(const float* q, const float* k, const float* v, float* out, float* ls
 }  // namespace
 
 // q, out [batch, hq, sq, d]; k, v [batch, hkv, skv, d]: contiguous float32,
-// 16-byte aligned, with hq a multiple of hkv and d one of 32, 64, 80, 128.
-// window <= 0 means no window. lse, if not null, is [batch, hq, sq] and gets
+// 16-byte aligned, with hq a multiple of hkv and d one of 32, 64, 80, 128,
+// 240. window <= 0 means no window. lse, if not null, is [batch, hq, sq] and gets
 // each row's log-sum-exp of its scaled scores. Launches on `stream` and
 // returns the cudaError_t of the launch. bfloat16 inputs take
 // flash_attention_tc.cu.
@@ -497,6 +532,7 @@ extern "C" int flash_attention_f32(const float* q, const float* k, const float* 
     case 64: return launch<T64>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
     case 80: return launch<T80>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
     case 128: return launch<T128>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
+    case 240: return launch<T240>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -103,6 +103,36 @@
 //   mma.sync TF32 reaches with nothing to load. 16-row dK/dV tiles (252
 //   registers, no spill) took 3.62 ms there; fresh accumulators of 40 columns
 //   (a 192-byte spill) the same 3.2 ms.
+// - D = 240 (gemma3-12b: 3840 / 16 heads). What bounds it is the register
+//   file, then shared memory. A dK/dV warp holds dK and dV of its 16 keys,
+//   240 registers a thread before S^T and dP^T; with D = 128's tiles the
+//   dK/dV block needs 310,016 B and the dQ block 389,120 B of shared memory.
+//   The dK/dV kernel takes the head dim apart by output
+//   (flash_attention_bwd_dkdv_pair_kernel, PairTile<240, 4, 8, 48>): 8 warps
+//   on 64 keys, two for each 16. Role 0 computes S^T and P^T and adds P^T dO
+//   into dV; role 1 computes dP^T and adds dS^T Q into dK. Each holds one
+//   accumulator (120 registers), and the two products of each tile are split
+//   between the roles with none computed twice. Role 1 needs P^T: role 0
+//   writes it (f32, masked) to shared memory in C-fragment lane order, and
+//   one barrier later role 1 reads it at the same positions (the C
+//   fragments of S^T and dP^T hold the same pairs). K and V in A order take
+//   120 KB of the block's shared memory, so the row tiles are 8 rows (one
+//   k-step of dV and dK) and the column planes 16 floats a row, unpadded
+//   (pair_ld: 16 is already 16 more than a multiple of 32): 203,136 B. The
+//   dQ kernel keeps its layout at 4 warps of 16 rows with 8-key tiles
+//   (Tile<240, 4, 8, 8, 48>, 185,600 B). Both take fresh accumulators of 48
+//   columns. Each output element gets the same products in the same order
+//   as at the other head dims' kernels with these tiles, which
+//   tests/test_torch_flash_bwd_split.py emulates at D = 240; no atomics, two
+//   runs give the same bits. `-Xptxas -v`: 255 registers for both, spills of
+//   88 bytes stored and loaded (dK/dV) and 72 stored, 88 loaded (dQ). Their
+//   cost, by tools/sass_spills.py: per tile a dK/dV warp issues 5 spill
+//   stores and 11 spill loads beside 180 mma.sync, a dQ warp 6 and 10 beside
+//   270. At q [2,16,2048,240] (kv 8 heads) the three launches take
+//   9.69-9.71 ms, 9.9x the 0.977 ms of three TF32 passes of the five
+//   products at the TF32 peak: 8-row dK/dV and 8-key dQ tiles pay two or
+//   three barriers and a split pass every 8 rows or keys (NVIDIA H100 80GB
+//   HBM3, 700 W; chip_smoke.py, two runs).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -115,18 +145,26 @@ namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Rows of a plane of pairs along n tile rows: 2 n floats, padded to 16 more
+// than a multiple of 32 so that a quarter warp's 16-byte loads (rows g and
+// g + 1, floats 4t..4t + 3) fall in distinct banks.
+__host__ __device__ constexpr int pair_ld(int n) {
+  return 2 * n + ((2 * n) % 32 == 0 ? 16 : 0);
+}
+
 // WARPS warps of 16 keys (dK/dV) or 16 query rows (dQ); BQ query rows a dK/dV
 // tile, BKV keys a dQ tile; fresh accumulators of DCH head-dim columns.
 template <int D_, int WARPS_, int BQ_, int BKV_, int DCH_>
 struct Tile {
+  static constexpr bool PAIR = false;          // dK/dV by flash_attention_bwd_dkdv_kernel
   static constexpr int D = D_, WARPS = WARPS_, BQ = BQ_, BKV = BKV_, DCH = DCH_;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int BLOCK = 16 * WARPS;     // keys (dK/dV) or rows (dQ) of a block
   static constexpr int KSTEPS = D / 8;         // k-steps of S and dP
   static constexpr int LDW = D + 4;            // raw tile rows
   static constexpr int LDR = 2 * D + 16;       // planes with pairs along the head dim
-  static constexpr int LDQ = 2 * BQ + 16;      // dK/dV planes with pairs along query rows
-  static constexpr int LDK = 2 * BKV + 16;     // dQ plane with pairs along keys
+  static constexpr int LDQ = pair_ld(BQ);      // dK/dV planes with pairs along query rows
+  static constexpr int LDK = pair_ld(BKV);     // dQ plane with pairs along keys
   static constexpr int A_FLOATS = BLOCK * D;   // one operand in A-fragment lane order
   // K and V (A order), Q and dO as row and column planes, raw Q and dO, and
   // four [BQ] rows: raw L and D, this tile's L (log2 units) and D.
@@ -144,6 +182,30 @@ using T32 = Tile<32, 8, 32, 32, 32>;
 using T64 = Tile<64, 8, 32, 32, 64>;
 using T80 = Tile<80, 8, 32, 32, 80>;
 using T128 = Tile<128, 4, 16, 32, 64>;
+
+// The dK/dV kernel at D = 240 (flash_attention_bwd_dkdv_pair_kernel, the note
+// above): GROUPS key groups of 16 keys, two warps each (role 0: S^T, P^T and
+// dV; role 1: dP^T, dS^T and dK), BQ query rows a tile, fresh accumulators
+// of DCH columns; the smem of Tile's dK/dV kernel and P^T staged in f32.
+template <int D_, int GROUPS_, int BQ_, int DCH_>
+struct PairTile {
+  static constexpr bool PAIR = true;
+  static constexpr int D = D_, GROUPS = GROUPS_, BQ = BQ_, DCH = DCH_;
+  static constexpr int WARPS = 2 * GROUPS;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BLOCK = 16 * GROUPS;    // keys of a block
+  static constexpr int KSTEPS = D / 8;
+  static constexpr int LDW = D + 4, LDR = 2 * D + 16, LDQ = pair_ld(BQ);
+  static constexpr int A_FLOATS = BLOCK * D;
+  static constexpr size_t DKDV_SMEM =
+      sizeof(float) * (size_t)(2 * A_FLOATS + 2 * BQ * LDR + 2 * D * LDQ + 2 * BQ * LDW +
+                               4 * BQ + BLOCK * BQ);
+  static_assert(DKDV_SMEM <= 232448, "shared memory of one block");
+  static_assert(BQ % 8 == 0 && D % DCH == 0 && DCH % 8 == 0, "tiles");
+};
+
+using T240 = Tile<240, 4, 8, 8, 48>;     // its dQ kernel
+using P240 = PairTile<240, 4, 8, 48>;    // its dK/dV kernel
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -289,11 +351,11 @@ __device__ __forceinline__ void row_plane(float* plane, const float* raw) {
 }
 
 // The same tile as a plane of one row per head-dim column, each pair of tile
-// rows (2j, 2j + 1) as (hi, hi, lo, lo) at floats 4j of rows 2 ROWS + 16
+// rows (2j, 2j + 1) as (hi, hi, lo, lo) at floats 4j of rows pair_ld(ROWS)
 // long: the B operand of a product over the tile's rows.
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void col_plane(float* plane, const float* raw) {
-  constexpr int VEC = D / 4, HALF = ROWS / 2, LDC = 2 * ROWS + 16;
+  constexpr int VEC = D / 4, HALF = ROWS / 2, LDC = pair_ld(ROWS);
   for (int i = threadIdx.x; i < HALF * VEC; i += THREADS) {
     const int kp = i % HALF, c = (i / HALF) * 4;
     const float4 x = *reinterpret_cast<const float4*>(raw + 2 * kp * (D + 4) + c);
@@ -518,6 +580,215 @@ flash_attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __rest
   }
 }
 
+// The dK/dV kernel at D = 240 (PairTile, the note above): warp w is role
+// w / GROUPS of key group w % GROUPS and holds one accumulator, dV (role 0)
+// or dK (role 1), of its 16 keys x D. Role 0 computes S^T and P^T, stages
+// P^T (f32, masked) in shared memory in C-fragment lane order, and adds
+// P^T dO to dV; role 1 computes dP^T, reads P^T at the same lane positions
+// (the C fragments of S^T and dP^T hold the same pairs), forms dS^T and adds
+// dS^T Q to dK. The products, splits and sums of each output element are
+// those of flash_attention_bwd_dkdv_kernel at the same tiles.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+flash_attention_bwd_dkdv_pair_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                     const float* __restrict__ v, const float* __restrict__ dout,
+                                     const float* __restrict__ lse,
+                                     const float* __restrict__ delta, float* __restrict__ dk,
+                                     float* __restrict__ dv, int hq, int hkv, int sq, int skv,
+                                     int window, float scale_log2, float scale) {
+  constexpr int D = T::D, BQ = T::BQ, BLOCK = T::BLOCK, THREADS = T::THREADS;
+  constexpr int KSTEPS = T::KSTEPS, LDR = T::LDR, LDQ = T::LDQ, LDW = T::LDW;
+  constexpr int QN = BQ / 8;        // n-tiles of S^T and dP^T, k-steps of dV and dK
+  constexpr int NT = D / 8;         // n-tiles of dK or dV
+  constexpr int NC = T::DCH / 8;    // n-tiles of one fresh accumulator
+  extern __shared__ __align__(16) float smem[];
+  float* KA = smem;                   // [GROUPS][KSTEPS][32 lanes][4], raw
+  float* VA = KA + T::A_FLOATS;
+  float* Qr = VA + T::A_FLOATS;       // [BQ][LDR]: pairs along the head dim
+  float* dOr = Qr + BQ * LDR;
+  float* Qc = dOr + BQ * LDR;         // [D][LDQ]: pairs along the rows
+  float* dOc = Qc + D * LDQ;
+  float* Qw = dOc + D * LDQ;          // [BQ][LDW], raw
+  float* dOw = Qw + BQ * LDW;
+  float* Lw = dOw + BQ * LDW;         // [BQ], raw
+  float* Dw = Lw + BQ;
+  float* Ls = Dw + BQ;                // [BQ]: this tile's L (log2 units) and D
+  float* Ds = Ls + BQ;
+  float* Ps = Ds + BQ;                // [GROUPS][QN][32 lanes][4]: P^T, f32
+
+  const int b = blockIdx.x / hkv, kvh = blockIdx.x - b * hkv;
+  const int k0 = blockIdx.y * BLOCK;   // the first key blocks are seen by the most rows
+  const int group = hq / hkv, off = skv - sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kg = warp % T::GROUPS;     // this warp's 16 keys
+  const int role = warp / T::GROUPS;   // 0: P^T and dV, 1: dS^T and dK
+  const int g = lane >> 2;             // fragment row (and row + 8)
+  const int t = lane & 3;              // fragment column pair
+  const size_t kv_base = ((size_t)b * hkv + kvh) * skv;
+  const size_t head0 = (size_t)b * hq + (size_t)kvh * group;   // the group's first q head
+
+  const int k_last = min(k0 + BLOCK, skv) - 1;
+  const int i_lo = max(0, k0 - off);
+  const int i_hi = window > 0 ? (int)min((long long)sq - 1, (long long)k_last + window - 1 - off)
+                              : sq - 1;
+  const int qt0 = i_lo / BQ;
+  const int n_qt = i_hi >= i_lo ? i_hi / BQ - qt0 + 1 : 0;
+  const int n_it = group * n_qt;
+
+  auto load_q = [&](int it) {
+    const int hg = it / n_qt;
+    const int q0 = (qt0 + it - hg * n_qt) * BQ;
+    const size_t rb = (head0 + hg) * sq;
+    load_raw<D, BQ, THREADS>(Qw, q + rb * D, q0, sq);
+    load_raw<D, BQ, THREADS>(dOw, dout + rb * D, q0, sq);
+    load_vec<BQ, THREADS>(Lw, lse + rb, q0, sq);
+    load_vec<BQ, THREADS>(Dw, delta + rb, q0, sq);
+    cp_async_commit();
+  };
+
+  if (n_it > 0) load_q(0);
+  load_a<T>(KA, k + kv_base * D, k0, skv);
+  load_a<T>(VA, v + kv_base * D, k0, skv);
+
+  float acc[NT][4];                    // dV (role 0) or dK (role 1)
+  zero(acc);
+
+  const int kw = k0 + kg * 16;         // this warp's first key
+  const float* ap = (role == 0 ? KA : VA) + kg * KSTEPS * 128 + lane * 4;   // A of S^T, dP^T
+  const float* br = role == 0 ? Qr : dOr;     // B of S^T or dP^T
+  const float* bc = role == 0 ? dOc : Qc;     // B of dV or dK
+  float* ps = Ps + (kg * QN * 32 + lane) * 4;
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait_all();
+    __syncthreads();          // raw tile it is in; every warp is done with the planes
+    row_plane<D, BQ, THREADS>(Qr, Qw);
+    row_plane<D, BQ, THREADS>(dOr, dOw);
+    col_plane<D, BQ, THREADS>(Qc, Qw);
+    col_plane<D, BQ, THREADS>(dOc, dOw);
+    for (int i = threadIdx.x; i < BQ; i += THREADS) {
+      Ls[i] = Lw[i] * LOG2E;
+      Ds[i] = Dw[i];
+    }
+    __syncthreads();          // the planes are in; the raw tile is free
+    if (it + 1 < n_it) load_q(it + 1);
+
+    const int hg = it / n_qt;
+    const int q0 = (qt0 + it - hg * n_qt) * BQ;
+    const int p_lo = q0 + off;                     // key position of the tile's first row
+    const int p_hi = min(q0 + BQ, sq) - 1 + off;   // and of its last
+    // A tile none of whose pairs this key group may see costs its warps nothing.
+    const bool seen = kw < skv && kw <= p_hi && (window <= 0 || kw + 15 > p_lo - window);
+    const bool edge = kw + 15 > p_lo || kw + 16 > skv || q0 + BQ > sq ||
+                      (window > 0 && kw <= p_hi - window);
+    auto keep = [&](int n, int e) {
+      const int key = kw + g + 8 * (e >> 1);
+      const int row = q0 + n * 8 + 2 * t + (e & 1);
+      const int qp = row + off;
+      return row < sq && key < skv && key <= qp && (window <= 0 || key > qp - window);
+    };
+
+    // S^T = K Q^T (role 0) or dP^T = V dO^T (role 1), [16 keys, BQ rows]: the
+    // small passes into x2. Role 0 then forms P^T, masked, keeps it in x and
+    // stages it.
+    float x[QN][4], x2[QN][4];
+    if (seen) {
+      zero(x);
+      zero(x2);
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t a_hi[4], a_lo[4];
+        frag_a(ap + kk * 128, a_hi, a_lo);
+#pragma unroll
+        for (int n = 0; n < QN; ++n) {
+          uint32_t b_hi[2], b_lo[2];
+          frag_b(br + (n * 8 + g) * LDR + kk * 16 + 4 * t, b_hi, b_lo);
+          mma3_apart(x[n], x2[n], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+      if (role == 0) {
+#pragma unroll
+        for (int n = 0; n < QN; ++n) {
+          const float2 l = *reinterpret_cast<const float2*>(Ls + n * 8 + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lc = (e & 1) ? l.y : l.x;
+            float p = ex2(fmaf(x[n][e] + x2[n][e], scale_log2, -lc));
+            if (edge && !keep(n, e)) p = 0.0f;
+            x[n][e] = p;
+          }
+          *reinterpret_cast<float4*>(ps + n * 128) = make_float4(x[n][0], x[n][1], x[n][2],
+                                                                 x[n][3]);
+        }
+      }
+    }
+    __syncthreads();          // P^T of every key group is in
+
+    if (seen) {
+      // P^T (role 0) or dS^T = P^T (dP^T - D) (role 1, masked), split as the A
+      // fragments of the next product: element e of n-tile n is used as A
+      // element (e >> 1) | ((e & 1) << 1) of k-step n.
+      uint32_t a_hi[QN][4], a_lo[QN][4];
+#pragma unroll
+      for (int n = 0; n < QN; ++n) {
+        float y[4];
+        if (role == 0) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) y[e] = x[n][e];
+        } else {
+          const float4 p = *reinterpret_cast<const float4*>(ps + n * 128);
+          const float2 dd = *reinterpret_cast<const float2*>(Ds + n * 8 + 2 * t);
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float dc = (e & 1) ? dd.y : dd.x;
+            y[e] = pv[e] * ((x[n][e] + x2[n][e]) - dc);
+            if (edge && !keep(n, e)) y[e] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int a = (e >> 1) | ((e & 1) << 1);
+          split(y[e], a_hi[n][a], a_lo[n][a]);
+        }
+      }
+
+      // dV += P^T dO (role 0) or dK += dS^T Q (role 1), DCH columns at a time,
+      // each into a fresh accumulator added in f32.
+#pragma unroll
+      for (int c0 = 0; c0 < NT; c0 += NC) {
+        float f[NC][4];
+        zero(f);
+#pragma unroll
+        for (int kk = 0; kk < QN; ++kk)
+#pragma unroll
+          for (int j = 0; j < NC; ++j) {
+            uint32_t b_hi[2], b_lo[2];
+            frag_b(bc + ((c0 + j) * 8 + g) * LDQ + kk * 16 + 4 * t, b_hi, b_lo);
+            mma3(f[j], a_hi[kk], a_lo[kk], b_hi, b_lo);
+          }
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[c0 + j][e] += f[j][e];
+      }
+    }
+  }
+
+  // dV (role 0) or dK, scaled (role 1), of keys kw + g and kw + g + 8.
+  const float mult = role == 0 ? 1.0f : scale;
+  float* outp = role == 0 ? dv : dk;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw + g + 8 * r;
+    if (key >= skv) continue;
+    float* row = outp + (kv_base + key) * D;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(row + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * r] * mult, acc[n][2 * r + 1] * mult);
+  }
+}
+
 template <class T>
 __global__ void __launch_bounds__(T::THREADS, 1)
 flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -678,13 +949,20 @@ flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restri
   }
 }
 
-template <class T>
+// T: the tile of the dQ kernel; K: that of the dK/dV kernel (a PairTile
+// takes flash_attention_bwd_dkdv_pair_kernel).
+template <class T, class K = T>
 int launch(const float* q, const float* k, const float* v, const float* o, const float* dout,
            const float* lse, float* delta, float* dq, float* dk, float* dv, int batch, int hq,
            int hkv, int sq, int skv, int window, float scale, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)T::DKDV_SMEM);
+  void (*dkdv)(const float*, const float*, const float*, const float*, const float*,
+               const float*, float*, float*, int, int, int, int, int, float, float);
+  if constexpr (K::PAIR)
+    dkdv = flash_attention_bwd_dkdv_pair_kernel<K>;
+  else
+    dkdv = flash_attention_bwd_dkdv_kernel<K>;
+  cudaError_t e =
+      cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::DKDV_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::DQ_SMEM);
@@ -695,8 +973,7 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const float sl2 = scale * LOG2E;
-  flash_attention_bwd_dkdv_kernel<T>
-      <<<dim3(batch * hkv, (skv + T::BLOCK - 1) / T::BLOCK), T::THREADS, T::DKDV_SMEM,
+  dkdv<<<dim3(batch * hkv, (skv + K::BLOCK - 1) / K::BLOCK), K::THREADS, K::DKDV_SMEM,
          stream>>>(q, k, v, dout, lse, delta, dk, dv, hq, hkv, sq, skv, window, sl2, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -711,7 +988,7 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
 // q, o, dout, dq [batch, hq, sq, d]; k, v, dk, dv [batch, hkv, skv, d]: contiguous
 // float32, 16-byte aligned; lse and delta [batch, hq, sq] float32 (lse as the
 // forward wrote it; delta is scratch). hq a multiple of hkv, d one of 32, 64,
-// 80, 128, window <= 0 for none. Launches three kernels on `stream` and
+// 80, 128, 240, window <= 0 for none. Launches three kernels on `stream` and
 // returns the cudaError_t of the launches.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                                        const void* dout, const void* lse, void* delta, void* dq,
@@ -737,6 +1014,8 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void*
                                 window, scale, s);
     case 128: return launch<T128>(Q, K, V, O, dO, L, Dl, dQ, dK, dV, batch, hq, hkv, sq, skv,
                                   window, scale, s);
+    case 240: return launch<T240, P240>(Q, K, V, O, dO, L, Dl, dQ, dK, dV, batch, hq, hkv, sq,
+                                        skv, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -79,6 +79,30 @@
 //   independent mma.sync bf16 products reach with nothing to load. Three
 //   dK/dV blocks an SM (168 registers), 32-row dK/dV tiles, 8-warp blocks
 //   and 64-key dQ tiles were each slower there.
+// - D = 240 (gemma3-12b: 3840 / 16 heads; Tile<D>::WIDE). What bounds it is
+//   the register file. A warp of the dK/dV kernel above holds the f32 dK and
+//   dV of its 16 keys, 240 registers a thread at D = 240 before S^T and
+//   dP^T; the dQ kernel holds Q and dO as A fragments (120) and dQ (120).
+//   Shared memory is not the limit. So the dK/dV kernel takes the head dim
+//   apart by output: flash_attention_bwd_dkdv_wide_tc_kernel runs 8 warps on
+//   the block's 64 keys, two warps for each 16 keys. Role 0 computes
+//   S^T = K Q^T and P^T and adds P^T dO into dV; role 1 computes
+//   dP^T = V dO^T and adds dS^T Q into dK. Each holds one f32 accumulator of
+//   16 keys x 240 (120 registers), so the two products the gradient needs of
+//   each tile are split between the roles with none computed twice. dS^T
+//   needs P^T, so role 0 writes P^T (f32, masked) to shared memory in
+//   C-fragment lane order, one barrier later role 1 reads it at the same
+//   positions (the C fragments of S^T and dP^T hold the same pairs), and dS^T
+//   is formed from P before rounding, as above. 64-row tiles; 207,872 B of
+//   shared memory, one block of 8 warps an SM. The dQ kernel keeps its
+//   layout with Q and dO read from the block's tiles at each k-step (one
+//   ldmatrix.x4 each) instead of held, and 16-key tiles, so that two blocks
+//   (95,232 B each) share an SM. Outputs are still written once, after sums
+//   in a fixed order: two runs give the same bits. `-Xptxas -v`: 244
+//   registers (dK/dV) and 235 (dQ), no spill. At gemma's training shape (q
+//   [2,16,2048,240], kv 8 heads) the three launches take 1.118-1.130 ms,
+//   6.9x the 0.163 ms of the five products at the bf16 peak, 0.897-0.902 ms
+//   with window 1024 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py, two runs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,18 +123,24 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Tile {
-  static constexpr int BQ = D <= 80 ? 64 : 32;         // dK/dV kernel: query rows per tile
-  static constexpr int BKV = 32;                       // dQ kernel: keys per tile
-  static constexpr int DKDV_BLOCKS = 2;                // blocks an SM (the register cap)
+  static constexpr bool WIDE = D > 128;                // the D = 240 kernels: the note above
+  static constexpr int BQ = D <= 80 || WIDE ? 64 : 32;  // dK/dV kernel: query rows per tile
+  static constexpr int BKV = WIDE ? 16 : 32;           // dQ kernel: keys per tile
+  static constexpr int DKDV_BLOCKS = WIDE ? 1 : 2;     // blocks an SM (the register cap)
   static constexpr int DQ_BLOCKS = D <= 80 ? 3 : 2;    // of each kernel
 };
 
+constexpr int WIDE_WARPS = 8;       // the wide dK/dV kernel: 4 key groups x 2 roles
+constexpr int WIDE_THREADS = 32 * WIDE_WARPS;
+constexpr int WIDE_GROUPS = WIDE_WARPS / 2;
+
 // K and V of the block, two stages of Q and dO (rows padded to D + 8), and
-// two stages of the rows' L and D.
+// two stages of the rows' L and D; the wide kernel also stages P^T in f32.
 template <int D>
 constexpr size_t dkdv_smem() {
   return sizeof(bf16) * (size_t)(2 * BLOCK + 4 * Tile<D>::BQ) * (D + 8) +
-         sizeof(float) * 4 * Tile<D>::BQ;
+         sizeof(float) * 4 * Tile<D>::BQ +
+         (Tile<D>::WIDE ? sizeof(float) * (size_t)BLOCK * Tile<D>::BQ : 0);
 }
 
 // Q and dO of the block, two stages of K and V.
@@ -134,15 +164,16 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool va
 }
 
 // Rows [r0, r0 + ROWS) of a row-major [nrows, D] bf16 array into a
-// [ROWS][D + 8] shared tile by cp.async; rows at or past nrows are zero-filled.
-template <int D, int ROWS>
+// [ROWS][D + 8] shared tile by cp.async, by a block of NTH threads; rows at or
+// past nrows are zero-filled.
+template <int D, int ROWS, int NTH = THREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int r0,
                                           int nrows) {
   constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
 #pragma unroll
-  for (int it = 0; it < (ROWS * CHUNKS + THREADS - 1) / THREADS; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    if (ROWS * CHUNKS % THREADS != 0 && i >= ROWS * CHUNKS) break;
+  for (int it = 0; it < (ROWS * CHUNKS + NTH - 1) / NTH; ++it) {
+    const int i = threadIdx.x + it * NTH;
+    if (ROWS * CHUNKS % NTH != 0 && i >= ROWS * CHUNKS) break;
     const int r = i / CHUNKS;
     const int ch = i - r * CHUNKS;
     const bool valid = r0 + r < nrows;
@@ -152,11 +183,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
 }
 
 // Entries [r0, r0 + ROWS) of a float32 [nrows] array into shared memory by
-// cp.async; 0 at or past nrows.
-template <int ROWS>
+// cp.async, by a block of NTH threads; 0 at or past nrows.
+template <int ROWS, int NTH = THREADS>
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
                                           int nrows) {
-  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS; i += NTH) {
     const bool valid = r0 + i < nrows;
     cp_async4(smem_u32(dst + i), src + (valid ? r0 + i : 0), valid);
   }
@@ -371,6 +402,206 @@ flash_attention_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
   }
 }
 
+// The dK/dV kernel above D = 128 (the note above): 8 warps, key group
+// kg = warp % 4 of 16 keys, role warp / 4, one accumulator of 16 keys x D a
+// warp. Role 0 computes S^T = K Q^T, forms P^T, stages it in f32 (masked) in
+// shared memory in C-fragment lane order and adds P^T dO to dV; role 1
+// computes dP^T = V dO^T, reads P^T back at the same lane positions (the C
+// fragments of S^T and dP^T hold the same (key, row) pairs), forms
+// dS^T = P^T (dP^T - D) and adds dS^T Q to dK. Each output element is
+// written once after sums in a fixed order, as in the kernel above.
+template <int D>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_attention_bwd_dkdv_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                        const bf16* __restrict__ v,
+                                        const bf16* __restrict__ dout,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta, bf16* __restrict__ dk,
+                                        bf16* __restrict__ dv, int hq, int hkv, int sq, int skv,
+                                        int window, float scale_log2, float scale) {
+  constexpr int BQ = Tile<D>::BQ;
+  constexpr int LD = D + 8;       // padded row stride of every tile (elements)
+  constexpr int KS = D / 16;      // k-steps of S^T and dP^T
+  constexpr int NT = D / 8;       // n-tiles of dK or dV
+  constexpr int QN = BQ / 8;      // n-tiles of S^T and dP^T (8 query rows each)
+  constexpr int QSTAGE = BQ * LD;
+  static_assert(WIDE_GROUPS * 16 == BLOCK, "the key groups cover the block's keys");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);              // [BLOCK][LD]
+  bf16* Vs = Ks + BLOCK * LD;                                 // [BLOCK][LD]
+  bf16* Qs = Vs + BLOCK * LD;                                 // [2][BQ][LD]
+  bf16* dOs = Qs + 2 * QSTAGE;                                // [2][BQ][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * QSTAGE);     // [2][BQ]
+  float* Ds = Ls + 2 * BQ;                                    // [2][BQ]
+  float* Ps = Ds + 2 * BQ;                                    // [GROUPS][QN][32 lanes][4]
+
+  const int b = blockIdx.x / hkv, kvh = blockIdx.x - b * hkv;
+  const int k0 = blockIdx.y * BLOCK;   // the first key blocks are seen by the most rows
+  const int group = hq / hkv, off = skv - sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kg = warp % WIDE_GROUPS;   // this warp's 16 keys
+  const int role = warp / WIDE_GROUPS; // 0: P^T and dV, 1: dS^T and dK
+  const int g = lane >> 2;             // fragment row (and row + 8)
+  const int t = lane & 3;              // fragment column pair
+  const int mi = lane >> 3;            // which 8 x 8 matrix this lane addresses
+  const int mr = lane & 7;             // which row of it
+  const size_t kv_base = ((size_t)b * hkv + kvh) * skv;
+  const size_t head0 = (size_t)b * hq + (size_t)kvh * group;   // the group's first q head
+
+  const int k_last = min(k0 + BLOCK, skv) - 1;
+  const int i_lo = max(0, k0 - off);
+  const int i_hi = window > 0 ? (int)min((long long)sq - 1, (long long)k_last + window - 1 - off)
+                              : sq - 1;
+  const int qt0 = i_lo / BQ;
+  const int n_qt = i_hi >= i_lo ? i_hi / BQ - qt0 + 1 : 0;
+  const int n_it = group * n_qt;
+
+  auto load_q = [&](int it, int st) {
+    const int hg = it / n_qt;
+    const int q0 = (qt0 + it - hg * n_qt) * BQ;
+    const size_t rb = (head0 + hg) * sq;
+    load_tile<D, BQ, WIDE_THREADS>(Qs + st * QSTAGE, q + rb * D, q0, sq);
+    load_tile<D, BQ, WIDE_THREADS>(dOs + st * QSTAGE, dout + rb * D, q0, sq);
+    load_rows<BQ, WIDE_THREADS>(Ls + st * BQ, lse + rb, q0, sq);
+    load_rows<BQ, WIDE_THREADS>(Ds + st * BQ, delta + rb, q0, sq);
+  };
+
+  if (n_it > 0) {
+    load_tile<D, BLOCK, WIDE_THREADS>(Ks, k + kv_base * D, k0, skv);
+    load_tile<D, BLOCK, WIDE_THREADS>(Vs, v + kv_base * D, k0, skv);
+    load_q(0, 0);
+  }
+  cp_async_commit();
+
+  float acc[NT][4];                    // dV (role 0) or dK (role 1)
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  const int kw = k0 + kg * 16;         // this warp's first key
+  const bf16* As = role == 0 ? Ks : Vs;                      // A of S^T or dP^T
+  const uint32_t a_at = smem_u32(As + (kg * 16 + (mi & 1) * 8 + mr) * LD + (mi >> 1) * 8);
+  float* ps = Ps + (kg * QN * 32 + lane) * 4;                // this lane's P^T, n-tile 0
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) load_q(it + 1, st ^ 1);   // the stage read in iteration it - 1 is free
+    cp_async_commit();
+    cp_async_wait<1>();                          // tile it has landed
+    __syncthreads();
+    const int hg = it / n_qt;
+    const int q0 = (qt0 + it - hg * n_qt) * BQ;
+    const int p_lo = q0 + off;                   // key position of the tile's first row
+    const int p_hi = min(q0 + BQ, sq) - 1 + off; // and of its last
+    // A tile none of whose pairs this key group may see costs its warps nothing.
+    const bool seen = kw < skv && kw <= p_hi && (window <= 0 || kw + 15 > p_lo - window);
+    const bool edge = kw + 15 > p_lo || kw + 16 > skv || q0 + BQ > sq ||
+                      (window > 0 && kw <= p_hi - window);
+    const bf16* Qt = Qs + st * QSTAGE;
+    const bf16* dOt = dOs + st * QSTAGE;
+    const float* Lt = Ls + st * BQ;
+    const float* Dt = Ds + st * BQ;
+    const bf16* Bt = role == 0 ? Qt : dOt;      // B of S^T or dP^T
+    auto keep = [&](int n, int e) {
+      const int key = kw + g + 8 * (e >> 1);
+      const int row = q0 + n * 8 + 2 * t + (e & 1);
+      const int qp = row + off;
+      return row < sq && key < skv && key <= qp && (window <= 0 || key > qp - window);
+    };
+
+    // S^T = K Q^T (role 0) or dP^T = V dO^T (role 1), [16 keys, BQ rows].
+    float x[QN][4];
+    if (seen) {
+#pragma unroll
+      for (int n = 0; n < QN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[n][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t af[4];
+        ldmatrix_x4(af, a_at + ks * 32);
+#pragma unroll
+        for (int np = 0; np < QN / 2; ++np) {
+          const int b_at = (np * 16 + (mi >> 1) * 8 + mr) * LD + ks * 16 + (mi & 1) * 8;
+          uint32_t bfr[4];
+          ldmatrix_x4(bfr, smem_u32(Bt + b_at));
+          mma_bf16(x[2 * np], af, bfr[0], bfr[1]);
+          mma_bf16(x[2 * np + 1], af, bfr[2], bfr[3]);
+        }
+      }
+      if (role == 0) {   // P^T = exp2(S^T scale log2(e) - L), masked, kept and staged
+#pragma unroll
+        for (int n = 0; n < QN; ++n) {
+          const float2 l = *reinterpret_cast<const float2*>(Lt + n * 8 + 2 * t);
+          const float lc[2] = {l.x * LOG2E, l.y * LOG2E};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            x[n][e] = ex2(fmaf(x[n][e], scale_log2, -lc[e & 1]));
+            if (edge && !keep(n, e)) x[n][e] = 0.0f;
+          }
+          *reinterpret_cast<float4*>(ps + n * 128) = make_float4(x[n][0], x[n][1], x[n][2],
+                                                                 x[n][3]);
+        }
+      }
+    }
+    __syncthreads();                             // P^T of every key group is in
+
+    if (seen) {
+      // The A fragments of this warp's product in bf16: P^T (role 0), or
+      // dS^T = P^T (dP^T - D) (role 1, masked), elements as in the kernel above.
+      uint32_t pa[QN / 2][4];
+#pragma unroll
+      for (int n = 0; n < QN; ++n) {
+        float y[4];
+        if (role == 0) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) y[e] = x[n][e];
+        } else {
+          const float4 p = *reinterpret_cast<const float4*>(ps + n * 128);
+          const float2 dd = *reinterpret_cast<const float2*>(Dt + n * 8 + 2 * t);
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+          const float dc[2] = {dd.x, dd.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            y[e] = pv[e] * (x[n][e] - dc[e & 1]);
+            if (edge && !keep(n, e)) y[e] = 0.0f;
+          }
+        }
+        pa[n >> 1][2 * (n & 1)] = pack_bf16(y[0], y[1]);
+        pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(y[2], y[3]);
+      }
+      // dV += P^T dO (role 0) or dK += dS^T Q (role 1): per k-step of 16
+      // rows, one ldmatrix.x4.trans gives the B fragments of two n-tiles.
+      const bf16* Ct = role == 0 ? dOt : Qt;
+#pragma unroll
+      for (int kk = 0; kk < QN / 2; ++kk)
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          uint32_t cb[4];
+          ldmatrix_x4_trans(cb, smem_u32(Ct + (kk * 16 + (mi & 1) * 8 + mr) * LD + dn * 16 +
+                                         (mi >> 1) * 8));
+          mma_bf16(acc[2 * dn], pa[kk], cb[0], cb[1]);
+          mma_bf16(acc[2 * dn + 1], pa[kk], cb[2], cb[3]);
+        }
+    }
+    __syncthreads();                             // every warp is done with stage st and P^T
+  }
+
+  // dV (role 0) or dK, scaled (role 1), of keys kw + g and kw + g + 8.
+  const float mult = role == 0 ? 1.0f : scale;
+  bf16* outp = role == 0 ? dv : dk;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw + g + 8 * r;
+    if (key >= skv) continue;
+    bf16* row = outp + (kv_base + key) * D;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * r] * mult, acc[n][2 * r + 1] * mult);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(THREADS, Tile<D>::DQ_BLOCKS)
 flash_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -419,13 +650,17 @@ flash_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restr
   __syncthreads();
 
   // Q and dO as A fragments, and L (log2 units) and D of rows g and g + 8;
-  // 0 past sq.
+  // 0 past sq. Held in registers up to D = 128; above (QREG false), each
+  // k-step reads them from the block's tiles again.
+  constexpr bool QREG = D <= 128;
+  const int a_at = (warp * 16 + (mi & 1) * 8 + mr) * LD + (mi >> 1) * 8;
   uint32_t qa[KS][4], oa[KS][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int at = (warp * 16 + (mi & 1) * 8 + mr) * LD + ks * 16 + (mi >> 1) * 8;
-    ldmatrix_x4(qa[ks], smem_u32(Qs + at));
-    ldmatrix_x4(oa[ks], smem_u32(dOs + at));
+    for (int ks = 0; ks < KS; ++ks) {
+      ldmatrix_x4(qa[ks], smem_u32(Qs + a_at + ks * 16));
+      ldmatrix_x4(oa[ks], smem_u32(dOs + a_at + ks * 16));
+    }
   }
   float lr[2], dr[2];
 #pragma unroll
@@ -468,7 +703,11 @@ flash_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restr
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < KS; ++ks) {
+        if constexpr (!QREG) {
+          ldmatrix_x4(qa[ks], smem_u32(Qs + a_at + ks * 16));
+          ldmatrix_x4(oa[ks], smem_u32(dOs + a_at + ks * 16));
+        }
 #pragma unroll
         for (int np = 0; np < KN / 2; ++np) {
           const int at = (np * 16 + (mi >> 1) * 8 + mr) * LD + ks * 16 + (mi & 1) * 8;
@@ -480,6 +719,7 @@ flash_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restr
           mma_bf16(dp[2 * np], oa[ks], vf[0], vf[1]);
           mma_bf16(dp[2 * np + 1], oa[ks], vf[2], vf[3]);
         }
+      }
 
       // dS = P (dP - D) with P = exp2(S scale log2(e) - L), rounded to bf16
       // as the A fragments of dS K; per-element masks only where the tile
@@ -542,8 +782,15 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
            const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv, int batch, int hq,
            int hkv, int sq, int skv, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem_kv = dkdv_smem<D>(), smem_q = dq_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_tc_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  constexpr bool wide = Tile<D>::WIDE;
+  void (*dkdv)(const bf16*, const bf16*, const bf16*, const bf16*, const float*, const float*,
+               bf16*, bf16*, int, int, int, int, int, float, float);
+  if constexpr (wide)
+    dkdv = flash_attention_bwd_dkdv_wide_tc_kernel<D>;
+  else
+    dkdv = flash_attention_bwd_dkdv_tc_kernel<D>;
+  cudaError_t e =
+      cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaFuncSetAttribute(flash_attention_bwd_dq_tc_kernel<D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
@@ -554,9 +801,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const float sl2 = scale * LOG2E;
-  flash_attention_bwd_dkdv_tc_kernel<D>
-      <<<dim3(batch * hkv, (skv + BLOCK - 1) / BLOCK), THREADS, smem_kv, stream>>>(
-          q, k, v, dout, lse, delta, dk, dv, hq, hkv, sq, skv, window, sl2, scale);
+  dkdv<<<dim3(batch * hkv, (skv + BLOCK - 1) / BLOCK), wide ? WIDE_THREADS : THREADS, smem_kv,
+         stream>>>(q, k, v, dout, lse, delta, dk, dv, hq, hkv, sq, skv, window, sl2, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_attention_bwd_dq_tc_kernel<D>
@@ -570,7 +816,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
 // q, o, dout, dq [batch, hq, sq, d]; k, v, dk, dv [batch, hkv, skv, d]:
 // contiguous bfloat16, 16-byte aligned; lse and delta [batch, hq, sq]
 // float32 (lse as the forward wrote it; delta is scratch). hq a multiple of
-// hkv, d one of 32, 64, 80, 128, window <= 0 for none. Launches three kernels
+// hkv, d one of 32, 64, 80, 128, 240, window <= 0 for none. Launches three kernels
 // on `stream` and returns the cudaError_t of the launches.
 extern "C" int flash_attention_bwd_tc_bf16(const void* q, const void* k, const void* v,
                                            const void* o, const void* dout, const void* lse,
@@ -596,6 +842,8 @@ extern "C" int flash_attention_bwd_tc_bf16(const void* q, const void* k, const v
     case 80: return launch<80>(Q, K, V, O, dO, L, Dl, dQ, dK, dV, batch, hq, hkv, sq, skv,
                                window, scale, s);
     case 128: return launch<128>(Q, K, V, O, dO, L, Dl, dQ, dK, dV, batch, hq, hkv, sq, skv,
+                                 window, scale, s);
+    case 240: return launch<240>(Q, K, V, O, dO, L, Dl, dQ, dK, dV, batch, hq, hkv, sq, skv,
                                  window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -39,6 +39,24 @@
 // query blocks longest first. The output is normalised by l, staged through
 // the warp's own rows of the Q tile and written with 16-byte stores.
 //
+// The D = 240 tile (gemma3-12b: 3840 / 16 heads). What bounds it is the
+// register file: Q's A fragments would be 60 registers a thread, the O
+// accumulator 120 and S 32, ~212 before addresses, m and l, against the cap
+// of 255, so the tile that holds Q in registers spills. So above D = 128 Q
+// stays in its shared tile (which holds it anyway, 190,464 B of shared
+// memory with the K and V stages: one block of 8 warps an SM) and each of
+// the 15 k-steps of S = Q K^T reads its A fragment with one more ldmatrix.x4
+// beside the four of K, as FlashAttention-2 does at D = 256. Nothing else
+// changes, so the sums and roundings are those of the other head dims.
+// `-Xptxas -v` reports 255 registers for both D = 240 kernels and spills of
+// 28 bytes (serving) and 40 (LSE). Their cost, by tools/sass_spills.py: per
+// key tile a warp issues 2 spill stores and 6 spill loads (LSE: 4 and 6)
+// beside the tile's 240 mma.sync of a 2,400-instruction kernel; the rest sit
+// at entry and exit. At gemma's prefill (q [8,16,2048,240], kv 8 heads) the
+// serving kernel takes 1.037-1.043 ms, 4.0x its 0.261 ms bound, and
+// 0.834-0.840 ms with window 1024 (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py).
+//
 // For training, a second kernel (flash_attention_tc_lse_kernel, chosen by a
 // non-null `lse`) also keeps each row's sum of P before rounding and writes
 // the row's log-sum-exp m + log l, which the backward pass
@@ -148,12 +166,15 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q, const bf16* _
   __syncthreads();
 
   // Q as A fragments: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15) of each
-  // 16-column step give a0..a3.
+  // 16-column step give a0..a3. Held in registers up to D = 128; above, each
+  // k-step reads its fragment from the Q tile again (QREG false).
+  constexpr bool QREG = D <= 128;
+  const uint32_t q_at = smem_u32(Qs + (warp * 16 + (mi & 1) * 8 + mr) * LD + (mi >> 1) * 8);
   uint32_t qf[KSTEPS][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks)
-    ldmatrix_x4(qf[ks], smem_u32(Qs + (warp * 16 + (mi & 1) * 8 + mr) * LD + ks * 16 +
-                                 (mi >> 1) * 8));
+    for (int ks = 0; ks < KSTEPS; ++ks) ldmatrix_x4(qf[ks], q_at + ks * 32);
+  }
 
   float o[NT][4];
 #pragma unroll
@@ -192,7 +213,8 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q, const bf16* _
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks)
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        if constexpr (!QREG) ldmatrix_x4(qf[ks], q_at + ks * 32);
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t kf[4];
@@ -201,6 +223,7 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q, const bf16* _
           mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
           mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
         }
+      }
 
       // Per-element masks only where the tile crosses this warp's diagonal, the
       // window edge of its last row, or the end of the keys.
@@ -370,7 +393,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 }  // namespace
 
 // q, out [batch, hq, sq, d]; k, v [batch, hkv, skv, d]: contiguous bfloat16,
-// 16-byte aligned, with hq a multiple of hkv and d one of 32, 64, 80, 128.
+// 16-byte aligned, with hq a multiple of hkv and d one of 32, 64, 80, 128, 240.
 // window <= 0 means no window. lse, if not null, is [batch, hq, sq] float32
 // and gets each row's log-sum-exp of its scaled scores (-inf for a fully
 // masked row), for the backward pass. Launches on `stream` and returns the
@@ -385,6 +408,7 @@ extern "C" int flash_attention_tc_bf16(const void* q, const void* k, const void*
     case 64: return launch<64>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
     case 80: return launch<80>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
     case 128: return launch<128>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
+    case 240: return launch<240>(q, k, v, out, lse, batch, hq, hkv, sq, skv, window, sl2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -44,7 +44,7 @@ launches_bwd = 0    # backward, either route
 launches_bwd_tc = 0   # backward, bfloat16 on the tensor cores (flash_attention_bwd_tc.cu)
 launches_bwd_f32 = 0  # backward, float32, 3-pass TF32 (flash_attention_bwd.cu)
 
-HEAD_DIMS = (32, 64, 80, 128)   # each kernel's template instances
+HEAD_DIMS = (32, 64, 80, 128, 240)   # each kernel's template instances
 _GRID_Y = 65535                 # query blocks (64 or 128 rows) ride the grid's y axis
 
 

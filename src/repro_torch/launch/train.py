@@ -18,7 +18,8 @@ host clock, ending in ``torch.cuda.synchronize()``. ``--checkpoint`` writes
 the final parameters in the reference's layout (stacked layer groups,
 ``convert.lm_params_to_jax``), which ``repro.checkpoint.io.restore`` and
 ``repro_torch.launch.serve --checkpoint`` read. ``--layers N`` cuts the
-config to its first N layers.
+config to its first N layers (``configs.cut_depth``: gemma3-12b's window
+pattern with them).
 
 ``--aggregation spread --pods P`` trains P pods, the paper's edge servers:
 P ranks of a mesh (``launch.mesh``), started here (``mesh.spawn``: rank r
@@ -102,7 +103,7 @@ def setup(args: argparse.Namespace, model: Optional[Transformer] = None,
     if model is not None:
         cfg = model.cfg
     elif args.layers:
-        cfg = configs.get_config(args.arch, args.variant, num_layers=args.layers)
+        cfg = configs.cut_depth(configs.get_config(args.arch, args.variant), args.layers)
     else:
         cfg = configs.get_config(args.arch, args.variant)
     if args.remat is not None:

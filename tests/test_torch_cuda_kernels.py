@@ -354,6 +354,19 @@ FLASH_SHAPES = [
     (1, 8, 1, 300, 300, 128, None, torch.float32),
     (2, 4, 2, 77, 301, 32, None, torch.float32),
     (8, 32, 8, 2048, 2048, 80, None, torch.float32),
+    # D = 240 (gemma3-12b's head dim), both types: GQA 16:8 with and without
+    # a window, ragged 77 queries against 301 keys, more queries than keys
+    # (rows that see no key), one query against a 1000-key cache.
+    (1, 16, 8, 300, 300, 240, None, torch.bfloat16),
+    (1, 16, 8, 200, 333, 240, 64, torch.bfloat16),
+    (1, 4, 2, 150, 90, 240, None, torch.bfloat16),
+    (1, 8, 2, 1, 1000, 240, None, torch.bfloat16),
+    (2, 4, 2, 77, 301, 240, None, torch.bfloat16),
+    (1, 16, 8, 300, 300, 240, None, torch.float32),
+    (1, 16, 8, 200, 333, 240, 64, torch.float32),
+    (1, 4, 2, 150, 90, 240, None, torch.float32),
+    (1, 8, 2, 1, 1000, 240, None, torch.float32),
+    (2, 4, 2, 77, 301, 240, None, torch.float32),
 ]
 
 
@@ -401,7 +414,8 @@ def _attention_f64(q, k, v):
 # no absolute limit fits every output). One TF32 pass misses either by ~50x.
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,kind", [
     (1, 4, 2, 300, 300, 80, "sharp"), (1, 4, 1, 200, 200, 128, "sharp"),
-    (1, 4, 2, 300, 300, 80, "spread"), (1, 4, 1, 200, 200, 128, "spread")])
+    (1, 4, 2, 300, 300, 80, "spread"), (1, 4, 1, 200, 200, 128, "spread"),
+    (1, 4, 2, 200, 200, 240, "sharp"), (1, 4, 2, 200, 200, 240, "spread")])
 def test_flash_attention_f32_hard_inputs(dev, b, hq, hkv, sq, skv, d, kind):
     gen = torch.Generator(device=dev).manual_seed(sq + d + len(kind))
     q = torch.randn((b, hq, sq, d), generator=gen, device=dev)
@@ -505,6 +519,17 @@ FLASH_BWD_SHAPES = [
     (2, 4, 2, 203, 75, 64, None, torch.bfloat16),
     (1, 8, 2, 300, 300, 128, 70, torch.bfloat16),
     (2, 4, 2, 1300, 1300, 128, None, torch.bfloat16),    # D = 128 past 1000 keys
+    # D = 240 (gemma3-12b's head dim), both types: GQA 16:8 with a window
+    # that crosses tiles, more queries than keys with Sq not a multiple of 16
+    # (rows that see no key), ragged 77 queries against 301 keys, and
+    # gemma's window of 1024 over 1100 keys.
+    (1, 16, 8, 300, 300, 240, 100, torch.float32),
+    (1, 4, 2, 203, 75, 240, None, torch.float32),
+    (1, 4, 2, 77, 301, 240, None, torch.float32),
+    (1, 16, 8, 300, 300, 240, 100, torch.bfloat16),
+    (1, 4, 2, 203, 75, 240, None, torch.bfloat16),
+    (1, 4, 2, 77, 301, 240, None, torch.bfloat16),
+    (1, 16, 8, 1100, 1100, 240, 1024, torch.bfloat16),
 ]
 
 
@@ -566,7 +591,8 @@ def test_flash_attention_backward_matches_plain(dev, b, hq, hkv, sq, skv, d, win
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window", [(1, 4, 2, 300, 300, 80, None),
-                                                       (1, 8, 2, 200, 200, 64, 50)])
+                                                       (1, 8, 2, 200, 200, 64, 50),
+                                                       (1, 16, 8, 200, 200, 240, 64)])
 def test_flash_attention_backward_peaky_softmax(dev, b, hq, hkv, sq, skv, d, window):
     """q scaled by 8, bf16: most rows put nearly all their weight on one key,
     so P is near 1 there and dS = P (dP - D) cancels. The backward on the

@@ -39,6 +39,12 @@ SHAPES = [
     (1, 4, 2, 3, 77, 32, None),          # Sq < Skv: queries at the end
     (1, 2, 1, 128, 256, 64, 100),
     (1, 2, 2, 40, 200, 32, 64),
+    # gemma3-12b's head dim, 240: GQA 2:1, with a window on a ragged prompt,
+    # and queries at the end of a longer cache (Sq >= 128: the reference's
+    # Pallas kernel is compared too).
+    (1, 4, 2, 128, 128, 240, None),
+    (1, 4, 2, 200, 200, 240, 64),
+    (1, 2, 1, 128, 256, 240, 100),
 ]
 
 

@@ -40,6 +40,9 @@ SHAPES = [
     (1, 4, 2, 7, 29, 128, None),       # Sq < Skv
     (1, 2, 1, 12, 40, 64, 16),         # Sq < Skv with a window
     (1, 4, 2, 20, 12, 32, None),       # Sq > Skv: the first 8 rows see no key
+    (1, 4, 2, 40, 40, 240, None),      # gemma3-12b's head dim, GQA 2:1
+    (1, 4, 2, 30, 50, 240, 16),        # ... Sq < Skv with a window
+    (1, 2, 1, 20, 12, 240, None),      # ... Sq > Skv
 ]
 
 

@@ -42,7 +42,7 @@ GPU_NAN = np.array([0x7FFFFFFF], dtype=np.uint32).view(np.float32)[0]   # the ca
 
 def _tiles(d):
     """The kernel's tiles: (query rows per dK/dV tile, keys per dQ tile)."""
-    return (16 if d == 128 else 32), 32
+    return {128: (16, 32), 240: (8, 8)}.get(d, (32, 32))
 
 
 def _a_fragment_cols():
@@ -235,9 +235,12 @@ def test_fragment_orders_agree():
 # (b, hq, hkv, sq, skv, d, window): Qwen3-4B's head dim with GQA 2:1 over
 # four dK/dV row tiles and eight dQ key tiles; fewer queries than keys, 173
 # keys (the last dQ tile holds 13); D = 128 (16-row dK/dV tiles) with a
-# window and MQA.
+# window and MQA; D = 240 (8-row dK/dV tiles, 8-key dQ tiles, dK and dV by
+# warps of their own: the same sums) with GQA 2:1 and a window, then fewer
+# queries than keys, 91 keys (the last dQ tile holds 3).
 SHAPES = [(1, 4, 2, 128, 256, 80, None), (1, 2, 1, 77, 173, 80, None),
-          (1, 2, 1, 120, 120, 128, 40)]
+          (1, 2, 1, 120, 120, 128, 40), (1, 4, 2, 64, 64, 240, 24),
+          (1, 2, 1, 45, 91, 240, None)]
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window", SHAPES)

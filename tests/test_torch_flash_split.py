@@ -66,7 +66,7 @@ def kernel_attention(q, k, v, *, window=None, passes=3):
     """The kernel's sums for q [Sq, D], k, v [Skv, D] (one head), float32."""
     sq, d = q.shape
     skv = k.shape[0]
-    bkv = 32 if d == 128 else 64   # the kernel's tiles
+    bkv = {128: 32, 240: 16}.get(d, 64)   # the kernel's tiles
     sl2 = np.float32(np.float32(d ** -0.5) * np.float32(LOG2E))
     (q_hi, q_lo), (k_hi, k_lo), (v_hi, v_lo) = split(q), split(k), split(v)
     a_keys, b_keys = _a_fragment_keys(), _b_fragment_keys()
@@ -141,9 +141,12 @@ def test_fragment_key_orders_agree():
 
 # (b, hq, hkv, sq, skv, d, window): Qwen3-4B's head dim with GQA 2:1 over
 # four 64-key tiles; fewer queries than keys, 301 keys (the last k-step
-# holds 5); D = 128 (32-key tiles) with a window and MQA.
+# holds 5); D = 128 (32-key tiles) with a window and MQA; D = 240 (16-key
+# tiles, P V in fresh accumulators of 48 columns: the same sums) with GQA
+# 2:1 and a window, then fewer queries than keys, 141 keys.
 SHAPES = [(1, 4, 2, 256, 256, 80, None), (1, 2, 1, 77, 301, 80, None),
-          (1, 2, 1, 200, 200, 128, 64)]
+          (1, 2, 1, 200, 200, 128, 64), (1, 4, 2, 100, 100, 240, 40),
+          (1, 2, 1, 60, 141, 240, None)]
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window", SHAPES)

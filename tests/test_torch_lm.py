@@ -283,6 +283,58 @@ def test_decode_steps_match(pair):
         _close(got["k"], want["k"], STACK_TOL)
 
 
+def test_gemma3_head_dim_240_matches_reference():
+    """gemma3-12b's smoke config at its full config's head dim, 240 (d_model
+    128, 4 q heads of 240; the override of the card's small gemma runs):
+    forward logits, a 200-token prefill across the window-64 layer's ring
+    buffer against both the reference's plain attention and its Pallas kernel
+    (interpret mode), every layer's cache, 8 decode steps and greedy tokens."""
+    jcfg = jconfigs.get_config("gemma3-12b", "smoke", head_dim=240)
+    params = jax.jit(jtr.init_model, static_argnums=1)(jax.random.key(0), jcfg)
+    pcfg = pconfigs.get_config("gemma3-12b", "smoke", head_dim=240)
+    model = lm_params_from_jax(jax.tree.map(np.asarray, params), pcfg, "cpu")
+    assert pcfg.head_dim == 240 and model.blocks[0].attn.wq.shape == (128, 960)
+    tok = _tokens(jcfg, 2, 80)
+    want, _ = jax.jit(lambda p, t: jtr.forward(p, jcfg, t))(params, jnp.asarray(tok))
+    got, _ = ptr.forward(model, _t(tok))
+    _close(got, want, STACK_TOL)
+    tok = _tokens(jcfg, 2, 200)
+    for impl in ("reference", "pallas_interpret"):
+        icfg = dataclasses.replace(jcfg, attention_impl=impl)
+        jl, jc = jax.jit(lambda p, t: jdec.prefill(p, icfg, t, max_len=216))(
+            params, jnp.asarray(tok))
+        pl_, pc = pdec.prefill(model, _t(tok), max_len=216)
+        _close(pl_, jl, STACK_TOL)
+        for g, w in zip(pc["layers"], jc["layers"]):
+            _close(g["k"], w["k"], STACK_TOL)
+            _close(g["v"], w["v"], STACK_TOL)
+    jstep = jax.jit(lambda p, c, t: jdec.decode_step(p, jcfg, c, t))
+    feed = _tokens(jcfg, 2, 8, seed=1)
+    for i in range(8):
+        jl, jc = jstep(params, jc, jnp.asarray(feed[:, i:i + 1]))
+        pl_, pc = pdec.decode_step(model, pc, _t(feed[:, i:i + 1]))
+        _close(pl_, jl, STACK_TOL)
+    short = _tokens(jcfg, 3, 40)
+    np.testing.assert_array_equal(
+        PServeEngine(model, max_len=64).generate(short, steps=8),
+        JServeEngine(jcfg, params, max_len=64).generate(short, steps=8))
+
+
+def test_every_full_config_that_attends_has_a_kernel_head_dim():
+    """Each full config whose decoder blocks attend (attention, hybrid or
+    encoder-decoder blocks, by the config's block kinds) has a head dim the
+    flash kernels have an instance of: on the card there is no other route.
+    xlstm-125m's blocks (mLSTM, sLSTM) never reach the kernel."""
+    attending = []
+    for arch in pconfigs.ARCH_IDS:
+        cfg = pconfigs.get_config(arch, "full")
+        kinds = {ptr._block_kind(cfg, i) for i in range(cfg.num_layers)}
+        if kinds & {"attn", "hybrid", "encdec_dec"}:
+            attending.append(arch)
+            assert cfg.head_dim in pfa.HEAD_DIMS, (arch, cfg.head_dim, pfa.HEAD_DIMS)
+    assert "gemma3-12b" in attending and "xlstm-125m" not in attending
+
+
 def test_generate_greedy_tokens_identical(pair):
     jcfg, params, _, model = pair
     tok = _tokens(jcfg, 3, 40)

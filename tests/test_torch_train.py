@@ -192,7 +192,11 @@ class TestOptimHelpers:
 
 @pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS + FAMILY_ARCHS)
 def test_loss_and_grads_match(arch):
-    jcfg, params, pcfg, model = _pair(arch)
+    _loss_and_grads_match(arch)
+
+
+def _loss_and_grads_match(arch, **overrides):
+    jcfg, params, pcfg, model = _pair(arch, **overrides)
     batch = _batches(jcfg, 1)[0]
     (jtotal, jmetrics), jgrads = jax.jit(jax.value_and_grad(
         lambda p, b: jstep.lm_loss(p, jcfg, b), has_aux=True))(params, _jbatch(batch))
@@ -231,7 +235,26 @@ def _optimizer(m, kind, arch=""):
 @pytest.mark.parametrize("kind,remat,microbatch", RUNS)
 @pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS + FAMILY_ARCHS)
 def test_three_steps_match(arch, kind, remat, microbatch):
-    jcfg, params, pcfg, model = _pair(arch, remat=remat)
+    _three_steps_match(arch, kind, remat, microbatch)
+
+
+# gemma3-12b's smoke config at its full config's head dim, 240 (d_model 128,
+# 4 q heads of 240): the card's small gemma runs take this override, which
+# runs the flash kernels' D = 240 instances on a model's path.
+GEMMA_D240 = {"head_dim": 240}
+
+
+def test_gemma3_head_dim_240_loss_and_grads_match():
+    _loss_and_grads_match("gemma3-12b", **GEMMA_D240)
+
+
+@pytest.mark.parametrize("kind,remat,microbatch", RUNS[1::2])
+def test_gemma3_head_dim_240_three_steps_match(kind, remat, microbatch):
+    _three_steps_match("gemma3-12b", kind, remat, microbatch, **GEMMA_D240)
+
+
+def _three_steps_match(arch, kind, remat, microbatch, **overrides):
+    jcfg, params, pcfg, model = _pair(arch, remat=remat, **overrides)
     jopt, popt = _optimizer(jadam, kind, arch), _optimizer(padam, kind, arch)
     jfn = jax.jit(jstep.make_train_step(jcfg, jopt, microbatch=microbatch))
     jstate = jstep.TrainState(params=params, opt_state=jopt.init(params),
