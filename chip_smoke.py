@@ -147,6 +147,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -346,6 +347,43 @@ def _ptxas_report(log: str):
             spill = line.strip()
         elif "Used" in line and "registers" in line:
             yield f"{name}: {line.split(':', 1)[1].strip()}; {spill}"
+
+
+def _sass_counts(lib: Path, ops=("HGMMA", "UTMALDG", "HMMA")) -> dict:
+    """Per kernel instance of a built library, by ``cuobjdump -sass``: how
+    many of its instructions are each of ``ops`` (HGMMA is wgmma, UTMALDG a
+    TMA load, HMMA mma.sync)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            counts[name] = dict.fromkeys(ops, 0)
+        elif name:
+            for op in ops:
+                counts[name][op] += len(re.findall(rf"\b{op}\b", line))
+    return counts
+
+
+def _check_flash_sass(ptxas: dict) -> None:
+    """Every instance of the bf16 forward (serving and training kernels, each
+    head dim) runs wgmma fed by TMA and no mma.sync: a hard failure
+    otherwise. Prints each instance's counts beside its registers and spills
+    (``ptxas``: the ``-Xptxas -v`` line of each instance)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kflash
+
+    counts = _sass_counts(build.library_path())
+    for kind in ("flash_attention_tc_kernel", "flash_attention_tc_lse_kernel"):
+        for d in kflash.HEAD_DIMS:
+            name = f"{kind}<{d}>"
+            c = counts.get(name)
+            print(f"[smoke] sass {name}: {c} ; ptxas {ptxas.get(name)}")
+            if c is None or not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
+                raise AssertionError(f"{name} is not a wgmma kernel fed by TMA: {c}")
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -2498,9 +2536,12 @@ def main() -> int:
     build.load()
     print(f"[smoke] kernels built with nvcc for sm_90a in {time.perf_counter() - t0:.1f} s "
           f"-> {build.library_path().relative_to(ROOT)}")
+    ptxas = {}
     for log in sorted(build.library_path().parent.glob("*.ptxas.txt")):
         for line in _ptxas_report(log.read_text()):
             print(f"[smoke] ptxas {log.name.split('.')[0]}: {line}")
+            ptxas[line.split(":", 1)[0]] = line.split(":", 1)[1].strip()
+    _check_flash_sass(ptxas)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     sage, sim = _check_sage(dev, gen), _check_sim(dev, gen)

@@ -4,11 +4,13 @@ and its backward pass.
 Replaces the TPU kernel ``flash_attention`` / ``_flash_kernel`` of
 ``src/repro/kernels/flash_attention.py`` together with the head repeat and
 padding of ``repro.kernels.ops.mha``. Two hand-written forward kernels share
-one contract, chosen by the inputs' type, both on the tensor cores with
-``mma.sync``: bfloat16 in ``csrc/flash_attention_tc.cu`` (f32 accumulation, P
-rounded to bf16), float32 in ``csrc/flash_attention.cu`` (TF32 with the 3-pass
-split of ``csrc/tf32.cuh``, which keeps f32 parity at 1e-5). Neither falls
-back to the other. Both take q ``[B, Hq, Sq, D]`` and k, v
+one contract, chosen by the inputs' type, both on the tensor cores:
+bfloat16 in ``csrc/flash_attention_tc.cu`` (Hopper's ``wgmma`` fed by TMA
+through a ring of shared-memory stages, a producer warpgroup and two consumer
+warpgroups; f32 accumulation, P rounded to bf16), float32 in
+``csrc/flash_attention.cu`` (``mma.sync`` TF32 with the 3-pass split of
+``csrc/tf32.cuh``, which keeps f32 parity at 1e-5). Neither falls back to the
+other. Both take q ``[B, Hq, Sq, D]`` and k, v
 ``[B, Hkv, Skv, D]`` as they are: they map each q head to its kv head and
 mask ragged sequence lengths themselves. Each source note says what bounds
 it on the H100 and what its design does about that. The plain version of

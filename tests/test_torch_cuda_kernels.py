@@ -367,6 +367,22 @@ FLASH_SHAPES = [
     (1, 4, 2, 150, 90, 240, None, torch.float32),
     (1, 8, 2, 1, 1000, 240, None, torch.float32),
     (2, 4, 2, 77, 301, 240, None, torch.float32),
+    # The wgmma kernel's tiling (bf16): Sq of 65, 129 and 191 around its
+    # 64-row warpgroups and 128-row blocks; Skv not a multiple of its key
+    # tiles (64 at D <= 64, 128 at D = 80 and 128, 48 at D = 240); D = 80 and
+    # D = 240 across the partial last 64-column box of the swizzle; Hymba's
+    # GQA 25:5 at D = 64 with window 1024; and B * H = 160 heads of 3 blocks,
+    # more blocks than SMs, over the 3-D maps' outer dimension.
+    (1, 4, 2, 65, 65, 64, None, torch.bfloat16),
+    (2, 4, 2, 129, 129, 80, 100, torch.bfloat16),
+    (1, 4, 1, 191, 191, 128, None, torch.bfloat16),
+    (1, 4, 2, 100, 333, 128, None, torch.bfloat16),
+    (1, 4, 2, 70, 201, 240, 64, torch.bfloat16),
+    (1, 8, 4, 257, 257, 240, None, torch.bfloat16),
+    (2, 4, 2, 300, 300, 80, 16, torch.bfloat16),
+    (1, 4, 4, 191, 129, 32, None, torch.bfloat16),
+    (1, 25, 5, 1100, 1100, 64, 1024, torch.bfloat16),
+    (4, 40, 8, 300, 300, 128, None, torch.bfloat16),
 ]
 
 
@@ -390,6 +406,26 @@ def test_flash_attention_matches_plain(dev, b, hq, hkv, sq, skv, d, window, dtyp
                                atol=tol, rtol=tol)
     if sq > skv:                               # rows before key 0 see nothing: exact 0
         assert (got[:, :, :sq - skv] == 0).all()
+
+
+def test_flash_forward_is_wgmma_fed_by_tma(dev):
+    """Every instance of the bf16 forward, the serving kernel and the training
+    one at each head dim, runs wgmma (HGMMA) on tiles that TMA loads
+    (UTMALDG) and no mma.sync (HMMA), in the SASS of the built library."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import _sass_counts
+
+    build.load()
+    counts = _sass_counts(build.library_path())
+    for kind in ("flash_attention_tc_kernel", "flash_attention_tc_lse_kernel"):
+        for d in kflash.HEAD_DIMS:
+            c = counts[f"{kind}<{d}>"]
+            assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, (kind, d, c)
 
 
 def _attention_f64(q, k, v):
@@ -530,6 +566,14 @@ FLASH_BWD_SHAPES = [
     (1, 4, 2, 203, 75, 240, None, torch.bfloat16),
     (1, 4, 2, 77, 301, 240, None, torch.bfloat16),
     (1, 16, 8, 1100, 1100, 240, 1024, torch.bfloat16),
+    # The wgmma forward's tiling under the training kernel (the row
+    # log-sum-exp): Sq of 65 and 191 around its warpgroups, keys not a
+    # multiple of its tiles, D = 80 and 240 across the last swizzle box,
+    # Hymba's GQA 25:5 with window 1024.
+    (1, 4, 2, 65, 65, 80, None, torch.bfloat16),
+    (1, 4, 2, 191, 301, 240, 100, torch.bfloat16),
+    (2, 4, 2, 129, 200, 128, None, torch.bfloat16),
+    (1, 25, 5, 1100, 1100, 64, 1024, torch.bfloat16),
 ]
 
 
