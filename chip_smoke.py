@@ -368,16 +368,23 @@ def _sass_counts(lib: Path, ops=("HGMMA", "UTMALDG", "HMMA")) -> dict:
     return counts
 
 
+# The bf16 flash_attention kernels that must run wgmma fed by TMA: the
+# forward's serving and training kernels and the backward's dK/dV and dQ.
+WGMMA_FLASH_KERNELS = ("flash_attention_tc_kernel", "flash_attention_tc_lse_kernel",
+                       "flash_attention_bwd_dkdv_tc_kernel", "flash_attention_bwd_dq_tc_kernel")
+
+
 def _check_flash_sass(ptxas: dict) -> None:
-    """Every instance of the bf16 forward (serving and training kernels, each
-    head dim) runs wgmma fed by TMA and no mma.sync: a hard failure
-    otherwise. Prints each instance's counts beside its registers and spills
-    (``ptxas``: the ``-Xptxas -v`` line of each instance)."""
+    """Every instance of the bf16 forward (serving and training kernels) and
+    of the bf16 backward's dK/dV and dQ kernels, each head dim, runs wgmma
+    fed by TMA and no mma.sync: a hard failure otherwise. Prints each
+    instance's counts beside its registers and spills (``ptxas``: the
+    ``-Xptxas -v`` line of each instance)."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kflash
 
     counts = _sass_counts(build.library_path())
-    for kind in ("flash_attention_tc_kernel", "flash_attention_tc_lse_kernel"):
+    for kind in WGMMA_FLASH_KERNELS:
         for d in kflash.HEAD_DIMS:
             name = f"{kind}<{d}>"
             c = counts.get(name)
@@ -995,7 +1002,7 @@ def _check_flash_bwd(dev, gen):
 
     # The training path's two kernels: the forward keeping each row's
     # log-sum-exp (in bf16 a kernel of its own, flash_attention_tc_lse_kernel)
-    # and the backward (bf16 by mma.sync bf16, f32 by three TF32 passes). A
+    # and the backward (bf16 by wgmma fed by TMA, f32 by three TF32 passes). A
     # windowed GQA case, then the training shape (Qwen3-4B as configured,
     # batch 2 x 2048), each in f32 and in bf16; each route is timed at the
     # training shape, the f32 one on f32 draws (bf16 values would make the

@@ -188,16 +188,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi, float& sum) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
 // S = Q K^T for one tile: D / 16 k-steps of 16 columns, each inside one box
 // of Q (this warpgroup's 64 rows) and of the K stage. Issued, not waited for.
 template <int D>
@@ -422,16 +412,6 @@ __device__ __forceinline__ void consume_block(const CUtensorMap* omap, float* __
       tma_store_3d(omap, base + L::O_AT + c * L::Q_BOX + cw * 64 * 128, c * BOX, r0, blk.bh);
     tma_store_commit();
   }
-}
-
-__device__ __forceinline__ void st_shared_s32(uint32_t addr, int v) {
-  asm volatile("st.shared.s32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ int ld_shared_s32(uint32_t addr) {
-  int v;
-  asm volatile("ld.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
 }
 
 // The body of both kernels below; LSE also writes each row's log-sum-exp.

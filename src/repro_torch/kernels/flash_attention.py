@@ -19,7 +19,8 @@ both is ``ref.flash_attention``.
 The JAX kernel has no VJP (the reference trains through plain attention).
 The port's backward is a kernel of its own, fed by the forward's row
 log-sum-exp, with two routes chosen by type like the forward's: bfloat16 on
-the tensor cores in ``csrc/flash_attention_bwd_tc.cu`` (``mma.sync``, f32
+the tensor cores in ``csrc/flash_attention_bwd_tc.cu`` (``wgmma`` fed by TMA,
+a producer warpgroup and two consumer warpgroups, like the forward's; f32
 accumulation, P and dS rounded to bf16 before their products), float32 on
 the tensor cores in ``csrc/flash_attention_bwd.cu`` (TF32 with the 3-pass
 split of ``csrc/tf32.cuh``, f32-accurate like the forward's f32 route).

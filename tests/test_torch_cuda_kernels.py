@@ -428,6 +428,26 @@ def test_flash_forward_is_wgmma_fed_by_tma(dev):
             assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, (kind, d, c)
 
 
+def test_flash_backward_is_wgmma_fed_by_tma(dev):
+    """Every instance of the bf16 backward's dK/dV and dQ kernels, one at each
+    head dim, runs wgmma (HGMMA) on tiles that TMA loads (UTMALDG) and no
+    mma.sync (HMMA), in the SASS of the built library."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import _sass_counts
+
+    build.load()
+    counts = _sass_counts(build.library_path())
+    for kind in ("flash_attention_bwd_dkdv_tc_kernel", "flash_attention_bwd_dq_tc_kernel"):
+        for d in kflash.HEAD_DIMS:
+            c = counts[f"{kind}<{d}>"]
+            assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, (kind, d, c)
+
+
 def _attention_f64(q, k, v):
     """Causal attention in float64, with P @ |V| beside it: the sum of the
     magnitudes of the terms of each output, the scale of f32's error."""
@@ -535,9 +555,9 @@ def test_flash_attention_refuses_what_it_cannot_run(dev):
 # The backward: every head dim in both types; ragged lengths, more queries
 # than keys (rows that see no key: dq 0), a window that crosses tiles, MQA,
 # queries at the end of a longer cache, and the training shape in bf16. The
-# last two bf16 cases cut the tensor-core kernels' tiles (16 rows or keys a
-# warp, 64 a block; 32 a tile at D = 128) where the others do not: more
-# queries than keys with Sq not a multiple of 16, and D = 128 with a window
+# last two bf16 cases cut the first tensor-core kernels' tiles (mma.sync: 16
+# rows or keys a warp, 64 a block; 32 a tile at D = 128) where the others do
+# not: more queries than keys with Sq not a multiple of 16, and D = 128 with a window
 # and GQA 4:1; then D = 128 over 1300 keys (the MoE and vlm configs' head
 # dim, past the 300 keys of the cases before it).
 FLASH_BWD_SHAPES = [
@@ -574,6 +594,14 @@ FLASH_BWD_SHAPES = [
     (1, 4, 2, 191, 301, 240, 100, torch.bfloat16),
     (2, 4, 2, 129, 200, 128, None, torch.bfloat16),
     (1, 25, 5, 1100, 1100, 64, 1024, torch.bfloat16),
+    # The wgmma backward's tiling: 129 and 255 keys against its 128-key
+    # dK/dV blocks (the second consumer's 64 keys ragged or empty), D = 240
+    # with the window's edge inside its 64-key blocks, and Hymba's GQA 25:5
+    # with window 1024 at a length where the edge crosses 64-row q tiles.
+    (1, 4, 2, 129, 129, 80, None, torch.bfloat16),
+    (2, 4, 1, 200, 255, 128, 90, torch.bfloat16),
+    (1, 8, 4, 300, 300, 240, 100, torch.bfloat16),
+    (1, 25, 5, 1157, 1157, 64, 1024, torch.bfloat16),
 ]
 
 
@@ -592,7 +620,7 @@ _FLASH_COUNTERS = ("launches_bwd", "launches_bwd_tc", "launches_bwd_f32", "launc
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window,dtype", FLASH_BWD_SHAPES)
 def test_flash_attention_backward_matches_plain(dev, b, hq, hkv, sq, skv, d, window, dtype):
     """The forward with its row log-sum-exp, then the backward on its route
-    (bf16: mma.sync bf16, f32: 3-pass TF32), against the plain
+    (bf16: wgmma fed by TMA, f32: 3-pass TF32), against the plain
     version: the counters of the two kernels moved and no other, the limits
     of the module docstring, rows that see no key dq 0, and a second run bit
     for bit."""
