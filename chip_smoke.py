@@ -372,19 +372,22 @@ def _sass_counts(lib: Path, ops=("HGMMA", "UTMALDG", "HMMA")) -> dict:
 # forward's serving and training kernels and the backward's dK/dV and dQ.
 WGMMA_FLASH_KERNELS = ("flash_attention_tc_kernel", "flash_attention_tc_lse_kernel",
                        "flash_attention_bwd_dkdv_tc_kernel", "flash_attention_bwd_dq_tc_kernel")
+# The f32 backward's dK/dV and dQ kernels, TF32 wgmma fed by TMA.
+WGMMA_F32_BWD_KERNELS = ("flash_attention_bwd_dkdv_f32_kernel",
+                         "flash_attention_bwd_dq_f32_kernel")
 
 
 def _check_flash_sass(ptxas: dict) -> None:
-    """Every instance of the bf16 forward (serving and training kernels) and
-    of the bf16 backward's dK/dV and dQ kernels, each head dim, runs wgmma
-    fed by TMA and no mma.sync: a hard failure otherwise. Prints each
-    instance's counts beside its registers and spills (``ptxas``: the
-    ``-Xptxas -v`` line of each instance)."""
+    """Every instance of the bf16 forward (serving and training kernels), of
+    the bf16 backward's dK/dV and dQ kernels and of the f32 backward's, each
+    head dim, runs wgmma fed by TMA and no mma.sync: a hard failure
+    otherwise. Prints each instance's counts beside its registers and spills
+    (``ptxas``: the ``-Xptxas -v`` line of each instance)."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kflash
 
     counts = _sass_counts(build.library_path())
-    for kind in WGMMA_FLASH_KERNELS:
+    for kind in WGMMA_FLASH_KERNELS + WGMMA_F32_BWD_KERNELS:
         for d in kflash.HEAD_DIMS:
             name = f"{kind}<{d}>"
             c = counts.get(name)

@@ -35,6 +35,7 @@ SIGNATURES = {
     "flash_attention_f32": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
     "flash_attention_tc_bf16": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
     "flash_attention_bwd_f32": ([_P] * 10 + [_I] * 7 + [_F, _P], _I),
+    "flash_attention_bwd_f32_scratch": ([_I] * 6, ctypes.c_longlong),
     "flash_attention_bwd_tc_bf16": ([_P] * 10 + [_I] * 7 + [_F, _P], _I),
 }
 

@@ -1,13 +1,13 @@
 // The backward pass of causal (optionally windowed) attention with grouped kv
-// heads, for float32 inputs, on the tensor cores, accurate to float32: from q,
-// k, v, the forward's output O and row log-sum-exp L, and the output's
-// gradient dO, the gradients dQ, dK and dV. The bfloat16 inputs have a kernel
-// of their own, flash_attention_bwd_tc.cu, with the same contract: q, O, dO
-// [B, Hq, Sq, D] and k, v [B, Hkv, Skv, D] with Hq a multiple of Hkv, q head
-// h reading kv head h / (Hq / Hkv); query i sits at key position
-// i + Skv - Sq and sees the keys at positions <= its own, and with a window
-// only those > its own minus the window. With S = Q K^T * scale over the keys
-// a row sees:
+// heads, for float32 inputs, on Hopper's tensor cores, accurate to float32:
+// from q, k, v, the forward's output O and row log-sum-exp L, and the
+// output's gradient dO, the gradients dQ, dK and dV. The bfloat16 inputs
+// have a kernel of their own, flash_attention_bwd_tc.cu, with the same
+// contract: q, O, dO [B, Hq, Sq, D] and k, v [B, Hkv, Skv, D] with Hq a
+// multiple of Hkv, q head h reading kv head h / (Hq / Hkv); query i sits at
+// key position i + Skv - Sq and sees the keys at positions <= its own, and
+// with a window only those > its own minus the window. With S = Q K^T *
+// scale over the keys a row sees:
 //   P = exp(S - L), dP = dO V^T, D = rowsum(dO * O), dS = P * (dP - D),
 //   dQ = dS K * scale, dK = dS^T Q * scale, dV = P^T dO,
 // where dK and dV sum over the q heads of each kv head's group. A pair (row,
@@ -24,347 +24,820 @@
 // Accuracy: the 3-pass TF32 split of csrc/tf32.cuh, as in the f32 forward
 // (flash_attention.cu). One TF32 product keeps 11 significant bits of each
 // operand, ~100 times the 1e-5 the f32 route is held to. Each operand is
-// written as x = hi + lo, both TF32, and each product as
-// x_lo y_hi + x_hi y_lo + x_hi y_hi, the two small products first. The
-// tensor cores' f32 accumulation is not round-to-nearest, and its error grows
-// with what one accumulator takes, so: the two small passes of S and of dP go
-// into accumulators of their own, added to the large ones after the last
-// k-step; each tile's dV, dK or dQ product goes into a fresh accumulator,
-// added to the running sum in f32 (dK and dV sum over up to G q heads x Sq
-// rows, dQ over up to Skv keys). The scale and the mask are applied after
-// the products, never to a split operand; P = ex2(S * scale * log2 e -
-// L * log2 e), one FMA and ex2.approx per score. Every operand, P and dS
-// included, keeps tf32.cuh's rule for non-finite values (all of a non-finite
-// x goes into lo): the backward has no row sum to carry a NaN of P or dS, so
-// a split without the finiteness test, which turns the card's NaN into -0,
-// would lose it. D = rowsum(dO * O) is a separate f32 pass on the CUDA cores.
-// tests/test_torch_flash_bwd_split.py emulates these sums on the CPU.
+// written as x = hi + lo, both TF32 (rounded to nearest, ties away), and
+// each product as x_lo y_hi + x_hi y_lo + x_hi y_hi, the two small products
+// first. The tensor cores' f32 accumulation is not round-to-nearest, and its
+// error grows with what one accumulator takes, so: the two small passes of
+// S and of dP go into accumulators of their own, added to the large ones
+// after the last k-step; each tile's dV, dK or dQ product goes into a fresh
+// accumulator of DCH columns, added to the running sum in f32. The scale and
+// the mask are applied after the products, never to a split operand;
+// P = ex2(S * scale * log2 e - L * log2 e), one FMA and ex2.approx per
+// score. Every operand, P and dS included, keeps tf32.cuh's rule for
+// non-finite values (all of a non-finite x goes into lo): the backward has
+// no row sum to carry a NaN of P or dS, so a split without the finiteness
+// test, which turns the card's NaN into -0, would lose it.
+// tests/test_torch_flash_bwd_split.py and
+// tests/test_torch_flash_bwd_f32_wgmma.py emulate these sums on the CPU.
 //
 // What bounds it on the H100: operations. At the training shape (2 x 32 q
 // heads, 2048 tokens, D = 80) the five products the gradient needs (S, dP,
 // dQ, dK, dV) over the causal pairs are 107.4 GFLOP; three TF32 passes of
-// them are 322.2 GFLOP, 0.651 ms at the 495 TFLOP/s TF32 peak (1.60 ms for
-// one f32 pass on the CUDA cores' 67 TFLOP/s). This design computes seven
-// (S and dP in both kernels, the price of needing no atomics): 0.912 ms at
-// the TF32 peak, ~1.41 ms at the 317-320 TFLOP/s that mma.sync TF32 reaches
-// with nothing to load (tools/mma_tf32_ceiling.py). ~210 MB of f32 inputs and
-// outputs take 0.063 ms at 3.35 TB/s.
+// them are 322.2 GFLOP, 0.651 ms at the 495 TFLOP/s TF32 peak, which only
+// wgmma reaches. This layout computes seven (S and dP in both kernels, the
+// price of needing no atomics): 0.912 ms at that peak. At gemma3-12b's
+// global layers (q [2,16,2048,240], 8 kv heads) the five take 0.977 ms and
+// the seven 1.367 ms. ~210 MB (D = 80) of f32 inputs and outputs take
+// 0.063 ms at 3.35 TB/s.
 //
-// What the design does about it (FlashAttention-2's backward on
-// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, no atomics: each output
-// element is written once, by one thread, after sums in a fixed order, so two
-// runs give the same bits):
-// - Three launches on one stream: the D pass (one warp per row), a dK/dV
-//   kernel and a dQ kernel.
-// - dK/dV: one block of 8 warps per (batch, kv head, 128 keys); each warp
-//   owns 16 keys. The block loops over the group's q heads and over only the
-//   tiles of 32 query rows that the causal mask and the window let see its
-//   keys. Per tile each warp computes S^T = K Q^T and dP^T = V dO^T, whose C
-//   fragments give P^T and dS^T in registers exactly where the A fragments of
-//   dV += P^T dO and dK += dS^T Q want them: lane (g, t) holds rows 2t and
-//   2t + 1 of each 8, read as mma indices t and t + 4, so the B operands (dO
-//   and Q) are read in that row order too. P and dS never touch shared
-//   memory; the GQA sum happens in the warp's accumulators.
-// - dQ: one block of 8 warps per (batch, q head, 128 rows); each warp owns 16
-//   rows, L and D of its rows in registers. The block loops over tiles of 32
-//   keys that some of its rows may see: S = Q K^T and dP = dO V^T, then
-//   dQ += dS K with dS's A fragment from the C fragment by the same rule.
-// - Split once per block, read by every warp. The operands that change from
-//   tile to tile (Q and dO in dK/dV; K and V in dQ) arrive raw by 16-byte
-//   cp.async (tile j + 1 while tile j is computed), then one pass of the whole
-//   block writes them as planes of (hi, hi, lo, lo) pairs: pairs along the
-//   head dim for the B operands of S and dP (one row per query or key), pairs
-//   along the rows or keys for those of dV, dK and dQ (one row per head-dim
-//   column, transposed in that pass). Lane (g, t) of a k-step of 8 reads
-//   floats 4t..4t + 3 of plane row g: the two values at mma indices t and
-//   t + 4, hi and lo, in one 16-byte load. Rows of 2 * len + 16 floats keep
-//   those loads free of bank conflicts. The A operands that stay for the
-//   block's life (K and V in dK/dV; Q and dO in dQ) are kept raw in A-fragment
-//   lane order, one 16-byte load a k-step, and each warp splits its own: an A
-//   fragment serves every n-tile of its k-step.
+// What the card allows and what the design does about it:
+// - TF32 wgmma (m64nNk8) takes B, and A from shared memory, only K-major:
+//   the transpose flags exist for 16-bit types alone. S^T = K Q^T,
+//   dP^T = V dO^T, S = Q K^T and dP = dO V^T have both operands K-major as
+//   stored; dV += P^T dO, dK += dS^T Q and dQ += dS K contract over rows or
+//   keys, so their B (dO, Q, K) must be transposed, [D, rows].
+// - Three passes need B as two planes, hi and lo. So a pre-pass
+//   (flash_attention_bwd_split_kernel, one launch) writes, from q, dO, k and
+//   v, the planes the two kernels stream: hi and lo of each in its own
+//   layout ("natural"), and hi and lo of Q, dO and K transposed, [D, S8]
+//   with S8 = S rounded up to 8 and zeros past S, each group of 8 positions
+//   holding rows 0, 2, 4, 6, 1, 3, 5, 7 of its group. That order lets an
+//   accumulator's C fragment serve as the next product's A fragment with no
+//   shuffle: lane (g, t) holds columns 2t and 2t + 1 of each 8, used as mma
+//   indices t and t + 4. The planes live in the scratch array the wrapper
+//   allocates (flash_attention_bwd_f32_scratch). TMA lands them ready.
+// - The operand each block keeps (K or V in dK/dV; Q or dO in dQ) stays raw
+//   in shared memory: hi and lo planes of it would double its 64 KB at
+//   D = 240. Its hi and lo A fragments are split into registers once a block
+//   and held there where they fit (HOLD, D <= 80: D registers a thread), or
+//   split at use, KCH k-steps at a time (D = 128 and 240). The other A
+//   operands (P^T, dS^T, dS) are split from the accumulators in registers.
+// - Shared memory. The 128-byte swizzle box is 32 f32 wide, so D = 80 takes
+//   3 boxes (96 f32) and D = 240 takes 8 (256). Per 64 rows one f32 plane
+//   is 24,576 B at D = 80 and 65,536 B at D = 240, so K and V as hi and lo
+//   take 262,144 B at D = 240, more than a block's 232,448, and even raw
+//   (131,072 B) they leave room for only 8-row tiles of Q, dO and their
+//   transposes. So each block is a cluster of two CTAs split by output,
+//   each with the shared memory of one SM: in dK/dV, CTA 0 holds K, streams
+//   Q (natural) and dO (transposed), computes S^T and P^T and owns dV; CTA 1
+//   holds V, streams dO (natural) and Q (transposed), computes dP^T and owns
+//   dK. P^T passes from CTA 0 to CTA 1 through distributed shared memory
+//   (st.shared::cluster into an inbox of PBUF buffers a consumer, mbarriers
+//   across the pair both ways), so no product is computed twice. In dQ,
+//   CTA 0 holds Q, streams K and computes S and P; CTA 1 holds dO, streams
+//   V and K (transposed), computes dP, forms dS from the P it receives and
+//   owns dQ. A CTA at D = 240 holds 64 KB of K or V and two stages of 62 KB
+//   (16-row tiles: Q or dO natural, hi and lo, [16, 256] and dO or Q
+//   transposed, [240, 16] in boxes of 16 f32 with the 64-byte swizzle), at
+//   D = 80 24 KB and three stages of 44 KB (32-row tiles).
+// - Each CTA: a producer warpgroup (setmaxnreg 24) whose warp 0 issues the
+//   TMA loads (lane 0) and, in dK/dV, writes each tile's rows of L log2 e
+//   (CTA 0) or D (CTA 1) into shared memory beside it; two consumer
+//   warpgroups (setmaxnreg 240) of the block's 64 keys or q rows, taking its
+//   tiles in turn, each summing its own tiles, the first adding the
+//   second's sums to its own at the end (through the stages), so one's
+//   exponentials and splits overlap the other's products. Every product is
+//   a TF32 wgmma with A in registers (wgmma_tf32).
+// - Tiles (F32Tiling<D>): BT q rows a dK/dV tile and keys a dQ tile, STAGES
+//   stages of the ring, DCH columns a fresh accumulator, HOLD.
 // - Masks per element only on tiles that cross the diagonal, the window edge,
-//   the end of the keys or (dK/dV) the end of the rows; a warp skips a tile
-//   none of whose pairs it may see. Rows past Sq and keys past Skv load as
-//   zeros with L = D = 0; a row that sees no key (L = -inf, where Sq > Skv)
-//   lies only on tiles that cross the diagonal, where its P and dS are set to
-//   0 by selection. Blocks are launched longest first (the first key blocks,
-//   the last query blocks).
-// - Registers: 8 warps a block, one block an SM (shared memory: ~200 KB for
-//   dK/dV, ~174 KB for dQ at D = 80), so up to 255 a thread. The dK/dV
-//   kernel holds dK and dV (2 x D / 2 a lane), the S^T and dP^T tiles with
-//   their small passes (64 at 32 rows), then P and dS as hi and lo A
-//   fragments (64) and one fresh accumulator of D columns (D / 2 registers)
-//   at a time. D = 128 takes blocks of 4 warps, 16-row dK/dV tiles and fresh
-//   accumulators of 64 columns, for shared memory and registers.
-// - At D = 80 `-Xptxas -v` reports 255 registers and a 336-byte spill for
-//   dK/dV, 196 registers for dQ. At the training shape (NVIDIA H100 80GB
-//   HBM3, 700 W; tools/mma_tf32_ceiling.py) the three launches take ~3.2 ms:
-//   dK/dV ~1.84 ms and dQ ~1.35 ms, 44 % and 45 % of the ~318 TFLOP/s that
-//   mma.sync TF32 reaches with nothing to load. 16-row dK/dV tiles (252
-//   registers, no spill) took 3.62 ms there; fresh accumulators of 40 columns
-//   (a 192-byte spill) the same 3.2 ms.
-// - D = 240 (gemma3-12b: 3840 / 16 heads). What bounds it is the register
-//   file, then shared memory. A dK/dV warp holds dK and dV of its 16 keys,
-//   240 registers a thread before S^T and dP^T; with D = 128's tiles the
-//   dK/dV block needs 310,016 B and the dQ block 389,120 B of shared memory.
-//   The dK/dV kernel takes the head dim apart by output
-//   (flash_attention_bwd_dkdv_pair_kernel, PairTile<240, 4, 8, 48>): 8 warps
-//   on 64 keys, two for each 16. Role 0 computes S^T and P^T and adds P^T dO
-//   into dV; role 1 computes dP^T and adds dS^T Q into dK. Each holds one
-//   accumulator (120 registers), and the two products of each tile are split
-//   between the roles with none computed twice. Role 1 needs P^T: role 0
-//   writes it (f32, masked) to shared memory in C-fragment lane order, and
-//   one barrier later role 1 reads it at the same positions (the C
-//   fragments of S^T and dP^T hold the same pairs). K and V in A order take
-//   120 KB of the block's shared memory, so the row tiles are 8 rows (one
-//   k-step of dV and dK) and the column planes 16 floats a row, unpadded
-//   (pair_ld: 16 is already 16 more than a multiple of 32): 203,136 B. The
-//   dQ kernel keeps its layout at 4 warps of 16 rows with 8-key tiles
-//   (Tile<240, 4, 8, 8, 48>, 185,600 B). Both take fresh accumulators of 48
-//   columns. Each output element gets the same products in the same order
-//   as at the other head dims' kernels with these tiles, which
-//   tests/test_torch_flash_bwd_split.py emulates at D = 240; no atomics, two
-//   runs give the same bits. `-Xptxas -v`: 255 registers for both, spills of
-//   88 bytes stored and loaded (dK/dV) and 72 stored, 88 loaded (dQ). Their
-//   cost, by tools/sass_spills.py: per tile a dK/dV warp issues 5 spill
-//   stores and 11 spill loads beside 180 mma.sync, a dQ warp 6 and 10 beside
-//   270. At q [2,16,2048,240] (kv 8 heads) the three launches take
-//   9.69-9.71 ms, 9.9x the 0.977 ms of three TF32 passes of the five
-//   products at the TF32 peak: 8-row dK/dV and 8-key dQ tiles pay two or
-//   three barriers and a split pass every 8 rows or keys (NVIDIA H100 80GB
-//   HBM3, 700 W; chip_smoke.py, two runs).
+//   or the end of the keys or (dK/dV) the rows. Rows past Sq and keys past
+//   Skv load as zeros (TMA's zero fill and the pre-pass's zeros) with
+//   L = D = 0; a row that sees no key (L = -inf, where Sq > Skv) lies only on
+//   tiles that cross the diagonal, where its P and dS are set to 0 by
+//   selection.
+// - Order: one cluster a block, launched in the order of kv_block_at (key
+//   blocks first to last, the first seen by the most rows) and q_block_at
+//   (q blocks last to first). No atomics: each output element is written
+//   once, by one thread, after sums in a fixed order, so two runs give the
+//   same bits.
+//
+// Registers and times. `-Xptxas -v` reports 168 registers (the launch
+// bound) for every instance; in the SASS the consumers reach R195 (dK/dV)
+// and R205 (dQ) at D = 80, R237 at D = 240. Spills: dK/dV and dQ at D = 240
+// 360 / 444 and 428 / 524 bytes stored / loaded, dK/dV 24-36 / 24-52 bytes
+// at the other head dims, dQ none. At the training shapes (NVIDIA H100 80GB
+// HBM3, 700.00 W; tools/flash_bwd_turns.py --dtype float32, device time of
+// a call in turns with the mma.sync kernels this file held before):
+// Qwen3-4B q [2,32,2048,80] 2.893-2.912 ms against 3.108-3.110 (pre-pass
+// 0.183, D pass 0.036, dK/dV 1.426 at 37 % of the TF32 peak over its four
+// three-pass products, dQ 1.270 at 31 % over three), 3.2x the seven-product
+// bound; gemma3-12b q [2,16,2048,240] global 6.285-6.315 against
+// 9.539-9.611 and SDPA's f32 backward 6.413, window 1024 5.037-5.058
+// against 7.444-7.446; OLMoE [2,16,2048,128] 2.799-2.838 against
+// 4.167-4.171; Hymba [2,25,2048,64] window 1024 1.647-1.667 against
+// 1.646-1.665; Whisper [8,16,448,64] 0.566-0.567 against 0.351-0.353 (short
+// blocks of few tiles: the pre-pass is 0.094 ms of it, and one cluster a
+// block pays its set-up every 64 keys). Built and measured slower there
+// (PERF.md): one consumer a CTA (1.06-1.38x), the resident operand split at
+// use at D = 80 (1.09x), two stages at D = 80 (1.26x), four stages with one
+// inbox buffer (1.07x), 16-row tiles at D = 80 (1.43x), two k-steps a split
+// at D = 240 (1.01x), dQ's columns split between the two CTAs with dS sent
+// back (1.26x at D = 80, 1.01x at 240). Not built: persistent CTAs (a work
+// counter would have to hand each block to both CTAs of a cluster), the D
+// pass folded into the pre-pass, S and dP shared between the kernels.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tf32.cuh"
 
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int ROWS = 64;        // keys (dK/dV) or q rows (dQ) of a block
+constexpr int CONSUMERS = 2;    // consumer warpgroups, taking a block's tiles in turn
+constexpr int THREADS = 128 * (1 + CONSUMERS);   // and a producer warpgroup
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int BOX = 32;         // f32 columns of one 128-byte swizzled box
+constexpr int PBUF = 2;         // inbox buffers of P a consumer
+constexpr int KCH = 4;          // k-steps of a resident operand split at a time (HOLD 0)
 
-// Rows of a plane of pairs along n tile rows: 2 n floats, padded to 16 more
-// than a multiple of 32 so that a quarter warp's 16-byte loads (rows g and
-// g + 1, floats 4t..4t + 3) fall in distinct banks.
-__host__ __device__ constexpr int pair_ld(int n) {
-  return 2 * n + ((2 * n) % 32 == 0 ? 16 : 0);
-}
-
-// WARPS warps of 16 keys (dK/dV) or 16 query rows (dQ); BQ query rows a dK/dV
-// tile, BKV keys a dQ tile; fresh accumulators of DCH head-dim columns.
-template <int D_, int WARPS_, int BQ_, int BKV_, int DCH_>
-struct Tile {
-  static constexpr bool PAIR = false;          // dK/dV by flash_attention_bwd_dkdv_kernel
-  static constexpr int D = D_, WARPS = WARPS_, BQ = BQ_, BKV = BKV_, DCH = DCH_;
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int BLOCK = 16 * WARPS;     // keys (dK/dV) or rows (dQ) of a block
-  static constexpr int KSTEPS = D / 8;         // k-steps of S and dP
-  static constexpr int LDW = D + 4;            // raw tile rows
-  static constexpr int LDR = 2 * D + 16;       // planes with pairs along the head dim
-  static constexpr int LDQ = pair_ld(BQ);      // dK/dV planes with pairs along query rows
-  static constexpr int LDK = pair_ld(BKV);     // dQ plane with pairs along keys
-  static constexpr int A_FLOATS = BLOCK * D;   // one operand in A-fragment lane order
-  // K and V (A order), Q and dO as row and column planes, raw Q and dO, and
-  // four [BQ] rows: raw L and D, this tile's L (log2 units) and D.
-  static constexpr size_t DKDV_SMEM =
-      sizeof(float) * (size_t)(2 * A_FLOATS + 2 * BQ * LDR + 2 * D * LDQ + 2 * BQ * LDW +
-                               4 * BQ);
-  // Q and dO (A order), K and V as row planes, K as a column plane, raw K and V.
-  static constexpr size_t DQ_SMEM =
-      sizeof(float) * (size_t)(2 * A_FLOATS + 2 * BKV * LDR + D * LDK + 2 * BKV * LDW);
-  static_assert(DKDV_SMEM <= 232448 && DQ_SMEM <= 232448, "shared memory of one block");
-  static_assert(BQ % 8 == 0 && BKV % 8 == 0 && D % DCH == 0 && DCH % 8 == 0, "tiles");
+// Per head dim: BT q rows a dK/dV tile and keys a dQ tile, STAGES stages of
+// the ring, DCH columns of one fresh accumulator of dV, dK or dQ, and the
+// resident operand's A fragments: HOLD 1 splits them once a block and keeps
+// them in registers (D of them a thread), HOLD 0 splits them at use, KCH
+// k-steps at a time.
+template <int D> struct F32Tiling;
+template <> struct F32Tiling<32> {
+  static constexpr int BT = 32, STAGES = 4, DCH = 32, HOLD = 1;
+};
+template <> struct F32Tiling<64> {
+  static constexpr int BT = 32, STAGES = 4, DCH = 64, HOLD = 1;
+};
+template <> struct F32Tiling<80> {
+  static constexpr int BT = 32, STAGES = 3, DCH = 80, HOLD = 1;
+};
+template <> struct F32Tiling<128> {
+  static constexpr int BT = 32, STAGES = 2, DCH = 64, HOLD = 0;
+};
+template <> struct F32Tiling<240> {
+  static constexpr int BT = 16, STAGES = 2, DCH = 48, HOLD = 0;
 };
 
-using T32 = Tile<32, 8, 32, 32, 32>;
-using T64 = Tile<64, 8, 32, 32, 64>;
-using T80 = Tile<80, 8, 32, 32, 80>;
-using T128 = Tile<128, 4, 16, 32, 64>;
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
 
-// The dK/dV kernel at D = 240 (flash_attention_bwd_dkdv_pair_kernel, the note
-// above): GROUPS key groups of 16 keys, two warps each (role 0: S^T, P^T and
-// dV; role 1: dP^T, dS^T and dK), BQ query rows a tile, fresh accumulators
-// of DCH columns; the smem of Tile's dK/dV kernel and P^T staged in f32.
-template <int D_, int GROUPS_, int BQ_, int DCH_>
-struct PairTile {
-  static constexpr bool PAIR = true;
-  static constexpr int D = D_, GROUPS = GROUPS_, BQ = BQ_, DCH = DCH_;
-  static constexpr int WARPS = 2 * GROUPS;
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int BLOCK = 16 * GROUPS;    // keys of a block
-  static constexpr int KSTEPS = D / 8;
-  static constexpr int LDW = D + 4, LDR = 2 * D + 16, LDQ = pair_ld(BQ);
-  static constexpr int A_FLOATS = BLOCK * D;
-  static constexpr size_t DKDV_SMEM =
-      sizeof(float) * (size_t)(2 * A_FLOATS + 2 * BQ * LDR + 2 * D * LDQ + 2 * BQ * LDW +
-                               4 * BQ + BLOCK * BQ);
-  static_assert(DKDV_SMEM <= 232448, "shared memory of one block");
-  static_assert(BQ % 8 == 0 && D % DCH == 0 && DCH % 8 == 0, "tiles");
+__host__ __device__ constexpr uint32_t align_up(uint32_t x, uint32_t a) {
+  return (x + a - 1) / a * a;
+}
+
+// Shared memory of either CTA of a cluster, in either kernel: the resident
+// raw tile [BOXES][64][32] (K or V; Q or dO), STAGES stages each of a
+// natural plane pair (hi, lo) [BOXES][BT][32] and a transposed plane pair
+// (hi, lo) [TBOXES][D][TW], STAGES rows of L log2 e or D (dK/dV), PBUF
+// inbox tiles of P per consumer warpgroup (f32, [BT / 8][128 threads]
+// float4, written by the other CTA), then the barriers. At the end the
+// stages hold consumer 1's partial sums for consumer 0 ([D / 2][128] f32).
+template <int D>
+struct F32Layout {
+  static constexpr int BT = F32Tiling<D>::BT, STAGES = F32Tiling<D>::STAGES;
+  static constexpr int DCH = F32Tiling<D>::DCH;
+  static constexpr bool HOLD = F32Tiling<D>::HOLD;
+  static constexpr int HELD = HOLD ? D / 8 : 1;   // k-steps of A fragments held
+  static constexpr int BOXES = (D + BOX - 1) / BOX;
+  static constexpr int TW = BT < BOX ? BT : BOX;   // f32 a transposed box row
+  static constexpr int TSWIZZLE = 4 * TW;          // its swizzle, 64 or 128 bytes
+  static constexpr int TBOXES = BT / TW;
+  static constexpr uint32_t RES_BOX = ROWS * 128, RES_BYTES = BOXES * RES_BOX;
+  static constexpr uint32_t N_BOX = BT * 128, N_BYTES = BOXES * N_BOX;
+  static constexpr uint32_t T_BOX = D * TW * 4, T_BYTES = TBOXES * T_BOX;
+  static constexpr uint32_t STAGE = 2 * N_BYTES + 2 * T_BYTES;
+  static constexpr uint32_t RES_AT = 0, STAGE_AT = RES_BYTES;
+  static constexpr uint32_t NH = 0, NL = N_BYTES, TH = 2 * N_BYTES, TL = TH + T_BYTES;
+  static constexpr uint32_t VEC_AT = STAGE_AT + STAGES * STAGE;
+  static constexpr uint32_t INBOX_TILE = ROWS * BT * 4;
+  static constexpr uint32_t INBOX_AT = align_up(VEC_AT + STAGES * BT * 4, 16);
+  static constexpr uint32_t BAR_AT = INBOX_AT + PBUF * CONSUMERS * INBOX_TILE;
+  // Barriers: the resident tile full, per stage full and empty, per inbox
+  // tile (consumer c's buffer b at PBUF c + b) full (the other CTA wrote it)
+  // and empty (the other CTA read it).
+  static constexpr uint32_t RES_FULL = BAR_AT, TILE_FULL = BAR_AT + 8;
+  static constexpr uint32_t TILE_EMPTY = TILE_FULL + 8 * STAGES;
+  static constexpr uint32_t P_FULL = TILE_EMPTY + 8 * STAGES;
+  static constexpr uint32_t P_EMPTY = P_FULL + 8 * PBUF * CONSUMERS;
+  static constexpr uint32_t BYTES = P_EMPTY + 8 * PBUF * CONSUMERS;
+  static constexpr size_t SMEM = BYTES + 1024;     // slack to align the start to 1024
+  static_assert(SMEM <= 232448, "a block's shared memory");
+  static_assert(D % 16 == 0 && D % DCH == 0 && DCH % 8 == 0 && BT % 16 == 0, "tiles");
+  static_assert(STAGE % 1024 == 0 && T_BOX % 512 == 0, "swizzle atoms stay aligned");
+  static_assert(STAGES * STAGE >= 128 * D / 2 * 4, "the partial sums fit the stages");
 };
 
-using T240 = Tile<240, 4, 8, 8, 48>;     // its dQ kernel
-using P240 = PairTile<240, 4, 8, 48>;    // its dK/dV kernel
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// Rows [i_lo, i_hi] that see some key of [k_first, k_last] (none if
+// i_lo > i_hi).
+__device__ __forceinline__ void rows_seeing(int k_first, int k_last, int sq, int skv, int window,
+                                            int& i_lo, int& i_hi) {
+  const int off = skv - sq;
+  i_lo = max(0, k_first - off);
+  i_hi = window > 0 ? (int)min((long long)sq - 1, (long long)k_last + window - 1 - off) : sq - 1;
 }
 
-// 16 bytes global -> shared, or 16 zero bytes where !valid (nothing is read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-               : "memory");
+// Whether (key, row) is a pair the row sees (and both exist).
+__device__ __forceinline__ bool sees(int key, int row, int sq, int skv, int window) {
+  const int qp = row + skv - sq;
+  return row < sq && key < skv && key <= qp && (window <= 0 || key > qp - window);
 }
 
-// 4 bytes global -> shared, or 4 zero bytes where !valid.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-               : "memory");
+// One block of the dK/dV kernel's order: kv head `kv_head` (b * hkv + h),
+// keys [k0, k0 + 64), and the q tiles qt0 ... qt0 + n_qt - 1 of each q head
+// of the group whose rows see some key of it. Key blocks first to last (the
+// first are seen by the most rows), the kv heads side by side.
+struct KvBlock {
+  int kv_head, k0, qt0, n_qt;
+};
+
+template <int BT>
+__device__ __forceinline__ KvBlock kv_block_at(int x, int kv_heads, int sq, int skv, int window) {
+  KvBlock blk;
+  blk.kv_head = x % kv_heads;
+  blk.k0 = x / kv_heads * ROWS;
+  int i_lo, i_hi;
+  rows_seeing(blk.k0, min(blk.k0 + ROWS, skv) - 1, sq, skv, window, i_lo, i_hi);
+  blk.qt0 = i_lo / BT;
+  blk.n_qt = i_hi >= i_lo ? i_hi / BT - blk.qt0 + 1 : 0;
+  return blk;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// One block of the dQ kernel's order: head bh (b * hq + h), rows
+// [q0, q0 + 64), its kv head, and the key tiles [kb0, kb0 + n_tiles * BT)
+// some row of it may see. Query blocks last to first, the heads side by side.
+struct QBlock {
+  int bh, q0, kv_head, kb0, n_tiles;
+};
+
+template <int BT>
+__device__ __forceinline__ QBlock q_block_at(int x, int bhs, int hq, int hkv, int sq, int skv,
+                                             int window) {
+  const int nqb = (sq + ROWS - 1) / ROWS;
+  QBlock blk;
+  blk.bh = x % bhs;
+  blk.q0 = (nqb - 1 - x / bhs) * ROWS;
+  const int b = blk.bh / hq;
+  blk.kv_head = b * hkv + (blk.bh - b * hq) / (hq / hkv);
+  const int off = skv - sq;
+  const int k_hi = min(skv, min(blk.q0 + ROWS, sq) + off) - 1;
+  const int k_lo = window > 0 ? max(0, blk.q0 + off - window + 1) : 0;
+  blk.kb0 = k_lo / BT * BT;
+  blk.n_tiles = k_hi >= blk.kb0 ? (k_hi - blk.kb0) / BT + 1 : 0;
+  return blk;
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// The hi and lo A fragments of k-step ks of the resident raw tile at `res`
+// (64 rows of D f32, 128-byte swizzled boxes of 32): thread (warp w, lane
+// 4g + t) reads rows 16 w + g and + 8, columns 8 ks + t and + 4.
+template <int D>
+__device__ __forceinline__ void res_frag(uint32_t (&ah)[4], uint32_t (&al)[4], uint32_t res,
+                                         int ks, int warp, int g, int t) {
+  const uint32_t box = res + (16 * warp + g) * 128 + 4 * t + (ks / 4) * F32Layout<D>::RES_BOX;
+  const uint32_t lo_col = box + (((2 * (ks % 4)) ^ g) << 4);       // column 8 ks + t
+  const uint32_t hi_col = box + (((2 * (ks % 4) + 1) ^ g) << 4);   // column 8 ks + t + 4
+  split(ld_shared_f32(lo_col), ah[0], al[0]);
+  split(ld_shared_f32(lo_col + 1024), ah[1], al[1]);   // row + 8
+  split(ld_shared_f32(hi_col), ah[2], al[2]);
+  split(ld_shared_f32(hi_col + 1024), ah[3], al[3]);
 }
 
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+// x2 += A_lo N_hi + A_hi N_lo and x += A_hi N_hi for k-step ks of N^T's
+// natural planes at `nh` and `nl`; `ks > 0` accumulates.
+template <int D>
+__device__ __forceinline__ void issue_kstep(float (&x)[F32Tiling<D>::BT / 2],
+                                            float (&x2)[F32Tiling<D>::BT / 2],
+                                            const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                            uint32_t nh, uint32_t nl, int ks) {
+  constexpr int BT = F32Tiling<D>::BT;
+  const uint32_t at = (ks / 4) * F32Layout<D>::N_BOX + (ks % 4) * 32;
+  const uint64_t bh = wgmma_desc(nh + at, 16, 1024), bl = wgmma_desc(nl + at, 16, 1024);
+  wgmma_tf32<BT>(x2, al, bh, ks > 0);
+  wgmma_tf32<BT>(x2, ah, bl, 1);
+  wgmma_tf32<BT>(x, ah, bh, ks > 0);
 }
 
-// A pair of elements (x, y) as (hi(x), hi(y), lo(x), lo(y)).
-__device__ __forceinline__ float4 split_pair(float x, float y) {
-  uint32_t hx, lx, hy, ly;
-  split(x, hx, lx);
-  split(y, hy, ly);
-  return make_float4(__uint_as_float(hx), __uint_as_float(hy), __uint_as_float(lx),
-                     __uint_as_float(ly));
+// x (64 x BT) = R N^T in three TF32 passes, the two small ones into x2:
+// R the resident raw tile at `res`, its A fragments either held (rh, rl:
+// HOLD) or split here KCH k-steps at a time; N the BT rows of the natural
+// planes at `nh` (hi) and `nl` (lo).
+template <int D>
+__device__ __forceinline__ void first_product(float (&x)[F32Tiling<D>::BT / 2],
+                                              float (&x2)[F32Tiling<D>::BT / 2],
+                                              const uint32_t (&rh)[F32Layout<D>::HELD][4],
+                                              const uint32_t (&rl)[F32Layout<D>::HELD][4],
+                                              uint32_t res, uint32_t nh, uint32_t nl, int warp,
+                                              int g, int t) {
+  using L = F32Layout<D>;
+  constexpr int KS = D / 8, C = KCH;
+  if constexpr (L::HOLD) {
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) issue_kstep<D>(x, x2, rh[ks], rl[ks], nh, nl, ks);
+    wgmma_commit();
+  } else {
+#pragma unroll
+    for (int c0 = 0; c0 < KS; c0 += C) {
+      uint32_t ah[C][4], al[C][4];
+#pragma unroll
+      for (int i = 0; i < C; ++i)
+        if (c0 + i < KS) res_frag<D>(ah[i], al[i], res, c0 + i, warp, g, t);
+      wgmma_hold(ah);
+      wgmma_hold(al);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < C; ++i)
+        if (c0 + i < KS) issue_kstep<D>(x, x2, ah[i], al[i], nh, nl, c0 + i);
+      wgmma_commit();
+      wgmma_wait<1>();   // the group before is done: its fragments' registers are free
+    }
+  }
+  wgmma_wait<0>();
+  wgmma_hold(x);
+  wgmma_hold(x2);
 }
 
-// One plane load: the (hi, lo) of mma indices t and t + 4 of a B fragment.
-__device__ __forceinline__ void frag_b(const float* p, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  const float4 r = *reinterpret_cast<const float4*>(p);
-  hi[0] = __float_as_uint(r.x);
-  hi[1] = __float_as_uint(r.y);
-  lo[0] = __float_as_uint(r.z);
-  lo[1] = __float_as_uint(r.w);
+// out (64 x N) += Z T^T in three TF32 passes, DCH columns at a time, each
+// into a fresh accumulator added to `out` in f32: Z the hi and lo A
+// fragments zh, zl of BT / 8 k-steps, T the N rows of the transposed planes
+// at `th` (hi) and `tl` (lo), BT f32 of K each (boxes of N rows).
+template <int D, int N, int DCH>
+__device__ __forceinline__ void second_product(float (&out)[N / 2],
+                                               const uint32_t (&zh)[F32Tiling<D>::BT / 8][4],
+                                               const uint32_t (&zl)[F32Tiling<D>::BT / 8][4],
+                                               uint32_t th, uint32_t tl) {
+  using L = F32Layout<D>;
+  constexpr int BT = L::BT;
+#pragma unroll
+  for (int c0 = 0; c0 < N; c0 += DCH) {
+    float f[DCH / 2];
+#pragma unroll
+    for (int i = 0; i < DCH / 2; ++i) f[i] = 0.0f;
+    wgmma_hold(f);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BT / 8; ++kk) {
+      const uint32_t at = (8 * kk / L::TW) * (N * L::TW * 4) + c0 * L::TW * 4 +
+                          (kk % (L::TW / 8)) * 32;
+      uint64_t bh, bl;
+      if constexpr (L::TSWIZZLE == 128) {
+        bh = wgmma_desc(th + at, 16, 1024);
+        bl = wgmma_desc(tl + at, 16, 1024);
+      } else {
+        bh = wgmma_desc64(th + at, 512);
+        bl = wgmma_desc64(tl + at, 512);
+      }
+      wgmma_tf32<DCH>(f, zl[kk], bh, 1);
+      wgmma_tf32<DCH>(f, zh[kk], bl, 1);
+      wgmma_tf32<DCH>(f, zh[kk], bh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(f);
+#pragma unroll
+    for (int i = 0; i < DCH / 2; ++i) out[c0 / 2 + i] += f[i];
+  }
 }
 
-// One load of a raw A fragment in lane order, split into hi and lo.
-__device__ __forceinline__ void frag_a(const float* p, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const float4 r = *reinterpret_cast<const float4*>(p);
-  split(r.x, hi[0], lo[0]);
-  split(r.y, hi[1], lo[1]);
-  split(r.z, hi[2], lo[2]);
-  split(r.w, hi[3], lo[3]);
+// Element e of n-tile n of an accumulator (row g + 8 (e >> 1), column
+// 8 n + 2 t + (e & 1)), split as element (e >> 1) | ((e & 1) << 1) of the
+// A fragment of k-step n: column 2t at mma index t, 2t + 1 at t + 4, the
+// order the pre-pass gives the transposed planes' rows.
+__device__ __forceinline__ void split_frag(const float (&z)[4], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split(z[e], hi[(e >> 1) | ((e & 1) << 1)], lo[(e >> 1) | ((e & 1) << 1)]);
 }
 
-// c += a b in three TF32 passes, the small ones first, into one accumulator.
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_hi)[4],
-                                     const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
-                                     const uint32_t (&b_lo)[2]) {
-  mma_tf32(c, a_lo, b_hi[0], b_hi[1]);
-  mma_tf32(c, a_hi, b_lo[0], b_lo[1]);
-  mma_tf32(c, a_hi, b_hi[0], b_hi[1]);
-}
-
-// big += a_hi b_hi and small += a_lo b_hi + a_hi b_lo (S and dP).
-__device__ __forceinline__ void mma3_apart(float (&big)[4], float (&small)[4],
-                                           const uint32_t (&a_hi)[4], const uint32_t (&a_lo)[4],
-                                           const uint32_t (&b_hi)[2], const uint32_t (&b_lo)[2]) {
-  mma_tf32(small, a_lo, b_hi[0], b_hi[1]);
-  mma_tf32(small, a_hi, b_lo[0], b_lo[1]);
-  mma_tf32(big, a_hi, b_hi[0], b_hi[1]);
-}
-
+// The accumulator's rows (N columns) of this thread, stored (times `mult`)
+// into rows [r0, limit) of a row-major array at `out`, rows `ld` apart.
 template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+__device__ __forceinline__ void store_rows(float* __restrict__ out, const float (&acc)[N / 2],
+                                           int r0, int limit, int ld, int warp, int g, int t,
+                                           float mult) {
 #pragma unroll
-  for (int n = 0; n < N; ++n)
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * warp + g + 8 * h;
+    if (r >= limit) continue;
+    float* p = out + (size_t)r * ld + 2 * t;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-}
-
-// Rows [r0, r0 + BLOCK) of a row-major [nrows, D] array into the A-fragment
-// order of the block's warps: element (row 16 w + g + 8 h, column
-// 8 kk + 2 t + c) is float h + 2 c of lane 4 g + t in k-step kk of warp w,
-// i.e. column 2t at mma index t and 2t + 1 at t + 4. Rows past nrows are 0.
-template <class T>
-__device__ __forceinline__ void load_a(float* dst, const float* __restrict__ src, int r0,
-                                       int nrows) {
-  constexpr int PAIRS = T::D / 2;
-  for (int i = threadIdx.x; i < T::BLOCK * PAIRS; i += T::THREADS) {
-    const int r = i / PAIRS, c = (i - r * PAIRS) * 2;
-    float2 x = make_float2(0.0f, 0.0f);
-    if (r0 + r < nrows) x = *reinterpret_cast<const float2*>(src + (size_t)(r0 + r) * T::D + c);
-    const int w = r >> 4, g = r & 7, h = (r >> 3) & 1, kk = c >> 3, t = (c & 7) >> 1;
-    float* e = dst + ((w * T::KSTEPS + kk) * 32 + 4 * g + t) * 4 + h;
-    e[0] = x.x;
-    e[2] = x.y;
+    for (int n = 0; n < N / 8; ++n)
+      *reinterpret_cast<float2*>(p + 8 * n) =
+          make_float2(acc[4 * n + 2 * h] * mult, acc[4 * n + 2 * h + 1] * mult);
   }
 }
 
-// Rows [r0, r0 + ROWS) of a row-major [nrows, D] array into a raw
-// [ROWS][D + 4] tile by cp.async; rows at or past nrows are zero-filled.
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void load_raw(float* dst, const float* __restrict__ src, int r0,
-                                         int nrows) {
-  constexpr int VEC = D / 4;
-  for (int i = threadIdx.x; i < ROWS * VEC; i += THREADS) {
-    const int r = i / VEC, c = (i - r * VEC) * 4;
-    const bool valid = r0 + r < nrows;
-    cp_async16(smem_u32(dst + r * (D + 4) + c), src + (size_t)(valid ? r0 + r : 0) * D + c,
-               valid);
+// Consumer 1's partial sums into consumer 0's, through the stages (free once
+// both are done with their tiles): acc of consumer 0 becomes its own plus
+// consumer 1's, in that order. `c` is the consumer, `tid` its thread.
+template <int N>
+__device__ __forceinline__ void combine(float (&acc)[N / 2], float* stages, int c, int tid) {
+  if constexpr (CONSUMERS == 1) return;
+  named_sync(1, 128 * CONSUMERS);   // both consumers are done reading the stages
+  if (c == 1) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) stages[i * 128 + tid] = acc[i];
+  }
+  named_sync(1, 128 * CONSUMERS);
+  if (c == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] += stages[i * 128 + tid];
   }
 }
 
-// Entries [r0, r0 + ROWS) of a float32 [nrows] array by cp.async; 0 past nrows.
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void load_vec(float* dst, const float* __restrict__ src, int r0,
-                                         int nrows) {
-  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
-    const bool valid = r0 + i < nrows;
-    cp_async4(smem_u32(dst + i), src + (valid ? r0 + i : 0), valid);
+// The barriers of a CTA, initialised by one thread, then the cluster's
+// barrier so that the other CTA may arrive on them.
+template <int D>
+__device__ __forceinline__ void init_barriers(uint32_t base) {
+  using L = F32Layout<D>;
+  if (threadIdx.x == 0) {
+    mbar_init(base + L::RES_FULL, 1);
+    for (int st = 0; st < L::STAGES; ++st) {
+      mbar_init(base + L::TILE_FULL + 8 * st, 1);
+      mbar_init(base + L::TILE_EMPTY + 8 * st, 128);
+    }
+    for (int b = 0; b < PBUF * CONSUMERS; ++b) {
+      mbar_init(base + L::P_FULL + 8 * b, 128);
+      mbar_init(base + L::P_EMPTY + 8 * b, 128);
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();
+}
+
+// -- dK/dV ----------------------------------------------------------------------
+
+// A cluster of two CTAs per block of 64 keys, split by output. CTA 0 holds
+// K, streams Q (natural planes) and dO (transposed), computes S^T = K Q^T,
+// P^T = exp2(S^T scale log2 e - L log2 e), sends P^T to CTA 1 and adds
+// P^T dO into dV. CTA 1 holds V, streams dO (natural) and Q (transposed),
+// computes dP^T = V dO^T, forms dS^T = P^T (dP^T - D) from the P^T it
+// receives and adds dS^T Q into dK. Warp 0 of warpgroup 0 produces: the
+// resident tile, then per tile its planes by TMA and its rows of L log2 e
+// (CTA 0) or D (CTA 1) by the warp's plain loads.
+template <int D>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
+flash_attention_bwd_dkdv_f32_kernel(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap qhmap, const __grid_constant__ CUtensorMap qlmap,
+    const __grid_constant__ CUtensorMap dohmap, const __grid_constant__ CUtensorMap dolmap,
+    const __grid_constant__ CUtensorMap qthmap, const __grid_constant__ CUtensorMap qtlmap,
+    const __grid_constant__ CUtensorMap dothmap, const __grid_constant__ CUtensorMap dotlmap,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int kv_heads, int hq, int hkv, int sq, int skv, int window,
+    float scale_log2, float scale) {
+  using L = F32Layout<D>;
+  constexpr int BT = L::BT, NQ = BT / 8;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* vecs = reinterpret_cast<float*>(smem_raw + (base - raw) + L::VEC_AT);
+  float* stages = reinterpret_cast<float*>(smem_raw + (base - raw) + L::STAGE_AT);
+  const uint32_t rank = cluster_ctarank();
+  const int wg = __shfl_sync(FULL, threadIdx.x / 128, 0);
+  const KvBlock blk = kv_block_at<BT>(blockIdx.x >> 1, kv_heads, sq, skv, window);
+  const int group = hq / hkv, n_it = group * blk.n_qt;
+  const int b = blk.kv_head / hkv;
+  const int head0 = b * hq + (blk.kv_head - b * hkv) * group;   // the group's first q head
+  init_barriers<D>(base);
+
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const bool lead = lane == 0;
+      const CUtensorMap* res = rank ? &vmap : &kmap;
+      const CUtensorMap* nh = rank ? &dohmap : &qhmap;
+      const CUtensorMap* nl = rank ? &dolmap : &qlmap;
+      const CUtensorMap* th = rank ? &qthmap : &dothmap;
+      const CUtensorMap* tl = rank ? &qtlmap : &dotlmap;
+      if (lead) {
+        mbar_arrive_expect(base + L::RES_FULL, L::RES_BYTES);
+#pragma unroll
+        for (int c = 0; c < L::BOXES; ++c)
+          tma_load_3d(base + L::RES_AT + c * L::RES_BOX, res, base + L::RES_FULL, c * BOX, blk.k0,
+                      blk.kv_head);
+      }
+      for (int j = 0; j < n_it; ++j) {
+        const int st = j % L::STAGES;
+        if (j >= L::STAGES) mbar_wait(base + L::TILE_EMPTY + 8 * st, ((j / L::STAGES) & 1) ^ 1);
+        const int hg = j / blk.n_qt;
+        const int q0 = (blk.qt0 + j - hg * blk.n_qt) * BT;
+        const int bh = head0 + hg;
+        for (int r = lane; r < BT; r += 32) {
+          const bool in = q0 + r < sq;
+          const size_t at = (size_t)bh * sq + q0 + r;
+          vecs[st * BT + r] = !in ? 0.0f : rank ? delta[at] : lse[at] * LOG2E;
+        }
+        __syncwarp();
+        if (lead) {
+          const uint32_t full = base + L::TILE_FULL + 8 * st;
+          const uint32_t at = base + L::STAGE_AT + st * L::STAGE;
+          mbar_arrive_expect(full, L::STAGE);
+#pragma unroll
+          for (int c = 0; c < L::BOXES; ++c) {
+            tma_load_3d(at + L::NH + c * L::N_BOX, nh, full, c * BOX, q0, bh);
+            tma_load_3d(at + L::NL + c * L::N_BOX, nl, full, c * BOX, q0, bh);
+          }
+#pragma unroll
+          for (int c = 0; c < L::TBOXES; ++c) {
+            tma_load_3d(at + L::TH + c * L::T_BOX, th, full, q0 + c * L::TW, 0, bh);
+            tma_load_3d(at + L::TL + c * L::T_BOX, tl, full, q0 + c * L::TW, 0, bh);
+          }
+        }
+      }
+    }
+    cluster_sync();   // in each role's branch: each runs with its own register count
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;                  // this consumer takes tiles c, c + 2, ...
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int off = skv - sq;
+    const int key = blk.k0 + 16 * warp + g;   // this thread's keys: key and key + 8
+    const uint32_t peer = cluster_addr(base, rank ^ 1u);
+    float acc[D / 2];   // dV (CTA 0) or dK (CTA 1): this consumer's tiles
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    mbar_wait(base + L::RES_FULL, 0);
+    uint32_t rh[L::HELD][4], rl[L::HELD][4];   // K's or V's A fragments (HOLD)
+    if constexpr (L::HOLD) {
+#pragma unroll
+      for (int ks = 0; ks < L::HELD; ++ks)
+        res_frag<D>(rh[ks], rl[ks], base + L::RES_AT, ks, warp, g, t);
+    }
+    for (int j = c; j < n_it; j += CONSUMERS) {
+      const int jj = j / CONSUMERS;        // this consumer's tile count so far
+      const int st = j % L::STAGES, buf = PBUF * c + jj % PBUF;
+      const uint32_t use = jj / PBUF;   // this buffer's uses before this one
+      const uint32_t at = base + L::STAGE_AT + st * L::STAGE;
+      mbar_wait(base + L::TILE_FULL + 8 * st, (j / L::STAGES) & 1);
+      const int hg = j / blk.n_qt;
+      const int q0 = (blk.qt0 + j - hg * blk.n_qt) * BT;
+      float x[BT / 2] = {}, x2[BT / 2] = {};   // S^T (CTA 0) or dP^T (CTA 1), [64 keys, BT rows]
+      first_product<D>(x, x2, rh, rl, base + L::RES_AT, at + L::NH, at + L::NL, warp, g, t);
+      // Masks only on tiles that cross the diagonal, the window edge, or the
+      // end of the keys or of the rows.
+      const bool edge = blk.k0 + ROWS - 1 > q0 + off || blk.k0 + ROWS > skv || q0 + BT > sq ||
+                        (window > 0 && blk.k0 <= q0 + BT - 1 + off - window);
+      const float* vec = vecs + st * BT;
+      const uint32_t slot = L::INBOX_AT + buf * L::INBOX_TILE + tid * 16;
+      uint32_t zh[NQ][4], zl[NQ][4];
+      if (rank == 0) {
+        if (use > 0) mbar_wait_cluster(base + L::P_EMPTY + 8 * buf, (use - 1) & 1);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          const float2 l = *reinterpret_cast<const float2*>(vec + 8 * n + 2 * t);
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = ex2(fmaf(x[4 * n + e] + x2[4 * n + e], scale_log2, -((e & 1) ? l.y : l.x)));
+            if (edge && !sees(key + 8 * (e >> 1), q0 + 8 * n + 2 * t + (e & 1), sq, skv, window))
+              p[e] = 0.0f;
+          }
+          st_cluster_f32x4(peer + slot + n * 128 * 16, p[0], p[1], p[2], p[3]);
+          split_frag(p, zh[n], zl[n]);
+        }
+        mbar_arrive_cluster(peer + L::P_FULL + 8 * buf);
+      } else {
+        mbar_wait_cluster(base + L::P_FULL + 8 * buf, use & 1);
+        const float4* in = reinterpret_cast<const float4*>(smem_raw + (base - raw) + slot);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          const float4 p4 = in[n * 128];
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+          const float2 d = *reinterpret_cast<const float2*>(vec + 8 * n + 2 * t);
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ds[e] = p[e] * ((x[4 * n + e] + x2[4 * n + e]) - ((e & 1) ? d.y : d.x));
+            if (edge && !sees(key + 8 * (e >> 1), q0 + 8 * n + 2 * t + (e & 1), sq, skv, window))
+              ds[e] = 0.0f;
+          }
+          split_frag(ds, zh[n], zl[n]);
+        }
+        mbar_arrive_cluster(peer + L::P_EMPTY + 8 * buf);
+      }
+      second_product<D, D, L::DCH>(acc, zh, zl, at + L::TH, at + L::TL);   // dV, dK
+      mbar_arrive(base + L::TILE_EMPTY + 8 * st);
+    }
+    combine<D>(acc, stages, c, tid);
+    const size_t kv0 = (size_t)blk.kv_head * skv;
+    if (c == 0)
+      store_rows<D>((rank ? dk : dv) + kv0 * D, acc, blk.k0, skv, D, warp, g, t,
+                    rank ? scale : 1.0f);
+    cluster_sync();   // no CTA of the cluster still reads or arrives on the other's memory
   }
 }
 
-// A raw [ROWS][D + 4] tile as a plane of one row per tile row, each pair of
-// columns (2j, 2j + 1) as (hi, hi, lo, lo) at floats 4j of rows 2D + 16 long:
-// the B operand of a product over the head dim.
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void row_plane(float* plane, const float* raw) {
-  constexpr int VEC = D / 4;
-  for (int i = threadIdx.x; i < ROWS * VEC; i += THREADS) {
-    const int r = i / VEC, c = (i - r * VEC) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(raw + r * (D + 4) + c);
-    float4* dst = reinterpret_cast<float4*>(plane + r * (2 * D + 16) + 2 * c);
-    dst[0] = split_pair(x.x, x.y);
-    dst[1] = split_pair(x.z, x.w);
+// -- dQ -------------------------------------------------------------------------
+
+// A cluster of two CTAs per block of 64 q rows. CTA 0 holds Q, streams K
+// (natural planes), computes S = Q K^T and P = exp2(S scale log2 e -
+// L log2 e) and sends P to CTA 1. CTA 1 holds dO, streams V (natural) and
+// K (transposed), computes dP = dO V^T, forms dS = P (dP - D) and adds dS K
+// into dQ.
+template <int D>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
+flash_attention_bwd_dq_f32_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
+    const __grid_constant__ CUtensorMap khmap, const __grid_constant__ CUtensorMap klmap,
+    const __grid_constant__ CUtensorMap vhmap, const __grid_constant__ CUtensorMap vlmap,
+    const __grid_constant__ CUtensorMap kthmap, const __grid_constant__ CUtensorMap ktlmap,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
+    int bhs, int hq, int hkv, int sq, int skv, int window, float scale_log2, float scale) {
+  using L = F32Layout<D>;
+  constexpr int BT = L::BT, NK = BT / 8;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* stages = reinterpret_cast<float*>(smem_raw + (base - raw) + L::STAGE_AT);
+  const uint32_t rank = cluster_ctarank();
+  const int wg = __shfl_sync(FULL, threadIdx.x / 128, 0);
+  const QBlock blk = q_block_at<BT>(blockIdx.x >> 1, bhs, hq, hkv, sq, skv, window);
+  init_barriers<D>(base);
+
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const CUtensorMap* res = rank ? &domap : &qmap;
+      const CUtensorMap* nh = rank ? &vhmap : &khmap;
+      const CUtensorMap* nl = rank ? &vlmap : &klmap;
+      const uint32_t bytes = rank ? L::STAGE : 2 * L::N_BYTES;   // CTA 0 takes no transposed plane
+      mbar_arrive_expect(base + L::RES_FULL, L::RES_BYTES);
+#pragma unroll
+      for (int c = 0; c < L::BOXES; ++c)
+        tma_load_3d(base + L::RES_AT + c * L::RES_BOX, res, base + L::RES_FULL, c * BOX, blk.q0,
+                    blk.bh);
+      for (int j = 0; j < blk.n_tiles; ++j) {
+        const int st = j % L::STAGES;
+        if (j >= L::STAGES) mbar_wait(base + L::TILE_EMPTY + 8 * st, ((j / L::STAGES) & 1) ^ 1);
+        const int kb = blk.kb0 + j * BT;
+        const uint32_t full = base + L::TILE_FULL + 8 * st;
+        const uint32_t at = base + L::STAGE_AT + st * L::STAGE;
+        mbar_arrive_expect(full, bytes);
+#pragma unroll
+        for (int c = 0; c < L::BOXES; ++c) {
+          tma_load_3d(at + L::NH + c * L::N_BOX, nh, full, c * BOX, kb, blk.kv_head);
+          tma_load_3d(at + L::NL + c * L::N_BOX, nl, full, c * BOX, kb, blk.kv_head);
+        }
+        if (rank) {
+#pragma unroll
+          for (int c = 0; c < L::TBOXES; ++c) {
+            tma_load_3d(at + L::TH + c * L::T_BOX, &kthmap, full, kb + c * L::TW, 0, blk.kv_head);
+            tma_load_3d(at + L::TL + c * L::T_BOX, &ktlmap, full, kb + c * L::TW, 0, blk.kv_head);
+          }
+        }
+      }
+    }
+    cluster_sync();
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;                  // this consumer takes tiles c, c + 2, ...
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int row0 = blk.q0 + 16 * warp + g;   // this thread's rows: row0 and row0 + 8
+    const uint32_t peer = cluster_addr(base, rank ^ 1u);
+    // L log2 e (CTA 0) or D (CTA 1) of this thread's rows; 0 past Sq.
+    float lr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      const size_t at = (size_t)blk.bh * sq + r;
+      lr[h] = r >= sq ? 0.0f : rank ? delta[at] : lse[at] * LOG2E;
+    }
+    float acc[D / 2];   // dQ (CTA 1): this consumer's tiles
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    const int qpos0 = blk.q0 + skv - sq;   // key position of the block's first row
+    mbar_wait(base + L::RES_FULL, 0);
+    uint32_t rh[L::HELD][4], rl[L::HELD][4];   // Q's or dO's A fragments (HOLD)
+    if constexpr (L::HOLD) {
+#pragma unroll
+      for (int ks = 0; ks < L::HELD; ++ks)
+        res_frag<D>(rh[ks], rl[ks], base + L::RES_AT, ks, warp, g, t);
+    }
+    for (int j = c; j < blk.n_tiles; j += CONSUMERS) {
+      const int jj = j / CONSUMERS;
+      const int st = j % L::STAGES, buf = PBUF * c + jj % PBUF;
+      const uint32_t use = jj / PBUF;   // this buffer's uses before this one
+      const uint32_t at = base + L::STAGE_AT + st * L::STAGE;
+      mbar_wait(base + L::TILE_FULL + 8 * st, (j / L::STAGES) & 1);
+      const int kb = blk.kb0 + j * BT;
+      float x[BT / 2] = {}, x2[BT / 2] = {};   // S (CTA 0) or dP (CTA 1), [64 rows, BT keys]
+      first_product<D>(x, x2, rh, rl, base + L::RES_AT, at + L::NH, at + L::NL, warp, g, t);
+      const bool edge = kb + BT - 1 > qpos0 || kb + BT > skv ||
+                        (window > 0 && kb <= qpos0 + ROWS - 1 - window);
+      const uint32_t slot = L::INBOX_AT + buf * L::INBOX_TILE + tid * 16;
+      if (rank == 0) {
+        mbar_arrive(base + L::TILE_EMPTY + 8 * st);   // its last read of the stage
+        if (use > 0) mbar_wait_cluster(base + L::P_EMPTY + 8 * buf, (use - 1) & 1);
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = ex2(fmaf(x[4 * n + e] + x2[4 * n + e], scale_log2, -lr[e >> 1]));
+            if (edge && !sees(kb + 8 * n + 2 * t + (e & 1), row0 + 8 * (e >> 1), sq, skv, window))
+              p[e] = 0.0f;
+          }
+          st_cluster_f32x4(peer + slot + n * 128 * 16, p[0], p[1], p[2], p[3]);
+        }
+        mbar_arrive_cluster(peer + L::P_FULL + 8 * buf);
+      } else {
+        mbar_wait_cluster(base + L::P_FULL + 8 * buf, use & 1);
+        const float4* in = reinterpret_cast<const float4*>(smem_raw + (base - raw) + slot);
+        uint32_t zh[NK][4], zl[NK][4];
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          const float4 p4 = in[n * 128];
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ds[e] = p[e] * ((x[4 * n + e] + x2[4 * n + e]) - lr[e >> 1]);
+            if (edge && !sees(kb + 8 * n + 2 * t + (e & 1), row0 + 8 * (e >> 1), sq, skv, window))
+              ds[e] = 0.0f;
+          }
+          split_frag(ds, zh[n], zl[n]);
+        }
+        mbar_arrive_cluster(peer + L::P_EMPTY + 8 * buf);
+        second_product<D, D, L::DCH>(acc, zh, zl, at + L::TH, at + L::TL);   // dQ += dS K
+        mbar_arrive(base + L::TILE_EMPTY + 8 * st);
+      }
+    }
+    if (rank) {
+      combine<D>(acc, stages, c, tid);
+      if (c == 0)
+        store_rows<D>(dq + (size_t)blk.bh * sq * D, acc, blk.q0, sq, D, warp, g, t, scale);
+    }
+    cluster_sync();
   }
 }
 
-// The same tile as a plane of one row per head-dim column, each pair of tile
-// rows (2j, 2j + 1) as (hi, hi, lo, lo) at floats 4j of rows pair_ld(ROWS)
-// long: the B operand of a product over the tile's rows.
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void col_plane(float* plane, const float* raw) {
-  constexpr int VEC = D / 4, HALF = ROWS / 2, LDC = pair_ld(ROWS);
-  for (int i = threadIdx.x; i < HALF * VEC; i += THREADS) {
-    const int kp = i % HALF, c = (i / HALF) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(raw + 2 * kp * (D + 4) + c);
-    const float4 y = *reinterpret_cast<const float4*>(raw + (2 * kp + 1) * (D + 4) + c);
-    float* dst = plane + c * LDC + 4 * kp;
-    *reinterpret_cast<float4*>(dst) = split_pair(x.x, y.x);
-    *reinterpret_cast<float4*>(dst + LDC) = split_pair(x.y, y.y);
-    *reinterpret_cast<float4*>(dst + 2 * LDC) = split_pair(x.z, y.z);
-    *reinterpret_cast<float4*>(dst + 3 * LDC) = split_pair(x.w, y.w);
+// -- the pre-pass ---------------------------------------------------------------
+
+// The operands that the two kernels stream, as TF32 planes (tf32.cuh's
+// split: x = hi + lo, a non-finite x all lo) in device memory: each source
+// [heads, rows, D] into natural planes hi and lo of its own layout and,
+// where `thi` is set, transposed planes [heads, D, rows8] (rows8 = rows
+// rounded up to 8, zeros past `rows`) whose positions in each group of 8
+// hold the rows 0, 2, 4, 6, 1, 3, 5, 7 of the group: the order in which an
+// accumulator's columns become the A fragment of the next product.
+struct SplitJob {
+  const float* src;
+  float *hi, *lo, *thi, *tlo;
+  int heads, rows, rows8, first_block;
+};
+
+struct SplitJobs {
+  SplitJob job[4];   // q, dO, k, v
+};
+
+// One 32 x 32 tile of a source per block of 32 x 8 threads.
+template <int D>
+__global__ void __launch_bounds__(256) flash_attention_bwd_split_kernel(const SplitJobs jobs) {
+  constexpr int CT = (D + 31) / 32;
+  __shared__ float hs[32][33], ls[32][33];
+  int k = 0;
+  while (k + 1 < 4 && (int)blockIdx.x >= jobs.job[k + 1].first_block) ++k;
+  const SplitJob& job = jobs.job[k];
+  const int tiles_r = (job.rows8 + 31) / 32;
+  const int local = blockIdx.x - job.first_block;
+  const int head = local / (tiles_r * CT);
+  const int rt = (local / CT) % tiles_r, ct = local % CT;
+  const int r0 = rt * 32, c0 = ct * 32;
+  const size_t src0 = (size_t)head * job.rows * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = threadIdx.y + 8 * i, row = r0 + r, col = c0 + threadIdx.x;
+    uint32_t h = 0u, l = 0u;
+    if (row < job.rows && col < D) {
+      const size_t at = src0 + (size_t)row * D + col;
+      split(job.src[at], h, l);
+      job.hi[at] = __uint_as_float(h);
+      job.lo[at] = __uint_as_float(l);
+    }
+    hs[r][threadIdx.x] = __uint_as_float(h);
+    ls[r][threadIdx.x] = __uint_as_float(l);
+  }
+  if (job.thi == nullptr) return;
+  __syncthreads();
+  const int r = threadIdx.x, row = r0 + r;
+  const int pos = (row & ~7) | ((row & 7) >> 1) | ((row & 1) << 2);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = threadIdx.y + 8 * i, col = c0 + c;
+    if (col < D && row < job.rows8) {
+      const size_t at = ((size_t)head * D + col) * job.rows8 + pos;
+      job.thi[at] = hs[r][c];
+      job.tlo[at] = ls[r][c];
+    }
   }
 }
 
@@ -384,612 +857,145 @@ flash_attention_bwd_delta_kernel(const float* __restrict__ o, const float* __res
   if (lane == 0) delta[row] = acc;
 }
 
-template <class T>
-__global__ void __launch_bounds__(T::THREADS, 1)
-flash_attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, const float* __restrict__ dout,
-                                const float* __restrict__ lse, const float* __restrict__ delta,
-                                float* __restrict__ dk, float* __restrict__ dv, int hq, int hkv,
-                                int sq, int skv, int window, float scale_log2, float scale) {
-  constexpr int D = T::D, BQ = T::BQ, BLOCK = T::BLOCK, THREADS = T::THREADS;
-  constexpr int KSTEPS = T::KSTEPS, LDR = T::LDR, LDQ = T::LDQ, LDW = T::LDW;
-  constexpr int QN = BQ / 8;        // n-tiles of S^T and dP^T, k-steps of dV and dK
-  constexpr int NT = D / 8;         // n-tiles of dK and dV
-  constexpr int NC = T::DCH / 8;    // n-tiles of one fresh accumulator
-  extern __shared__ __align__(16) float smem[];
-  float* KA = smem;                   // [WARPS][KSTEPS][32 lanes][4], raw
-  float* VA = KA + T::A_FLOATS;
-  float* Qr = VA + T::A_FLOATS;       // [BQ][LDR]: pairs along the head dim
-  float* dOr = Qr + BQ * LDR;
-  float* Qc = dOr + BQ * LDR;         // [D][LDQ]: pairs along the rows
-  float* dOc = Qc + D * LDQ;
-  float* Qw = dOc + D * LDQ;          // [BQ][LDW], raw
-  float* dOw = Qw + BQ * LDW;
-  float* Lw = dOw + BQ * LDW;         // [BQ], raw
-  float* Dw = Lw + BQ;
-  float* Ls = Dw + BQ;                // [BQ]: this tile's L (log2 units) and D
-  float* Ds = Ls + BQ;
 
-  const int b = blockIdx.x / hkv, kvh = blockIdx.x - b * hkv;
-  const int k0 = blockIdx.y * BLOCK;   // the first key blocks are seen by the most rows
-  const int group = hq / hkv, off = skv - sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2;             // fragment row (and row + 8)
-  const int t = lane & 3;              // fragment column pair
-  const size_t kv_base = ((size_t)b * hkv + kvh) * skv;
-  const size_t head0 = (size_t)b * hq + (size_t)kvh * group;   // the group's first q head
+// Floats of the scratch array `delta` at offset `at`, rounded up to 64 (256
+// bytes: every plane starts aligned for TMA).
+constexpr long long pad64(long long n) { return (n + 63) / 64 * 64; }
 
-  // Rows that see some key of the block: from its first key's diagonal to
-  // the window's end of its last key; the loop runs over (q head, q tile).
-  const int k_last = min(k0 + BLOCK, skv) - 1;
-  const int i_lo = max(0, k0 - off);
-  const int i_hi = window > 0 ? (int)min((long long)sq - 1, (long long)k_last + window - 1 - off)
-                              : sq - 1;
-  const int qt0 = i_lo / BQ;
-  const int n_qt = i_hi >= i_lo ? i_hi / BQ - qt0 + 1 : 0;
-  const int n_it = group * n_qt;
+// The layout of the scratch: D [batch, hq, sq], then the pre-pass's planes
+// of Q, dO (natural hi, lo; transposed hi, lo each), of K and V (natural)
+// and of K (transposed).
+struct Scratch {
+  long long delta, qh, ql, doh, dol, qth, qtl, doth, dotl, kh, kl, vh, vl, kth, ktl, total;
+};
 
-  auto load_q = [&](int it) {
-    const int hg = it / n_qt;
-    const int q0 = (qt0 + it - hg * n_qt) * BQ;
-    const size_t rb = (head0 + hg) * sq;
-    load_raw<D, BQ, THREADS>(Qw, q + rb * D, q0, sq);
-    load_raw<D, BQ, THREADS>(dOw, dout + rb * D, q0, sq);
-    load_vec<BQ, THREADS>(Lw, lse + rb, q0, sq);
-    load_vec<BQ, THREADS>(Dw, delta + rb, q0, sq);
-    cp_async_commit();
-  };
-
-  if (n_it > 0) load_q(0);
-  load_a<T>(KA, k + kv_base * D, k0, skv);
-  load_a<T>(VA, v + kv_base * D, k0, skv);
-
-  float dka[NT][4], dva[NT][4];
-  zero(dka);
-  zero(dva);
-
-  const int kw = k0 + warp * 16;       // this warp's first key
-  const float* kap = KA + warp * KSTEPS * 128 + lane * 4;
-  const float* vap = VA + warp * KSTEPS * 128 + lane * 4;
-  for (int it = 0; it < n_it; ++it) {
-    cp_async_wait_all();
-    __syncthreads();          // raw tile it is in; every warp is done with the planes
-    row_plane<D, BQ, THREADS>(Qr, Qw);
-    row_plane<D, BQ, THREADS>(dOr, dOw);
-    col_plane<D, BQ, THREADS>(Qc, Qw);
-    col_plane<D, BQ, THREADS>(dOc, dOw);
-    for (int i = threadIdx.x; i < BQ; i += THREADS) {
-      Ls[i] = Lw[i] * LOG2E;
-      Ds[i] = Dw[i];
-    }
-    __syncthreads();          // the planes are in; the raw tile is free
-    if (it + 1 < n_it) load_q(it + 1);
-
-    const int hg = it / n_qt;
-    const int q0 = (qt0 + it - hg * n_qt) * BQ;
-    const int p_lo = q0 + off;                     // key position of the tile's first row
-    const int p_hi = min(q0 + BQ, sq) - 1 + off;   // and of its last
-    // A tile none of whose pairs this warp may see costs it nothing.
-    if (!(kw < skv && kw <= p_hi && (window <= 0 || kw + 15 > p_lo - window))) continue;
-
-    // S^T = K Q^T and dP^T = V dO^T, [16 keys, BQ rows]: per k-step the A
-    // fragments of K and V, split here, and one plane load of Q and of dO
-    // per 8 rows; the small passes into s2 and dp2.
-    float s[QN][4], s2[QN][4], dp[QN][4], dp2[QN][4];
-    zero(s);
-    zero(s2);
-    zero(dp);
-    zero(dp2);
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t ka_hi[4], ka_lo[4], va_hi[4], va_lo[4];
-      frag_a(kap + kk * 128, ka_hi, ka_lo);
-      frag_a(vap + kk * 128, va_hi, va_lo);
-#pragma unroll
-      for (int n = 0; n < QN; ++n) {
-        uint32_t b_hi[2], b_lo[2];
-        frag_b(Qr + (n * 8 + g) * LDR + kk * 16 + 4 * t, b_hi, b_lo);
-        mma3_apart(s[n], s2[n], ka_hi, ka_lo, b_hi, b_lo);
-        frag_b(dOr + (n * 8 + g) * LDR + kk * 16 + 4 * t, b_hi, b_lo);
-        mma3_apart(dp[n], dp2[n], va_hi, va_lo, b_hi, b_lo);
-      }
-    }
-
-    // P^T = exp2(S^T scale log2(e) - L) and dS^T = P^T (dP^T - D), split as
-    // the A fragments of the next products: elements 0, 1 of n-tile n are key
-    // g and rows n * 8 + 2t, + 1 (2, 3: key g + 8), used as A elements
-    // (e >> 1) | ((e & 1) << 1) of k-step n (rows 2t at mma index t, 2t + 1
-    // at t + 4). Per-element masks only where the tile crosses this warp's
-    // diagonal, its window edge, or the end of the keys or the rows.
-    const bool edge = kw + 15 > p_lo || kw + 16 > skv || q0 + BQ > sq ||
-                      (window > 0 && kw <= p_hi - window);
-    uint32_t pa_hi[QN][4], pa_lo[QN][4], da_hi[QN][4], da_lo[QN][4];
-#pragma unroll
-    for (int n = 0; n < QN; ++n) {
-      const int col = n * 8 + 2 * t;
-      const float2 l = *reinterpret_cast<const float2*>(Ls + col);
-      const float2 dd = *reinterpret_cast<const float2*>(Ds + col);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float lc = (e & 1) ? l.y : l.x, dc = (e & 1) ? dd.y : dd.x;
-        const float sv = s[n][e] + s2[n][e];
-        float p = ex2(fmaf(sv, scale_log2, -lc));
-        float ds = p * ((dp[n][e] + dp2[n][e]) - dc);
-        if (edge) {
-          const int key = kw + g + 8 * (e >> 1);
-          const int row = q0 + col + (e & 1);
-          const int qp = row + off;
-          const bool keep =
-              row < sq && key < skv && key <= qp && (window <= 0 || key > qp - window);
-          if (!keep) p = ds = 0.0f;
-        }
-        const int a = (e >> 1) | ((e & 1) << 1);
-        split(p, pa_hi[n][a], pa_lo[n][a]);
-        split(ds, da_hi[n][a], da_lo[n][a]);
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q, DCH columns at a time, each into a fresh
-    // accumulator added to dV or dK in f32: per k-step of 8 rows, one plane
-    // load of dO or Q per 8 columns.
-#pragma unroll
-    for (int c0 = 0; c0 < NT; c0 += NC) {
-      float acc[NC][4];
-      zero(acc);
-#pragma unroll
-      for (int kk = 0; kk < QN; ++kk)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          uint32_t b_hi[2], b_lo[2];
-          frag_b(dOc + ((c0 + j) * 8 + g) * LDQ + kk * 16 + 4 * t, b_hi, b_lo);
-          mma3(acc[j], pa_hi[kk], pa_lo[kk], b_hi, b_lo);
-        }
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dva[c0 + j][e] += acc[j][e];
-      zero(acc);
-#pragma unroll
-      for (int kk = 0; kk < QN; ++kk)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          uint32_t b_hi[2], b_lo[2];
-          frag_b(Qc + ((c0 + j) * 8 + g) * LDQ + kk * 16 + 4 * t, b_hi, b_lo);
-          mma3(acc[j], da_hi[kk], da_lo[kk], b_hi, b_lo);
-        }
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dka[c0 + j][e] += acc[j][e];
-    }
-  }
-
-  // dK (scaled) and dV of keys kw + g and kw + g + 8, columns n * 8 + 2t.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = kw + g + 8 * r;
-    if (key >= skv) continue;
-    float* dkr = dk + (kv_base + key) * D;
-    float* dvr = dv + (kv_base + key) * D;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<float2*>(dkr + n * 8 + 2 * t) =
-          make_float2(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
-      *reinterpret_cast<float2*>(dvr + n * 8 + 2 * t) = make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
-    }
-  }
+inline Scratch scratch_layout(int batch, int hq, int hkv, int sq, int skv, int d) {
+  const long long bhq = (long long)batch * hq, bhkv = (long long)batch * hkv;
+  const long long qn = pad64(bhq * sq * d), qt = pad64(bhq * d * ((sq + 7) / 8 * 8));
+  const long long kn = pad64(bhkv * skv * d), kt = pad64(bhkv * d * ((skv + 7) / 8 * 8));
+  Scratch s;
+  long long at = 0;
+  s.delta = at; at += pad64(bhq * sq);
+  s.qh = at; at += qn;
+  s.ql = at; at += qn;
+  s.doh = at; at += qn;
+  s.dol = at; at += qn;
+  s.qth = at; at += qt;
+  s.qtl = at; at += qt;
+  s.doth = at; at += qt;
+  s.dotl = at; at += qt;
+  s.kh = at; at += kn;
+  s.kl = at; at += kn;
+  s.vh = at; at += kn;
+  s.vl = at; at += kn;
+  s.kth = at; at += kt;
+  s.ktl = at; at += kt;
+  s.total = at;
+  return s;
 }
 
-// The dK/dV kernel at D = 240 (PairTile, the note above): warp w is role
-// w / GROUPS of key group w % GROUPS and holds one accumulator, dV (role 0)
-// or dK (role 1), of its 16 keys x D. Role 0 computes S^T and P^T, stages
-// P^T (f32, masked) in shared memory in C-fragment lane order, and adds
-// P^T dO to dV; role 1 computes dP^T, reads P^T at the same lane positions
-// (the C fragments of S^T and dP^T hold the same pairs), forms dS^T and adds
-// dS^T Q to dK. The products, splits and sums of each output element are
-// those of flash_attention_bwd_dkdv_kernel at the same tiles.
-template <class T>
-__global__ void __launch_bounds__(T::THREADS, 1)
-flash_attention_bwd_dkdv_pair_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                     const float* __restrict__ v, const float* __restrict__ dout,
-                                     const float* __restrict__ lse,
-                                     const float* __restrict__ delta, float* __restrict__ dk,
-                                     float* __restrict__ dv, int hq, int hkv, int sq, int skv,
-                                     int window, float scale_log2, float scale) {
-  constexpr int D = T::D, BQ = T::BQ, BLOCK = T::BLOCK, THREADS = T::THREADS;
-  constexpr int KSTEPS = T::KSTEPS, LDR = T::LDR, LDQ = T::LDQ, LDW = T::LDW;
-  constexpr int QN = BQ / 8;        // n-tiles of S^T and dP^T, k-steps of dV and dK
-  constexpr int NT = D / 8;         // n-tiles of dK or dV
-  constexpr int NC = T::DCH / 8;    // n-tiles of one fresh accumulator
-  extern __shared__ __align__(16) float smem[];
-  float* KA = smem;                   // [GROUPS][KSTEPS][32 lanes][4], raw
-  float* VA = KA + T::A_FLOATS;
-  float* Qr = VA + T::A_FLOATS;       // [BQ][LDR]: pairs along the head dim
-  float* dOr = Qr + BQ * LDR;
-  float* Qc = dOr + BQ * LDR;         // [D][LDQ]: pairs along the rows
-  float* dOc = Qc + D * LDQ;
-  float* Qw = dOc + D * LDQ;          // [BQ][LDW], raw
-  float* dOw = Qw + BQ * LDW;
-  float* Lw = dOw + BQ * LDW;         // [BQ], raw
-  float* Dw = Lw + BQ;
-  float* Ls = Dw + BQ;                // [BQ]: this tile's L (log2 units) and D
-  float* Ds = Ls + BQ;
-  float* Ps = Ds + BQ;                // [GROUPS][QN][32 lanes][4]: P^T, f32
-
-  const int b = blockIdx.x / hkv, kvh = blockIdx.x - b * hkv;
-  const int k0 = blockIdx.y * BLOCK;   // the first key blocks are seen by the most rows
-  const int group = hq / hkv, off = skv - sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kg = warp % T::GROUPS;     // this warp's 16 keys
-  const int role = warp / T::GROUPS;   // 0: P^T and dV, 1: dS^T and dK
-  const int g = lane >> 2;             // fragment row (and row + 8)
-  const int t = lane & 3;              // fragment column pair
-  const size_t kv_base = ((size_t)b * hkv + kvh) * skv;
-  const size_t head0 = (size_t)b * hq + (size_t)kvh * group;   // the group's first q head
-
-  const int k_last = min(k0 + BLOCK, skv) - 1;
-  const int i_lo = max(0, k0 - off);
-  const int i_hi = window > 0 ? (int)min((long long)sq - 1, (long long)k_last + window - 1 - off)
-                              : sq - 1;
-  const int qt0 = i_lo / BQ;
-  const int n_qt = i_hi >= i_lo ? i_hi / BQ - qt0 + 1 : 0;
-  const int n_it = group * n_qt;
-
-  auto load_q = [&](int it) {
-    const int hg = it / n_qt;
-    const int q0 = (qt0 + it - hg * n_qt) * BQ;
-    const size_t rb = (head0 + hg) * sq;
-    load_raw<D, BQ, THREADS>(Qw, q + rb * D, q0, sq);
-    load_raw<D, BQ, THREADS>(dOw, dout + rb * D, q0, sq);
-    load_vec<BQ, THREADS>(Lw, lse + rb, q0, sq);
-    load_vec<BQ, THREADS>(Dw, delta + rb, q0, sq);
-    cp_async_commit();
-  };
-
-  if (n_it > 0) load_q(0);
-  load_a<T>(KA, k + kv_base * D, k0, skv);
-  load_a<T>(VA, v + kv_base * D, k0, skv);
-
-  float acc[NT][4];                    // dV (role 0) or dK (role 1)
-  zero(acc);
-
-  const int kw = k0 + kg * 16;         // this warp's first key
-  const float* ap = (role == 0 ? KA : VA) + kg * KSTEPS * 128 + lane * 4;   // A of S^T, dP^T
-  const float* br = role == 0 ? Qr : dOr;     // B of S^T or dP^T
-  const float* bc = role == 0 ? dOc : Qc;     // B of dV or dK
-  float* ps = Ps + (kg * QN * 32 + lane) * 4;
-  for (int it = 0; it < n_it; ++it) {
-    cp_async_wait_all();
-    __syncthreads();          // raw tile it is in; every warp is done with the planes
-    row_plane<D, BQ, THREADS>(Qr, Qw);
-    row_plane<D, BQ, THREADS>(dOr, dOw);
-    col_plane<D, BQ, THREADS>(Qc, Qw);
-    col_plane<D, BQ, THREADS>(dOc, dOw);
-    for (int i = threadIdx.x; i < BQ; i += THREADS) {
-      Ls[i] = Lw[i] * LOG2E;
-      Ds[i] = Dw[i];
-    }
-    __syncthreads();          // the planes are in; the raw tile is free
-    if (it + 1 < n_it) load_q(it + 1);
-
-    const int hg = it / n_qt;
-    const int q0 = (qt0 + it - hg * n_qt) * BQ;
-    const int p_lo = q0 + off;                     // key position of the tile's first row
-    const int p_hi = min(q0 + BQ, sq) - 1 + off;   // and of its last
-    // A tile none of whose pairs this key group may see costs its warps nothing.
-    const bool seen = kw < skv && kw <= p_hi && (window <= 0 || kw + 15 > p_lo - window);
-    const bool edge = kw + 15 > p_lo || kw + 16 > skv || q0 + BQ > sq ||
-                      (window > 0 && kw <= p_hi - window);
-    auto keep = [&](int n, int e) {
-      const int key = kw + g + 8 * (e >> 1);
-      const int row = q0 + n * 8 + 2 * t + (e & 1);
-      const int qp = row + off;
-      return row < sq && key < skv && key <= qp && (window <= 0 || key > qp - window);
-    };
-
-    // S^T = K Q^T (role 0) or dP^T = V dO^T (role 1), [16 keys, BQ rows]: the
-    // small passes into x2. Role 0 then forms P^T, masked, keeps it in x and
-    // stages it.
-    float x[QN][4], x2[QN][4];
-    if (seen) {
-      zero(x);
-      zero(x2);
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t a_hi[4], a_lo[4];
-        frag_a(ap + kk * 128, a_hi, a_lo);
-#pragma unroll
-        for (int n = 0; n < QN; ++n) {
-          uint32_t b_hi[2], b_lo[2];
-          frag_b(br + (n * 8 + g) * LDR + kk * 16 + 4 * t, b_hi, b_lo);
-          mma3_apart(x[n], x2[n], a_hi, a_lo, b_hi, b_lo);
-        }
-      }
-      if (role == 0) {
-#pragma unroll
-        for (int n = 0; n < QN; ++n) {
-          const float2 l = *reinterpret_cast<const float2*>(Ls + n * 8 + 2 * t);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float lc = (e & 1) ? l.y : l.x;
-            float p = ex2(fmaf(x[n][e] + x2[n][e], scale_log2, -lc));
-            if (edge && !keep(n, e)) p = 0.0f;
-            x[n][e] = p;
-          }
-          *reinterpret_cast<float4*>(ps + n * 128) = make_float4(x[n][0], x[n][1], x[n][2],
-                                                                 x[n][3]);
-        }
-      }
-    }
-    __syncthreads();          // P^T of every key group is in
-
-    if (seen) {
-      // P^T (role 0) or dS^T = P^T (dP^T - D) (role 1, masked), split as the A
-      // fragments of the next product: element e of n-tile n is used as A
-      // element (e >> 1) | ((e & 1) << 1) of k-step n.
-      uint32_t a_hi[QN][4], a_lo[QN][4];
-#pragma unroll
-      for (int n = 0; n < QN; ++n) {
-        float y[4];
-        if (role == 0) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) y[e] = x[n][e];
-        } else {
-          const float4 p = *reinterpret_cast<const float4*>(ps + n * 128);
-          const float2 dd = *reinterpret_cast<const float2*>(Ds + n * 8 + 2 * t);
-          const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float dc = (e & 1) ? dd.y : dd.x;
-            y[e] = pv[e] * ((x[n][e] + x2[n][e]) - dc);
-            if (edge && !keep(n, e)) y[e] = 0.0f;
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int a = (e >> 1) | ((e & 1) << 1);
-          split(y[e], a_hi[n][a], a_lo[n][a]);
-        }
-      }
-
-      // dV += P^T dO (role 0) or dK += dS^T Q (role 1), DCH columns at a time,
-      // each into a fresh accumulator added in f32.
-#pragma unroll
-      for (int c0 = 0; c0 < NT; c0 += NC) {
-        float f[NC][4];
-        zero(f);
-#pragma unroll
-        for (int kk = 0; kk < QN; ++kk)
-#pragma unroll
-          for (int j = 0; j < NC; ++j) {
-            uint32_t b_hi[2], b_lo[2];
-            frag_b(bc + ((c0 + j) * 8 + g) * LDQ + kk * 16 + 4 * t, b_hi, b_lo);
-            mma3(f[j], a_hi[kk], a_lo[kk], b_hi, b_lo);
-          }
-#pragma unroll
-        for (int j = 0; j < NC; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[c0 + j][e] += f[j][e];
-      }
-    }
-  }
-
-  // dV (role 0) or dK, scaled (role 1), of keys kw + g and kw + g + 8.
-  const float mult = role == 0 ? 1.0f : scale;
-  float* outp = role == 0 ? dv : dk;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = kw + g + 8 * r;
-    if (key >= skv) continue;
-    float* row = outp + (kv_base + key) * D;
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<float2*>(row + n * 8 + 2 * t) =
-          make_float2(acc[n][2 * r] * mult, acc[n][2 * r + 1] * mult);
-  }
-}
-
-template <class T>
-__global__ void __launch_bounds__(T::THREADS, 1)
-flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ delta,
-                              float* __restrict__ dq, int hq, int hkv, int sq, int skv,
-                              int window, float scale_log2, float scale) {
-  constexpr int D = T::D, BKV = T::BKV, BLOCK = T::BLOCK, THREADS = T::THREADS;
-  constexpr int KSTEPS = T::KSTEPS, LDR = T::LDR, LDK = T::LDK, LDW = T::LDW;
-  constexpr int KN = BKV / 8;       // n-tiles of S and dP, k-steps of dQ
-  constexpr int NT = D / 8;         // n-tiles of dQ
-  constexpr int NC = T::DCH / 8;    // n-tiles of one fresh accumulator
-  extern __shared__ __align__(16) float smem[];
-  float* QA = smem;                   // [WARPS][KSTEPS][32 lanes][4], raw
-  float* OA = QA + T::A_FLOATS;
-  float* Kr = OA + T::A_FLOATS;       // [BKV][LDR]: pairs along the head dim
-  float* Vr = Kr + BKV * LDR;
-  float* Kc = Vr + BKV * LDR;         // [D][LDK]: pairs along the keys
-  float* Kw = Kc + D * LDK;           // [BKV][LDW], raw
-  float* Vw = Kw + BKV * LDW;
-
-  const int bh = blockIdx.x;                             // b * hq + h
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BLOCK;   // longest rows first
-  const int b = bh / hq;
-  const int kvh = (bh - b * hq) / (hq / hkv);
-  const size_t row_base = (size_t)bh * sq;
-  const float* K = k + ((size_t)b * hkv + kvh) * skv * D;
-  const float* V = v + ((size_t)b * hkv + kvh) * skv * D;
-  const int off = skv - sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  // Keys some row of the block may see: from the window start of its first
-  // row to the diagonal of its last.
-  const int k_hi = min(skv, min(q0 + BLOCK, sq) + off) - 1;
-  const int k_lo = window > 0 ? max(0, q0 + off - window + 1) : 0;
-  const int kb0 = (k_lo / BKV) * BKV;
-  const int n_tiles = k_hi >= kb0 ? (k_hi - kb0) / BKV + 1 : 0;
-
-  auto load_kv = [&](int kb) {
-    load_raw<D, BKV, THREADS>(Kw, K, kb, skv);
-    load_raw<D, BKV, THREADS>(Vw, V, kb, skv);
-    cp_async_commit();
-  };
-
-  if (n_tiles > 0) load_kv(kb0);
-  load_a<T>(QA, q + row_base * D, q0, sq);
-  load_a<T>(OA, dout + row_base * D, q0, sq);
-
-  // L (log2 units) and D of rows g and g + 8; 0 past sq.
-  float lr[2], dr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    lr[r] = row < sq ? lse[row_base + row] * LOG2E : 0.0f;
-    dr[r] = row < sq ? delta[row_base + row] : 0.0f;
-  }
-
-  float dqa[NT][4];
-  zero(dqa);
-
-  const int qpos0 = q0 + warp * 16 + off;   // key position of this warp's first row
-  const bool rows_in = q0 + warp * 16 < sq;
-  const float* qap = QA + warp * KSTEPS * 128 + lane * 4;
-  const float* oap = OA + warp * KSTEPS * 128 + lane * 4;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kb = kb0 + j * BKV;
-    cp_async_wait_all();
-    __syncthreads();          // raw tile j is in; every warp is done with the planes
-    row_plane<D, BKV, THREADS>(Kr, Kw);
-    row_plane<D, BKV, THREADS>(Vr, Vw);
-    col_plane<D, BKV, THREADS>(Kc, Kw);
-    __syncthreads();          // the planes are in; the raw tile is free
-    if (j + 1 < n_tiles) load_kv(kb + BKV);
-
-    // A tile no row of this warp may see costs the warp nothing.
-    if (!(rows_in && kb <= qpos0 + 15 && (window <= 0 || kb + BKV - 1 > qpos0 - window)))
-      continue;
-
-    // S = Q K^T and dP = dO V^T, [16 rows, BKV keys]: per k-step the A
-    // fragments of Q and dO, split here, and one plane load of K and of V per
-    // 8 keys; the small passes into s2 and dp2.
-    float s[KN][4], s2[KN][4], dp[KN][4], dp2[KN][4];
-    zero(s);
-    zero(s2);
-    zero(dp);
-    zero(dp2);
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t qa_hi[4], qa_lo[4], oa_hi[4], oa_lo[4];
-      frag_a(qap + kk * 128, qa_hi, qa_lo);
-      frag_a(oap + kk * 128, oa_hi, oa_lo);
-#pragma unroll
-      for (int n = 0; n < KN; ++n) {
-        uint32_t b_hi[2], b_lo[2];
-        frag_b(Kr + (n * 8 + g) * LDR + kk * 16 + 4 * t, b_hi, b_lo);
-        mma3_apart(s[n], s2[n], qa_hi, qa_lo, b_hi, b_lo);
-        frag_b(Vr + (n * 8 + g) * LDR + kk * 16 + 4 * t, b_hi, b_lo);
-        mma3_apart(dp[n], dp2[n], oa_hi, oa_lo, b_hi, b_lo);
-      }
-    }
-
-    // dS = P (dP - D) with P = exp2(S scale log2(e) - L), split as the A
-    // fragments of dS K (keys 2t at mma index t, 2t + 1 at t + 4); per-element
-    // masks only where the tile crosses this warp's diagonal, its window edge
-    // or the end of the keys.
-    const bool edge = kb + BKV - 1 > qpos0 || kb + BKV > skv ||
-                      (window > 0 && kb <= qpos0 + 15 - window);
-    uint32_t d_hi[KN][4], d_lo[KN][4];
-#pragma unroll
-    for (int n = 0; n < KN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float sv = s[n][e] + s2[n][e];
-        const float p = ex2(fmaf(sv, scale_log2, -lr[e >> 1]));
-        float ds = p * ((dp[n][e] + dp2[n][e]) - dr[e >> 1]);
-        if (edge) {
-          const int key = kb + n * 8 + 2 * t + (e & 1);
-          const int qp = qpos0 + g + 8 * (e >> 1);
-          const bool keep = key <= qp && key < skv && (window <= 0 || key > qp - window);
-          if (!keep) ds = 0.0f;
-        }
-        const int a = (e >> 1) | ((e & 1) << 1);
-        split(ds, d_hi[n][a], d_lo[n][a]);
-      }
-
-    // dQ += dS K, DCH columns at a time, each into a fresh accumulator added
-    // to dQ in f32: per k-step of 8 keys, one plane load of K per 8 columns.
-#pragma unroll
-    for (int c0 = 0; c0 < NT; c0 += NC) {
-      float acc[NC][4];
-      zero(acc);
-#pragma unroll
-      for (int kk = 0; kk < KN; ++kk)
-#pragma unroll
-        for (int jn = 0; jn < NC; ++jn) {
-          uint32_t b_hi[2], b_lo[2];
-          frag_b(Kc + ((c0 + jn) * 8 + g) * LDK + kk * 16 + 4 * t, b_hi, b_lo);
-          mma3(acc[jn], d_hi[kk], d_lo[kk], b_hi, b_lo);
-        }
-#pragma unroll
-      for (int jn = 0; jn < NC; ++jn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dqa[c0 + jn][e] += acc[jn][e];
-    }
-  }
-
-  // dQ (scaled) of rows g and g + 8, columns n * 8 + 2t.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= sq) continue;
-    float* out = dq + (row_base + row) * D;
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<float2*>(out + n * 8 + 2 * t) =
-          make_float2(dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
-  }
-}
-
-// T: the tile of the dQ kernel; K: that of the dK/dV kernel (a PairTile
-// takes flash_attention_bwd_dkdv_pair_kernel).
-template <class T, class K = T>
+template <int D>
 int launch(const float* q, const float* k, const float* v, const float* o, const float* dout,
-           const float* lse, float* delta, float* dq, float* dk, float* dv, int batch, int hq,
+           const float* lse, float* scratch, float* dq, float* dk, float* dv, int batch, int hq,
            int hkv, int sq, int skv, int window, float scale, cudaStream_t stream) {
-  void (*dkdv)(const float*, const float*, const float*, const float*, const float*,
-               const float*, float*, float*, int, int, int, int, int, float, float);
-  if constexpr (K::PAIR)
-    dkdv = flash_attention_bwd_dkdv_pair_kernel<K>;
-  else
-    dkdv = flash_attention_bwd_dkdv_kernel<K>;
-  cudaError_t e =
-      cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::DKDV_SMEM);
+  using L = F32Layout<D>;
+  const Scratch sc = scratch_layout(batch, hq, hkv, sq, skv, D);
+  float* delta = scratch + sc.delta;
+  const int bhq = batch * hq, bhkv = batch * hkv;
+  const int sq8 = (sq + 7) / 8 * 8, skv8 = (skv + 7) / 8 * 8;
+  auto P = [&](long long at) { return scratch + at; };
+
+  // The pre-pass: Q and dO natural and transposed, K natural and
+  // transposed, V natural.
+  SplitJobs jobs{};
+  const float* srcs[4] = {q, dout, k, v};
+  const long long nat[4][2] = {{sc.qh, sc.ql}, {sc.doh, sc.dol}, {sc.kh, sc.kl}, {sc.vh, sc.vl}};
+  const long long tr[4][2] = {{sc.qth, sc.qtl}, {sc.doth, sc.dotl}, {sc.kth, sc.ktl}, {-1, -1}};
+  int blocks = 0;
+  for (int i = 0; i < 4; ++i) {
+    SplitJob& jb = jobs.job[i];
+    const bool kv = i >= 2;
+    jb.src = srcs[i];
+    jb.hi = P(nat[i][0]);
+    jb.lo = P(nat[i][1]);
+    jb.thi = tr[i][0] < 0 ? nullptr : P(tr[i][0]);
+    jb.tlo = tr[i][1] < 0 ? nullptr : P(tr[i][1]);
+    jb.heads = kv ? bhkv : bhq;
+    jb.rows = kv ? skv : sq;
+    jb.rows8 = kv ? skv8 : sq8;
+    jb.first_block = blocks;
+    blocks += jb.heads * ((jb.rows8 + 31) / 32) * ((D + 31) / 32);
+  }
+
+  // Eighteen maps, encoded for this call.
+  CUtensorMap kv_k, kv_v, qh, ql, doh, dol, qth, qtl, doth, dotl;
+  CUtensorMap q_q, q_do, kh, kl, vh, vl, kth, ktl;
+  const int tw = L::TW, tsw = L::TSWIZZLE, bt = L::BT;
+  int err = f32_rows_map(&kv_k, k, bhkv, skv, D, BOX, ROWS, 128);
+  if (!err) err = f32_rows_map(&kv_v, v, bhkv, skv, D, BOX, ROWS, 128);
+  if (!err) err = f32_rows_map(&qh, P(sc.qh), bhq, sq, D, BOX, bt, 128);
+  if (!err) err = f32_rows_map(&ql, P(sc.ql), bhq, sq, D, BOX, bt, 128);
+  if (!err) err = f32_rows_map(&doh, P(sc.doh), bhq, sq, D, BOX, bt, 128);
+  if (!err) err = f32_rows_map(&dol, P(sc.dol), bhq, sq, D, BOX, bt, 128);
+  if (!err) err = f32_rows_map(&qth, P(sc.qth), bhq, D, sq8, tw, D, tsw);
+  if (!err) err = f32_rows_map(&qtl, P(sc.qtl), bhq, D, sq8, tw, D, tsw);
+  if (!err) err = f32_rows_map(&doth, P(sc.doth), bhq, D, sq8, tw, D, tsw);
+  if (!err) err = f32_rows_map(&dotl, P(sc.dotl), bhq, D, sq8, tw, D, tsw);
+  if (!err) err = f32_rows_map(&q_q, q, bhq, sq, D, BOX, ROWS, 128);
+  if (!err) err = f32_rows_map(&q_do, dout, bhq, sq, D, BOX, ROWS, 128);
+  if (!err) err = f32_rows_map(&kh, P(sc.kh), bhkv, skv, D, BOX, bt, 128);
+  if (!err) err = f32_rows_map(&kl, P(sc.kl), bhkv, skv, D, BOX, bt, 128);
+  if (!err) err = f32_rows_map(&vh, P(sc.vh), bhkv, skv, D, BOX, bt, 128);
+  if (!err) err = f32_rows_map(&vl, P(sc.vl), bhkv, skv, D, BOX, bt, 128);
+  if (!err) err = f32_rows_map(&kth, P(sc.kth), bhkv, D, skv8, tw, D, tsw);
+  if (!err) err = f32_rows_map(&ktl, P(sc.ktl), bhkv, D, skv8, tw, D, tsw);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_f32_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_attention_bwd_dq_f32_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::DQ_SMEM);
+
+  flash_attention_bwd_split_kernel<D><<<blocks, dim3(32, 8), 0, stream>>>(jobs);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long rows = (long long)batch * hq * sq;
-  flash_attention_bwd_delta_kernel<T::D>
+  const long long rows = (long long)bhq * sq;
+  flash_attention_bwd_delta_kernel<D>
       <<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(o, dout, delta, rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const float sl2 = scale * LOG2E;
-  dkdv<<<dim3(batch * hkv, (skv + K::BLOCK - 1) / K::BLOCK), K::THREADS, K::DKDV_SMEM,
-         stream>>>(q, k, v, dout, lse, delta, dk, dv, hq, hkv, sq, skv, window, sl2, scale);
+  // Two CTAs (a cluster) a block; blocks in the order of kv_block_at and
+  // q_block_at.
+  const int kv_blocks = bhkv * ((skv + ROWS - 1) / ROWS);
+  flash_attention_bwd_dkdv_f32_kernel<D><<<2 * kv_blocks, THREADS, L::SMEM, stream>>>(
+      kv_k, kv_v, qh, ql, doh, dol, qth, qtl, doth, dotl, lse, delta, dk, dv, bhkv, hq, hkv, sq,
+      skv, window, sl2, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_attention_bwd_dq_kernel<T>
-      <<<dim3(batch * hq, (sq + T::BLOCK - 1) / T::BLOCK), T::THREADS, T::DQ_SMEM, stream>>>(
-          q, k, v, dout, lse, delta, dq, hq, hkv, sq, skv, window, sl2, scale);
+  const int q_blocks = bhq * ((sq + ROWS - 1) / ROWS);
+  flash_attention_bwd_dq_f32_kernel<D><<<2 * q_blocks, THREADS, L::SMEM, stream>>>(
+      q_q, q_do, kh, kl, vh, vl, kth, ktl, lse, delta, dq, bhq, hq, hkv, sq, skv, window, sl2,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, o, dout, dq [batch, hq, sq, d]; k, v, dk, dv [batch, hkv, skv, d]: contiguous
-// float32, 16-byte aligned; lse and delta [batch, hq, sq] float32 (lse as the
-// forward wrote it; delta is scratch). hq a multiple of hkv, d one of 32, 64,
-// 80, 128, 240, window <= 0 for none. Launches three kernels on `stream` and
-// returns the cudaError_t of the launches.
+// Floats of the scratch array `delta` that flash_attention_bwd_f32 needs
+// for these sizes: the D pass's [batch, hq, sq] and the pre-pass's planes.
+extern "C" long long flash_attention_bwd_f32_scratch(int batch, int hq, int hkv, int sq, int skv,
+                                                      int d) {
+  return scratch_layout(batch, hq, hkv, sq, skv, d).total;
+}
+
+// q, o, dout, dq [batch, hq, sq, d]; k, v, dk, dv [batch, hkv, skv, d]:
+// contiguous float32, 16-byte aligned; lse [batch, hq, sq] float32 as the
+// forward wrote it; delta scratch of flash_attention_bwd_f32_scratch(...)
+// floats, 256-byte aligned. hq a multiple of hkv, d one of 32, 64, 80, 128,
+// 240, window <= 0 for none. Launches four kernels on `stream` and returns
+// the cudaError_t of the launches (or of encoding their tensor maps).
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                                        const void* dout, const void* lse, void* delta, void* dq,
                                        void* dk, void* dv, int batch, int hq, int hkv, int sq,
@@ -1001,21 +1007,21 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void*
   const float* O = static_cast<const float*>(o);
   const float* dO = static_cast<const float*>(dout);
   const float* L = static_cast<const float*>(lse);
-  float* Dl = static_cast<float*>(delta);
+  float* S = static_cast<float*>(delta);
   float* dQ = static_cast<float*>(dq);
   float* dK = static_cast<float*>(dk);
   float* dV = static_cast<float*>(dv);
   switch (d) {
-    case 32: return launch<T32>(Q, K, V, O, dO, L, Dl, dQ, dK, dV, batch, hq, hkv, sq, skv,
-                                window, scale, s);
-    case 64: return launch<T64>(Q, K, V, O, dO, L, Dl, dQ, dK, dV, batch, hq, hkv, sq, skv,
-                                window, scale, s);
-    case 80: return launch<T80>(Q, K, V, O, dO, L, Dl, dQ, dK, dV, batch, hq, hkv, sq, skv,
-                                window, scale, s);
-    case 128: return launch<T128>(Q, K, V, O, dO, L, Dl, dQ, dK, dV, batch, hq, hkv, sq, skv,
-                                  window, scale, s);
-    case 240: return launch<T240, P240>(Q, K, V, O, dO, L, Dl, dQ, dK, dV, batch, hq, hkv, sq,
-                                        skv, window, scale, s);
+    case 32: return launch<32>(Q, K, V, O, dO, L, S, dQ, dK, dV, batch, hq, hkv, sq, skv, window,
+                               scale, s);
+    case 64: return launch<64>(Q, K, V, O, dO, L, S, dQ, dK, dV, batch, hq, hkv, sq, skv, window,
+                               scale, s);
+    case 80: return launch<80>(Q, K, V, O, dO, L, S, dQ, dK, dV, batch, hq, hkv, sq, skv, window,
+                               scale, s);
+    case 128: return launch<128>(Q, K, V, O, dO, L, S, dQ, dK, dV, batch, hq, hkv, sq, skv,
+                                 window, scale, s);
+    case 240: return launch<240>(Q, K, V, O, dO, L, S, dQ, dK, dV, batch, hq, hkv, sq, skv,
+                                 window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

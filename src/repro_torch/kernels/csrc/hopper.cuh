@@ -1,14 +1,19 @@
 // Hopper (sm_90a) building blocks for kernels that run the tensor cores the
-// way this card is built to be fed (flash_attention_tc.cu): mbarriers, the
-// Tensor Memory Accelerator (TMA) with its host-side tensor maps, warpgroup
-// register reallocation (setmaxnreg), and warpgroup matrix products (wgmma)
-// with their shared-memory descriptors.
+// way this card is built to be fed (flash_attention_tc.cu,
+// flash_attention_bwd_tc.cu, flash_attention_bwd.cu): mbarriers, the Tensor
+// Memory Accelerator (TMA) with its host-side tensor maps, thread block
+// clusters (distributed shared memory and barriers across their CTAs),
+// warpgroup register reallocation (setmaxnreg), and warpgroup matrix
+// products (wgmma, bf16 and TF32) with their shared-memory descriptors.
 //
-// Every tile these helpers address is a stack of boxes 64 bf16 (128 bytes)
-// wide with the 128-byte swizzle: row r of a box sits at byte 128 r, and its
-// 16-byte chunk c at chunk c ^ (r % 8), each box starting on a 1024-byte
-// boundary. TMA writes that layout (CU_TENSOR_MAP_SWIZZLE_128B) and the
-// wgmma descriptors read it (layout type 1).
+// Every tile these helpers address is a stack of boxes 128 bytes (64 bf16,
+// 32 f32) wide with the 128-byte swizzle: row r of a box sits at byte 128 r,
+// and its 16-byte chunk c at chunk c ^ (r % 8), each box starting on a
+// 1024-byte boundary. TMA writes that layout (CU_TENSOR_MAP_SWIZZLE_128B)
+// and the wgmma descriptors read it (layout type 1). The f32 backward also
+// uses boxes 64 bytes wide (16 f32) with the 64-byte swizzle, chunk c of
+// row r at c ^ (r / 2 % 4), each box on a 512-byte boundary (layout type 2,
+// wgmma_desc64).
 #pragma once
 
 #include <cuda.h>
@@ -128,6 +133,64 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
   return y;
 }
 
+// -- thread block clusters ------------------------------------------------------
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address in the shared memory of cluster CTA `rank` of the location at
+// shared address `addr` of this CTA (both CTAs lay out their shared memory
+// alike).
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Every thread of every CTA of the cluster: the CTAs' barriers are
+// initialised and visible (at the start), or no CTA still reads or arrives
+// on another's shared memory (at the end).
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();   // the .aligned barrier wants the warp converged
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Arrives on an mbarrier of another CTA of the cluster (`addr` from
+// cluster_addr), releasing this thread's earlier writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+
+// mbar_wait for a barrier that another CTA of the cluster arrives on:
+// acquires at cluster scope what its threads released.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Four floats into the shared memory of another CTA of the cluster.
+__device__ __forceinline__ void st_cluster_f32x4(uint32_t addr, float a, float b, float c,
+                                                 float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b),
+               "f"(c), "f"(d)
+               : "memory");
+}
+
 // -- warpgroup register reallocation ------------------------------------------
 
 template <int N>
@@ -152,6 +215,14 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+}
+
+// The same for a tile in the 64-byte swizzled layout (rows of 64 bytes, 16
+// f32; layout type 2): K-major with sbo = 512, the step between groups of 8
+// rows. Advancing `addr` by 32 bytes steps 8 f32 along a row.
+__device__ __forceinline__ uint64_t wgmma_desc64(uint32_t addr, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -200,6 +271,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 template <int N>
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                            int accumulate);
+
+// d (64 x N, f32; `accumulate` 0 overwrites it) += A B for TF32 A (64 x 8)
+// in registers and B (8 x N) K-major in shared memory (TF32 has no transpose
+// flag: B's rows are its N dimension, 32 bytes of K each). Each warp holds
+// its 16 rows of A in mma.sync's m16n8k8 TF32 layout: lane 4g + t has
+// a[0] (row g, column t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8,
+// t + 4); d as for wgmma_ss. The f32 bits of each element of A and B are
+// read as TF32 (callers pass values already rounded: tf32.cuh).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate);
+
 
 // The instances the kernels use, one per tile width.
 
@@ -401,6 +484,96 @@ __device__ __forceinline__ void wgmma_rs_t<240>(float (&d)[120], const uint32_t 
 }
 
 
+// The TF32 instances: the f32 backward's products (flash_attention_bwd.cu).
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<48>(float (&d)[24], const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<80>(float (&d)[40], const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 }  // namespace
 
 // -- host: tensor maps --------------------------------------------------------
@@ -447,5 +620,25 @@ inline int bf16_rows_map(CUtensorMap* map, const void* base, int heads, int rows
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 3-D map of a contiguous f32 array [heads, rows, cols] (cols innermost),
+// read in boxes [1, box_rows, box_cols] with the swizzle of `swizzle_bytes`
+// (128: box_cols 32; 64: box_cols 16): columns past `cols` and rows past
+// `rows` of a box load as zeros. Returns a cudaError_t.
+inline int f32_rows_map(CUtensorMap* map, const void* base, int heads, int rows, int cols,
+                        int box_cols, int box_rows, int swizzle_bytes) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4, (cuuint64_t)rows * cols * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

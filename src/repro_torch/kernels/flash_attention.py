@@ -22,8 +22,10 @@ log-sum-exp, with two routes chosen by type like the forward's: bfloat16 on
 the tensor cores in ``csrc/flash_attention_bwd_tc.cu`` (``wgmma`` fed by TMA,
 a producer warpgroup and two consumer warpgroups, like the forward's; f32
 accumulation, P and dS rounded to bf16 before their products), float32 on
-the tensor cores in ``csrc/flash_attention_bwd.cu`` (TF32 with the 3-pass
-split of ``csrc/tf32.cuh``, f32-accurate like the forward's f32 route).
+the tensor cores in ``csrc/flash_attention_bwd.cu`` (TF32 ``wgmma`` with the
+3-pass split of ``csrc/tf32.cuh``, f32-accurate like the forward's f32
+route; a pre-pass writes the split planes that TMA feeds to clusters of two
+CTAs split by output).
 Neither falls back to the other; both are deterministic. Their plain version is
 ``ref.flash_attention_bwd``. ``FlashAttention`` ties the two passes together
 for autograd.
@@ -139,9 +141,12 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
     if q.numel() == 0 or k.numel() == 0:     # no (row, key) pair: every gradient is 0
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     tc = q.dtype == torch.bfloat16
     lib = build.load()
+    # Scratch: D = rowsum(dO * O) [b, hq, sq], and for f32 the TF32 planes of
+    # q, do, k and v that the kernels stream after it.
+    n = b * hq * sq if tc else lib.flash_attention_bwd_f32_scratch(b, hq, hkv, sq, skv, d)
+    delta = torch.empty(n, dtype=torch.float32, device=q.device)
     fn = lib.flash_attention_bwd_tc_bf16 if tc else lib.flash_attention_bwd_f32
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq,

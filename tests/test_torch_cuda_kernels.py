@@ -448,6 +448,26 @@ def test_flash_backward_is_wgmma_fed_by_tma(dev):
             assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, (kind, d, c)
 
 
+def test_flash_backward_f32_is_wgmma(dev):
+    """Every instance of the f32 backward's dK/dV and dQ kernels, one at each
+    head dim, runs TF32 wgmma (HGMMA) on tiles that TMA loads (UTMALDG) and no
+    mma.sync (HMMA), in the SASS of the built library."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import WGMMA_F32_BWD_KERNELS, _sass_counts
+
+    build.load()
+    counts = _sass_counts(build.library_path())
+    for kind in WGMMA_F32_BWD_KERNELS:
+        for d in kflash.HEAD_DIMS:
+            c = counts[f"{kind}<{d}>"]
+            assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, (kind, d, c)
+
+
 def _attention_f64(q, k, v):
     """Causal attention in float64, with P @ |V| beside it: the sum of the
     magnitudes of the terms of each output, the scale of f32's error."""
@@ -602,6 +622,16 @@ FLASH_BWD_SHAPES = [
     (2, 4, 1, 200, 255, 128, 90, torch.bfloat16),
     (1, 8, 4, 300, 300, 240, 100, torch.bfloat16),
     (1, 25, 5, 1157, 1157, 64, 1024, torch.bfloat16),
+    # The f32 wgmma backward's tiling (64-key and 64-row blocks, 32-row or
+    # 16-row tiles, two consumers taking tiles in turn): 65 and 129 keys
+    # against its 64-key blocks, D = 240 with the window's edge inside a key
+    # block and with more queries than keys (rows that see no key), and a
+    # group of 5 q heads a kv head.
+    (1, 4, 2, 65, 65, 80, None, torch.float32),
+    (2, 4, 2, 129, 129, 80, None, torch.float32),
+    (1, 8, 4, 300, 300, 240, 37, torch.float32),
+    (1, 4, 2, 150, 70, 240, None, torch.float32),
+    (1, 5, 1, 191, 191, 80, 100, torch.float32),
 ]
 
 

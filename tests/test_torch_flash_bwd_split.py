@@ -1,23 +1,27 @@
 """The arithmetic of the CUDA f32 ``flash_attention`` backward, on the CPU.
 
 The kernel (``src/repro_torch/kernels/csrc/flash_attention_bwd.cu``) runs
-the backward's products on the tensor cores in TF32, which keeps 10 mantissa
-bits, with the 3-pass split of ``csrc/tf32.cuh``: each operand is
-``x = hi + lo`` (both TF32, rounded to nearest with ties away from zero; a
-non-finite x all lo) and each product ``x_lo y_hi + x_hi y_lo + x_hi y_hi``
-in f32. Its dK/dV kernel computes ``Sᵀ = K Qᵀ`` and ``dPᵀ = V dOᵀ`` over
-tiles of query rows, then ``dV += Pᵀ dO`` and ``dK += dSᵀ Q``; its dQ kernel
-computes ``S = Q Kᵀ`` and ``dP = dO Vᵀ`` over tiles of keys, then
-``dQ += dS K``. Here those sums are emulated tile by tile in numpy: TF32
-rounding by bit arithmetic (``torch_parity.tf32`` / ``split``), one f32
-rounding per ``mma`` of a k-step of 8, the two small passes of S and dP in
-an accumulator of their own, each tile's dV, dK or dQ product in a fresh
-accumulator added to the running sum in f32, P = exp2(S scale log2(e) - L
-log2(e)) with one rounding before the exponential, dS = P (dP - D), and the
-masks applied by selection. P and dS are split with the finiteness test.
-Their A fragments are taken from the C fragment by the kernel's lane rule,
-and the B fragments from the pair planes by the kernel's read rule, so a
-mismatch of the two row (or key) orders shows as a wrong result.
+the backward's products on the tensor cores in TF32 (``wgmma``), which keeps
+10 mantissa bits, with the 3-pass split of ``csrc/tf32.cuh``: each operand
+is ``x = hi + lo`` (both TF32, rounded to nearest with ties away from zero;
+a non-finite x all lo) and each product ``x_lo y_hi + x_hi y_lo + x_hi y_hi``
+in f32. Its dK/dV kernel takes blocks of 64 keys and computes ``Sᵀ = K Qᵀ``
+and ``dPᵀ = V dOᵀ`` over the tiles of query rows that see them, then
+``dV += Pᵀ dO`` and ``dK += dSᵀ Q``; its dQ kernel takes blocks of 64 query
+rows and computes ``S = Q Kᵀ`` and ``dP = dO Vᵀ`` over tiles of keys, then
+``dQ += dS K``. Two consumer warpgroups take a block's tiles in turn, each
+summing its own, and the first adds the second's sums to its own at the end.
+Here those sums are emulated tile by tile in numpy, with the tile sizes read
+from the ``.cu`` source: TF32 rounding by bit arithmetic
+(``torch_parity.tf32`` / ``split``), one f32 rounding per k-step of 8, the
+two small passes of S and dP in an accumulator of their own, each tile's dV,
+dK or dQ product in a fresh accumulator added to its warpgroup's running sum
+in f32, P = exp2(S scale log2(e) - L log2(e)) with one rounding before the
+exponential, dS = P (dP - D), and the masks applied by selection. P and dS
+are split with the finiteness test. Their A fragments are taken from the C
+fragment by the kernel's lane rule, and the B fragments from the transposed
+planes in the order the kernel's pre-pass writes them, so a mismatch of the
+two row (or key) orders shows as a wrong result.
 
 The three passes hold 1e-5 (absolute and relative) against the port's plain
 ``ref.flash_attention_bwd`` and against ``jax.vjp`` of the JAX package's
@@ -25,6 +29,9 @@ plain attention (``models.attention._sdpa``, the attention it trains with),
 at Qwen3-4B's head dim 80 and at 128; one pass (hi x hi in every product)
 misses 1e-5.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,11 +45,17 @@ from torch_parity import split, tf32
 TOL = 1e-5
 LOG2E = np.float32(1.4426950408889634)
 GPU_NAN = np.array([0x7FFFFFFF], dtype=np.uint32).view(np.float32)[0]   # the card's NaN
+SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
+          / "flash_attention_bwd.cu").read_text()
+BLOCK = int(re.search(r"constexpr int ROWS = (\d+);", SOURCE).group(1))
+CONSUMERS = int(re.search(r"constexpr int CONSUMERS = (\d+);", SOURCE).group(1))
+BT = {int(d): int(bt) for d, bt in re.findall(
+    r"struct F32Tiling<(\d+)> \{\s*static constexpr int BT = (\d+),", SOURCE)}
 
 
 def _tiles(d):
     """The kernel's tiles: (query rows per dK/dV tile, keys per dQ tile)."""
-    return {128: (16, 32), 240: (8, 8)}.get(d, (32, 32))
+    return BT[d], BT[d]
 
 
 def _a_fragment_cols():
@@ -62,14 +75,13 @@ def _a_fragment_cols():
 
 
 def _b_fragment_rows():
-    """Row of an 8-row slab (query rows, keys or head-dim columns) that each
-    mma index k of a B fragment read from a pair plane holds: lane (g, t)
-    reads plane floats 4t..4t + 3 of plane row g, (hi, hi, lo, lo) of slab
-    rows 2t and 2t + 1, so b0 (index t) is row 2t and b1 (index t + 4) row
-    2t + 1."""
+    """Row of an 8-row slab (query rows or keys) that each k index of a B
+    operand read from a transposed plane holds: the pre-pass writes row r of
+    each group of 8 at position (r >> 1) | ((r & 1) << 2) (the kernel's
+    `pos`), and wgmma reads position k as k index k."""
     rows = np.full(8, -1)
-    for t in range(4):
-        rows[t], rows[t + 4] = 2 * t, 2 * t + 1
+    for r in range(8):
+        rows[(r >> 1) | ((r & 1) << 2)] = r
     return rows
 
 
@@ -83,7 +95,7 @@ def _mma(acc, a, b):
 
 
 def _product(a, b, passes, acc=None):
-    """a @ b over k-steps of 8 as the kernel's mma.sync: a = (hi, lo) [M, K],
+    """a @ b over k-steps of 8 as the kernel's wgmma: a = (hi, lo) [M, K],
     b = (hi, lo) [K, N]. With ``acc`` None (S and dP): the two small passes
     into an accumulator of their own, the large one into another, added
     after the last k-step. Otherwise (dV, dK, dQ): all three passes into a
@@ -137,55 +149,92 @@ def _probs(s, dp, l_log2, delta, keep, sl2):
     return np.where(keep, p, np.float32(0)), np.where(keep, ds, np.float32(0))
 
 
+def _rows(x, r0, n):
+    """Rows [r0, r0 + n) of x [S, ...]: zeros past S, as TMA loads them."""
+    out = np.zeros((n,) + x.shape[1:], x.dtype)
+    m = max(0, min(n, x.shape[0] - r0))
+    out[:m] = x[r0:r0 + m]
+    return out
+
+
 def kernel_dkdv(q, k, v, do, lse, delta, *, window=None, passes=3, finite_test=True):
     """The dK/dV kernel's sums for one kv head: q, do [G, Sq, D] (the
-    group's q heads), k, v [Skv, D], lse, delta [G, Sq]; float32."""
+    group's q heads), k, v [Skv, D], lse, delta [G, Sq]; float32. Each block
+    of 64 keys walks the q tiles of each head whose rows see some of its
+    keys; tile j of the block goes to consumer j % 2."""
     g_heads, sq, d = q.shape
     skv = k.shape[0]
     bq, _ = _tiles(d)
     scale = np.float32(d ** -0.5)
     sl2 = np.float32(scale * LOG2E)
-    ks, vs = _split(k, passes), _split(v, passes)
-    keys = np.arange(skv)
+    off = skv - sq
     dk = np.zeros((skv, d), np.float32)
     dv = np.zeros((skv, d), np.float32)
-    for h in range(g_heads):
-        qs, dos = _split(q[h], passes), _split(do[h], passes)
-        for q0 in range(0, sq, bq):
-            rows = np.arange(q0, min(q0 + bq, sq))
+    qs = [_split(_rows(q[h], 0, -(-sq // bq) * bq), passes) for h in range(g_heads)]
+    dos = [_split(_rows(do[h], 0, -(-sq // bq) * bq), passes) for h in range(g_heads)]
+    for k0 in range(0, skv, BLOCK):
+        keys = k0 + np.arange(BLOCK)
+        ks, vs = _split(_rows(k, k0, BLOCK), passes), _split(_rows(v, k0, BLOCK), passes)
+        i_lo = max(0, k0 - off)
+        i_hi = min(sq - 1, min(k0 + BLOCK, skv) - 1 + window - 1 - off) if window else sq - 1
+        n_qt = i_hi // bq - i_lo // bq + 1 if i_hi >= i_lo else 0
+        acc = [[np.zeros((BLOCK, d), np.float32)] * 2 for _ in range(CONSUMERS)]
+        for jt in range(g_heads * n_qt):
+            h, qt = divmod(jt, n_qt)
+            rows = (i_lo // bq + qt) * bq + np.arange(bq)
             tr = lambda x: (x[0][rows].T, x[1][rows].T)  # noqa: E731
-            st = _product(ks, tr(qs), passes)           # Sᵀ [keys, rows]
-            dpt = _product(vs, tr(dos), passes)         # dPᵀ
-            keep = _visible(rows, keys, skv - sq, window).T
-            l_log2 = (lse[h, rows] * LOG2E).astype(np.float32)
-            pt, dst = _probs(st, dpt, l_log2[None], delta[h, rows][None], keep, sl2)
+            st = _product(ks, tr(qs[h]), passes)           # Sᵀ [keys, rows]
+            dpt = _product(vs, tr(dos[h]), passes)         # dPᵀ
+            keep = (_visible(np.minimum(rows, sq - 1), np.minimum(keys, skv - 1), off, window).T
+                    & (rows < sq)[None] & (keys < skv)[:, None])
+            l_log2 = (_rows(lse[h], 0, rows[-1] + 1)[rows] * LOG2E).astype(np.float32)
+            dl = _rows(delta[h], 0, rows[-1] + 1)[rows]
+            pt, dst = _probs(st, dpt, l_log2[None], dl[None], keep, sl2)
             rs = lambda x: (x[0][rows], x[1][rows])    # noqa: E731
-            dv = _product(_split(pt, passes, finite_test), rs(dos), passes, acc=dv)
-            dk = _product(_split(dst, passes, finite_test), rs(qs), passes, acc=dk)
+            c = jt % CONSUMERS
+            ak, av = acc[c]
+            acc[c] = [_product(_split(dst, passes, finite_test), rs(qs[h]), passes, acc=ak),
+                      _product(_split(pt, passes, finite_test), rs(dos[h]), passes, acc=av)]
+        n = min(BLOCK, skv - k0)
+        dk[k0:k0 + n] = (acc[0][0] + acc[1][0]).astype(np.float32)[:n]
+        dv[k0:k0 + n] = (acc[0][1] + acc[1][1]).astype(np.float32)[:n]
     return (dk * scale).astype(np.float32), dv
 
 
 def kernel_dq(q, k, v, do, lse, delta, *, window=None, passes=3):
     """The dQ kernel's sums for one q head: q, do [Sq, D], k, v [Skv, D] (its
-    kv head), lse, delta [Sq]; float32."""
+    kv head), lse, delta [Sq]; float32. Each block of 64 rows walks the key
+    tiles some of its rows may see; tile j of the block goes to consumer
+    j % 2."""
     sq, d = q.shape
     skv = k.shape[0]
     _, bkv = _tiles(d)
     scale = np.float32(d ** -0.5)
     sl2 = np.float32(scale * LOG2E)
-    qs, dos = _split(q, passes), _split(do, passes)
-    ks, vs = _split(k, passes), _split(v, passes)
-    rows = np.arange(sq)
-    l_log2 = (lse * LOG2E).astype(np.float32)[:, None]
+    off = skv - sq
+    ks = _split(_rows(k, 0, -(-skv // bkv) * bkv), passes)
+    vs = _split(_rows(v, 0, -(-skv // bkv) * bkv), passes)
     dq = np.zeros((sq, d), np.float32)
-    for kb in range(0, skv, bkv):
-        keys = np.arange(kb, min(kb + bkv, skv))
-        tr = lambda x: (x[0][keys].T, x[1][keys].T)    # noqa: E731
-        s = _product(qs, tr(ks), passes)
-        dp = _product(dos, tr(vs), passes)
-        keep = _visible(rows, keys, skv - sq, window)
-        _, ds = _probs(s, dp, l_log2, delta[:, None], keep, sl2)
-        dq = _product(_split(ds, passes), (ks[0][keys], ks[1][keys]), passes, acc=dq)
+    for q0 in range(0, sq, BLOCK):
+        rows = q0 + np.arange(BLOCK)
+        qs, dos = _split(_rows(q, q0, BLOCK), passes), _split(_rows(do, q0, BLOCK), passes)
+        l_log2 = (_rows(lse, q0, BLOCK) * LOG2E).astype(np.float32)[:, None]
+        dl = _rows(delta, q0, BLOCK)[:, None]
+        k_hi = min(skv, min(q0 + BLOCK, sq) + off) - 1
+        kb0 = (max(0, q0 + off - window + 1) if window else 0) // bkv * bkv
+        acc = [np.zeros((BLOCK, d), np.float32) for _ in range(CONSUMERS)]
+        for jt, kb in enumerate(range(kb0, k_hi + 1, bkv)):
+            keys = kb + np.arange(bkv)
+            tr = lambda x: (x[0][keys].T, x[1][keys].T)    # noqa: E731
+            s = _product(qs, tr(ks), passes)
+            dp = _product(dos, tr(vs), passes)
+            keep = (_visible(np.minimum(rows, sq - 1), np.minimum(keys, skv - 1), off, window)
+                    & (rows < sq)[:, None] & (keys < skv)[None])
+            _, ds = _probs(s, dp, l_log2, dl, keep, sl2)
+            c = jt % CONSUMERS
+            acc[c] = _product(_split(ds, passes), (ks[0][keys], ks[1][keys]), passes, acc=acc[c])
+        n = min(BLOCK, sq - q0)
+        dq[q0:q0 + n] = (acc[0] + acc[1]).astype(np.float32)[:n]
     return (dq * scale).astype(np.float32)
 
 
@@ -225,19 +274,19 @@ def _forward(q, k, v, window):
 
 
 def test_fragment_orders_agree():
-    """The A fragment a C fragment gives and the B fragment a pair plane
-    gives hold the same row at every mma index: rows 0, 2, 4, 6 at indices
-    0-3, rows 1, 3, 5, 7 at 4-7."""
+    """The A fragment a C fragment gives and the B operand a transposed plane
+    gives hold the same row at every k index: rows 0, 2, 4, 6 at indices
+    0-3, rows 1, 3, 5, 7 at 4-7 (the pre-pass's `pos` in the .cu)."""
+    assert "pos = (row & ~7) | ((row & 7) >> 1) | ((row & 1) << 2);" in SOURCE
     np.testing.assert_array_equal(_a_fragment_cols(), [0, 2, 4, 6, 1, 3, 5, 7])
     np.testing.assert_array_equal(_b_fragment_rows(), _a_fragment_cols())
 
 
 # (b, hq, hkv, sq, skv, d, window): Qwen3-4B's head dim with GQA 2:1 over
-# four dK/dV row tiles and eight dQ key tiles; fewer queries than keys, 173
-# keys (the last dQ tile holds 13); D = 128 (16-row dK/dV tiles) with a
-# window and MQA; D = 240 (8-row dK/dV tiles, 8-key dQ tiles, dK and dV by
-# warps of their own: the same sums) with GQA 2:1 and a window, then fewer
-# queries than keys, 91 keys (the last dQ tile holds 3).
+# four 32-row dK/dV tiles and eight 32-key dQ tiles; fewer queries than
+# keys, 173 keys (the last dQ tile holds 13); D = 128 with a window and MQA;
+# D = 240 (16-row dK/dV tiles and 16-key dQ tiles) with GQA 2:1 and a
+# window, then fewer queries than keys, 91 keys (the last dQ tile holds 11).
 SHAPES = [(1, 4, 2, 128, 256, 80, None), (1, 2, 1, 77, 173, 80, None),
           (1, 2, 1, 120, 120, 128, 40), (1, 4, 2, 64, 64, 240, 24),
           (1, 2, 1, 45, 91, 240, None)]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""The bf16 ``flash_attention`` backward of this checkout against another's, in turns, by kernel.
+"""The ``flash_attention`` backward of this checkout against another's, in turns, by kernel.
 
-    python3 tools/flash_bwd_turns.py [--against OTHER_CHECKOUT ...] [--variants]
-                                     [--reps N] [--json PATH]
+    python3 tools/flash_bwd_turns.py [--dtype bfloat16|float32] [--against OTHER_CHECKOUT ...]
+                                     [--variants] [--reps N] [--json PATH]
 
 Builds this checkout's kernel library and, for each ``--against`` (for
 example the parent commit unpacked under ``build/``: ``git archive HEAD |
@@ -30,6 +30,18 @@ spills and the highest register its SASS touches printed) and times those
 builds in the same turns. Prints one JSON line of every number (also
 written to ``--json``). Without a CUDA device it exits non-zero; a result
 that disagrees exits non-zero too.
+
+``--dtype float32`` does the same for the f32 route
+(``csrc/flash_attention_bwd.cu``, 3-pass TF32): the same shapes in float32,
+each build's gradients within 1e-5 of their max |grad| of the formula in
+float64 (or within the plain f32 version's own error, where that is larger)
+and bit for bit across two runs, SDPA's f32 backward beside them, the bounds
+of three TF32 passes of the five and the seven products at the TF32 peak,
+each build's launches apart (the pre-pass that splits the operands, where a
+build has one, the D pass, dK/dV, dQ) with dK/dV's and dQ's rates over their
+three-pass products against the TF32 peak, and with ``--variants`` the
+builds of ``F32_VARIANTS`` (``csrc/flash_attention_bwd.cu`` with a design
+choice changed, under ``build/flash_bwd_variants/``).
 """
 from __future__ import annotations
 
@@ -49,8 +61,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-from chip_smoke import (BF16_FLOPS, HBM_BYTES_PER_S, _bound, _card_line,  # noqa: E402
-                        _causal_pairs, _kernel_name, _ptxas_report, _time_ms)
+from chip_smoke import (BF16_FLOPS, HBM_BYTES_PER_S, TF32_FLOPS, _bound,  # noqa: E402
+                        _card_line, _causal_pairs, _kernel_name, _ptxas_report, _time_ms)
 
 # (what, b, hq, hkv, s, d, window)
 SHAPES = (("Qwen3-4B training", 2, 32, 8, 2048, 80, None),
@@ -63,6 +75,10 @@ SHAPES = (("Qwen3-4B training", 2, 32, 8, 2048, 80, None),
 # dK/dV kernel has a name of its own), and the products each computes.
 KERNELS = (("D pass", "delta_tc_kernel"), ("dK/dV", "dkdv"), ("dQ", "dq_tc_kernel"))
 PRODUCTS = {"dK/dV": 4, "dQ": 3}
+# The f32 route's launches: the pre-pass (none in builds before it), the D
+# pass, dK/dV (the parent's D = 240 instance has a name of its own) and dQ.
+F32_KERNELS = (("pre-pass", "bwd_split_kernel"), ("D pass", "bwd_delta_kernel"),
+               ("dK/dV", "dkdv"), ("dQ", "bwd_dq"))
 
 _NEXT = "x = gridDim.x + (int)__shfl_sync(FULL, taken, 0);"
 _KV_GRID = "kv_blocks < sms ? kv_blocks : sms"
@@ -94,6 +110,40 @@ VARIANTS = {
 }
 
 
+
+def _f32_tiling(d: int, fields: str) -> str:
+    return (f"template <> struct F32Tiling<{d}> {{\n  static constexpr int {fields};\n}};")
+
+
+_F32 = {80: "BT = 32, STAGES = 3, DCH = 80, HOLD = 1"}
+
+
+def _f32_change(d: int, **fields) -> dict:
+    """A substitution of F32Tiling<d>'s fields."""
+    new = _F32[d]
+    for name, value in fields.items():
+        new = re.sub(rf"{name} = \d+", f"{name} = {value}", new)
+    return {_f32_tiling(d, _F32[d]): _f32_tiling(d, new)}
+
+
+# Design choices of the f32 kernels, changed: one consumer warpgroup a CTA
+# instead of two taking the tiles in turn; the resident operand split at use
+# at D = 80 (its fragments held in registers in the kernel); four stages and
+# one inbox buffer a consumer at D = 80 (three and two in the kernel); two
+# stages at D = 80; 16-row tiles at D = 80; the resident operand split two
+# k-steps at a time where it is split at use, D = 128 and 240 (four in the
+# kernel).
+F32_VARIANTS = {
+    "one_consumer": {"constexpr int CONSUMERS = 2;": "constexpr int CONSUMERS = 1;"},
+    "split_at_use_at_80": _f32_change(80, HOLD=0),
+    "stages_4_pbuf_1_at_80": {**_f32_change(80, STAGES=4),
+                              "constexpr int PBUF = 2;": "constexpr int PBUF = 1;"},
+    "stages_2_at_80": _f32_change(80, STAGES=2),
+    "bt_16_at_80": _f32_change(80, BT=16, STAGES=4),
+    "kch_2": {"constexpr int KCH = 4;": "constexpr int KCH = 2;"},
+}
+
+
 def _registers(lib: Path) -> dict:
     """The highest register each wgmma backward kernel instance of a built
     library touches in its SASS: past 167, the consumers use registers that
@@ -103,33 +153,37 @@ def _registers(lib: Path) -> dict:
                           check=True).stdout
     out = {}
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = re.search(r"flash_attention_bwd_(dkdv|dq)_tc_kernel<\d+>",
+        name = re.search(r"flash_attention_bwd_(dkdv|dq)_(tc|f32)_kernel<\d+>",
                          _kernel_name(body.split("\n", 1)[0]))
         if name:
             out[name.group()] = max(int(r) for r in re.findall(r"\bR(\d+)\b", body))
     return out
 
 
-def _variants():
-    """``flash_attention_bwd_tc_bf16`` of one build of flash_attention_bwd_tc.cu
-    per variant, under build/flash_bwd_variants/<name>/, all nvcc runs at once."""
+def _variants(f32: bool):
+    """The backward entry (and the library) of one build of the route's
+    source per variant, under build/flash_bwd_variants/<name>/, all nvcc
+    runs at once."""
     from repro_torch.kernels import build
 
-    source = (build.CSRC / "flash_attention_bwd_tc.cu").read_text()
+    src = "flash_attention_bwd.cu" if f32 else "flash_attention_bwd_tc.cu"
+    entry = "flash_attention_bwd_f32" if f32 else "flash_attention_bwd_tc_bf16"
+    source = (build.CSRC / src).read_text()
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in (F32_VARIANTS if f32 else VARIANTS).items():
         text = source
         for old, new in subs.items():
             if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} is not in flash_attention_bwd_tc.cu")
+                raise RuntimeError(f"variant {name}: {old!r} is not in {src}")
             text = text.replace(old, new)
         out = ROOT / "build" / "flash_bwd_variants" / name
         out.mkdir(parents=True, exist_ok=True)
-        (out / "flash_attention_bwd_tc.cu").write_text(text)
-        shutil.copy(build.CSRC / "hopper.cuh", out / "hopper.cuh")
+        (out / src).write_text(text)
+        for header in build.CSRC.glob("*.cuh"):
+            shutil.copy(header, out / header.name)
         procs[name] = (out / "lib.so", subprocess.Popen(
             [build._nvcc(), *build.ARCH, *build.FLAGS, "-Xptxas", "-v", "-shared", "-o",
-             str(out / "lib.so"), str(out / "flash_attention_bwd_tc.cu")],
+             str(out / "lib.so"), str(out / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
     for name, (so, proc) in procs.items():
@@ -137,23 +191,44 @@ def _variants():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         for line in _ptxas_report(log):
-            if "_tc_kernel<" in line and "delta" not in line:
+            if re.search(r"_(tc|f32)_kernel<", line) and "delta" not in line:
                 print(f"[turns] variant {name} ptxas {line}")
         print(f"[turns] variant {name} highest register: {_registers(so)}")
-        fn = ctypes.CDLL(str(so)).flash_attention_bwd_tc_bf16
-        fn.argtypes, fn.restype = build.SIGNATURES["flash_attention_bwd_tc_bf16"]
-        fns[f"variant {name}"] = fn
+        lib = ctypes.CDLL(str(so))
+        _bind(lib)
+        fns[f"variant {name}"] = (lib, getattr(lib, entry))
     return fns
 
 
-def _entry(tree: Path):
-    """``flash_attention_bwd_tc_bf16`` of the kernel library that checkout
-    ``tree`` builds from its own sources with its own build module."""
+def _bind(lib) -> None:
+    """The argument and result types of the backward's C entries in ``lib``."""
+    from repro_torch.kernels import build
+
+    for name in ("flash_attention_bwd_tc_bf16", "flash_attention_bwd_f32",
+                 "flash_attention_bwd_f32_scratch"):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = build.SIGNATURES[name]
+
+
+def _entry(tree: Path, f32: bool):
+    """The library that checkout ``tree`` builds from its own sources with
+    its own build module, and its backward entry of the route."""
     spec = importlib.util.spec_from_file_location(
         f"build_of_{abs(hash(str(tree)))}", tree / "src" / "repro_torch" / "kernels" / "build.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.load().flash_attention_bwd_tc_bf16
+    lib = mod.load()
+    _bind(lib)
+    return lib, getattr(lib, "flash_attention_bwd_f32" if f32 else "flash_attention_bwd_tc_bf16")
+
+
+def _scratch_floats(lib, f32: bool, b: int, hq: int, hkv: int, s: int, d: int) -> int:
+    """Floats of the scratch `delta` that a build's entry takes: D alone, or
+    for an f32 build with a pre-pass its split planes too."""
+    if f32 and hasattr(lib, "flash_attention_bwd_f32_scratch"):
+        return lib.flash_attention_bwd_f32_scratch(b, hq, hkv, s, s, d)
+    return b * hq * s
 
 
 def _graph_ms(fn, reps: int) -> float:
@@ -177,8 +252,8 @@ def _graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _by_kernel(call) -> dict:
-    """Device ms of each of a call's three launches, by torch.profiler over 5
+def _by_kernel(call, kernels) -> dict:
+    """Device ms of each of a call's launches, by torch.profiler over 5
     calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -189,16 +264,19 @@ def _by_kernel(call) -> dict:
         torch.cuda.synchronize()
     return {label: sum(e.self_device_time_total for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA and mark in e.key) / 5e3
-            for label, mark in KERNELS}
+            for label, mark in kernels}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the route to time: bf16 (flash_attention_bwd_tc.cu) or f32 "
+                         "(flash_attention_bwd.cu)")
     ap.add_argument("--against", type=Path, action="append", default=[],
-                    help="another checkout whose bf16 backward to time in turns with this one's "
+                    help="another checkout whose backward to time in turns with this one's "
                          "(may be repeated)")
     ap.add_argument("--variants", action="store_true",
-                    help="also time builds with each of VARIANTS' design choices undone")
+                    help="also time builds with each of the route's design choices changed")
     ap.add_argument("--reps", type=int, default=20, help="calls in each timed graph")
     ap.add_argument("--json", type=Path, help="also write the JSON line here")
     args = ap.parse_args()
@@ -211,66 +289,89 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
 
+    f32 = args.dtype == "float32"
+    dtype = torch.float32 if f32 else torch.bfloat16
+    kernels = F32_KERNELS if f32 else KERNELS
+    passes, peak, peak_name = (3, TF32_FLOPS, "the TF32 peak") if f32 else (
+        1, BF16_FLOPS, "the bf16 peak")
     card = _card_line()
-    print(f"[turns] card: {card}")
-    entries = {"this": _entry(ROOT)}
+    print(f"[turns] card: {card}; {args.dtype}")
+    entries = {"this": _entry(ROOT, f32)}
     print(f"[turns] this highest register: {_registers(build.library_path())}")
     for other in args.against:
-        entries[f"other ({other})"] = _entry(other.resolve())
+        entries[f"other ({other})"] = _entry(other.resolve(), f32)
     if args.variants:
         shutil.rmtree(ROOT / "build" / "flash_bwd_variants", ignore_errors=True)
-        entries.update(_variants())
+        entries.update(_variants(f32))
     names = list(entries)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     results, ok = [], True
     for what, b, hq, hkv, s, d, window in SHAPES:
-        q, do = (torch.randn((b, hq, s, d), generator=gen, device=dev).bfloat16()
+        q, do = (torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype)
                  for _ in range(2))
-        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
                 for _ in range(2))
         o, lse = kflash.launch(q, k, v, window=window, with_lse=True)
         plain = ref.flash_attention_bwd(q, k, v, o, do, lse, window=window)
-        limits = [2e-2 * p.float().abs().max().item() for p in plain]
-        delta = torch.empty_like(lse)
+        if f32:
+            # Within 1e-5 of max |grad| of the formula in float64, or within
+            # the plain f32 version's own error where that is larger.
+            exact = ref.flash_attention_bwd(*(t.double() for t in (q, k, v, o, do, lse)),
+                                            window=window)
+            limits = [max(1e-5 * p.abs().max().item(), (p.double() - e).abs().max().item())
+                      for p, e in zip(plain, exact)]
+            want = exact
+        else:
+            limits = [2e-2 * p.float().abs().max().item() for p in plain]
+            want = plain
+        scratch = {name: torch.empty(_scratch_floats(lib, f32, b, hq, hkv, s, d),
+                                     dtype=torch.float32, device=dev)
+                   for name, (lib, _) in entries.items()}
         outs = [torch.empty_like(t) for t in (q, k, v)]
 
-        def call(fn):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), b, hq, hkv,
-                     s, s, d, window or 0, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+        def call(name):
+            err = entries[name][1](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), scratch[name].data_ptr(), *(t.data_ptr() for t in outs), b, hq,
+                hkv, s, s, d, window or 0, d ** -0.5, torch.cuda.current_stream().cuda_stream)
             if err:
-                raise RuntimeError(f"flash_attention_bwd_tc_bf16 launch failed with error {err}")
+                raise RuntimeError(f"{name}: flash_attention backward ({args.dtype}) launch "
+                                   f"failed with error {err}")
 
-        shape = f"q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}] bf16 causal" + (
+        shape = f"q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}] {args.dtype} causal" + (
             f" window {window}" if window else "")
         row = {"what": what, "shape": shape, "max_abs_err": {}, "ms": {n: [] for n in names},
                "by_kernel": {}}
         for name in names:
-            call(entries[name])
+            call(name)
             torch.cuda.synchronize()
             first = [t.clone() for t in outs]
-            call(entries[name])
+            call(name)
             torch.cuda.synchronize()
-            errs = [(g.float() - p.float()).abs().max().item() for g, p in zip(first, plain)]
+            errs = [(g.double() - w.double()).abs().max().item() for g, w in zip(first, want)]
             same = all(torch.equal(a, c) for a, c in zip(first, outs))
             row["max_abs_err"][name] = errs
             if not (all(e <= lim for e, lim in zip(errs, limits)) and same):
                 ok = False
-                print(f"[turns] {what}: {name} disagrees with the plain version: dq, dk, dv "
-                      f"{errs} (limits {limits}), two runs bit for bit: {same}")
-        del plain, first
+                print(f"[turns] {what}: {name} disagrees: dq, dk, dv {errs} (limits {limits}), "
+                      f"two runs bit for bit: {same}")
+        del plain, want, first
+        if f32:
+            del exact
+        torch.cuda.empty_cache()
         for name in (*names, *reversed(names)):
-            row["ms"][name].append(_graph_ms(lambda: call(entries[name]), args.reps))  # noqa: B023
+            row["ms"][name].append(_graph_ms(lambda: call(name), args.reps))  # noqa: B023
         pairs = b * hq * _causal_pairs(s, s, window)
-        io = 2 * (4 * b * hq * s * d + 4 * b * hkv * s * d) + 4 * b * hq * s
-        row["bound_ms"], row["bound_by"] = _bound(10.0 * d * pairs, io, peak=BF16_FLOPS)
-        row["bound_7_products_ms"] = _bound(14.0 * d * pairs, io, peak=BF16_FLOPS)[0]
+        size = q.element_size()
+        io = size * (4 * b * hq * s * d + 4 * b * hkv * s * d) + 4 * b * hq * s
+        row["bound_ms"], row["bound_by"] = _bound(passes * 10.0 * d * pairs, io, peak=peak)
+        row["bound_7_products_ms"] = _bound(passes * 14.0 * d * pairs, io, peak=peak)[0]
         for name in names:
-            split = _by_kernel(lambda: call(entries[name]))  # noqa: B023
-            rates = {label: 2.0 * n * d * pairs / (split[label] * 1e-3) / BF16_FLOPS
-                     for label, n in PRODUCTS.items()}
-            d_bytes = 2 * 2 * b * hq * s * d + 4 * b * hq * s
+            split = _by_kernel(lambda: call(name), kernels)  # noqa: B023
+            rates = {label: 2.0 * passes * n * d * pairs / (split[label] * 1e-3) / peak
+                     if split[label] else 0.0 for label, n in PRODUCTS.items()}
+            d_bytes = 2 * size * b * hq * s * d + 4 * b * hq * s
             rates["D pass"] = d_bytes / (split["D pass"] * 1e-3) / HBM_BYTES_PER_S
             row["by_kernel"][name] = {"ms": split, "share_of_peak": rates}
         qg = q.detach().requires_grad_(True)
@@ -295,13 +396,15 @@ def main() -> int:
               f"{row['bound_7_products_ms']:.4f} ms")
         for name, parts in row["by_kernel"].items():
             print(f"[turns]   {name} by kernel: " + ", ".join(
-                f"{label} {parts['ms'][label]:.4f} ms ({100 * parts['share_of_peak'][label]:.1f} "
-                f"% of {'the HBM rate' if label == 'D pass' else 'the bf16 peak'})"
-                for label, _ in KERNELS))
+                f"{label} {parts['ms'][label]:.4f} ms" + (
+                    f" ({100 * parts['share_of_peak'][label]:.1f} % of "
+                    f"{'the HBM rate' if label == 'D pass' else peak_name})"
+                    if label in parts["share_of_peak"] else "")
+                for label, _ in kernels))
         results.append(row)
-        del q, k, v, o, do, lse, delta, outs, qg, kg, vg, sdpa
+        del q, k, v, o, do, lse, scratch, outs, qg, kg, vg, sdpa
         torch.cuda.empty_cache()
-    record = {"card": card, "reps": args.reps, "shapes": results}
+    record = {"card": card, "dtype": args.dtype, "reps": args.reps, "shapes": results}
     line = json.dumps(record)
     print(line)
     if args.json:

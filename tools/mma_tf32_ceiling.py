@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The TF32 rate ``mma.sync`` reaches on this GPU, against the rates of the
-kernels built on it: ``sage_aggregate`` and ``flash_attention``'s f32 route,
-forward and backward.
+kernels built on it: ``sage_aggregate`` and ``flash_attention``'s f32
+forward.
 
     python3 tools/mma_tf32_ceiling.py [--against OTHER_CHECKOUT ...] [--ablate]
 
@@ -17,22 +17,14 @@ multiply-add) as a share of that ceiling. Then it times the f32
 ``flash_attention`` at the serving shape, q ``[8,32,2048,80]`` and kv
 ``[8,8,2048,80]``, causal, and prints its rate in TF32 products (three per
 multiply-add of the causal work) as a share of the ceiling and of the dense
-TF32 peak. Then it times the f32 ``flash_attention`` backward
-(``csrc/flash_attention_bwd.cu``) at the training shape, q ``[2,32,2048,80]``
-and kv ``[2,8,2048,80]``, causal, from the forward's output and row
-log-sum-exp: its gradients against the plain formula in float64 (limit: 1e-5
-of each gradient's max |value|, or the plain f32 version's own error where
-that is larger), its whole time, and its three kernels apart by
-``torch.profiler`` over 5 launches (the D pass, dK/dV, dQ), each kernel's
-rate in TF32 products (three per multiply-add of the causal products it
-computes: dK/dV four, dQ three) as a share of the ceiling.
+TF32 peak. (The f32 backward runs on TF32 wgmma, whose rate mma.sync does
+not bound: ``tools/flash_bwd_turns.py --dtype float32`` times it.)
 
 With ``--against`` (which may be given more than once) it also builds the
 kernels from another checkout's sources, by that checkout's own
 ``kernels/build.py`` (for example the parent commit unpacked under
 ``build/``), and times both through their C entry points on the same inputs,
-in turns (this, other, other, this), at each shape; the backward's kernels
-are then split for each checkout too.
+in turns (this, other, other, this), at each shape.
 With ``--ablate`` it also builds
 ``csrc/flash_attention.cu`` with each value of its ``FLASH_F32_ABLATE``
 switch under ``build/ablation/`` and times those builds in turns with this
@@ -109,12 +101,6 @@ SHAPES = ((6, 6123, 6805, 3), (6, 6123, 32, 10), (6, 914, 1433, 20), (6, 914, 32
 
 # The f32 flash_attention at the serving shape: (b, hq, hkv, s, d, timed calls).
 FLASH_SHAPE = (8, 32, 8, 2048, 80, 10)
-# The f32 flash_attention backward at the training shape: (b, hq, hkv, s, d,
-# timed calls); its three kernels (a mark in each kernel's name) and the
-# causal products each computes.
-BWD_SHAPE = (2, 32, 8, 2048, 80, 10)
-BWD_KERNELS = (("D pass", "bwd_delta_kernel", 0), ("dK/dV", "bwd_dkdv_kernel", 4),
-               ("dQ", "bwd_dq_kernel", 3))
 # Value of flash_attention.cu's FLASH_F32_ABLATE switch for each ablation.
 ABLATIONS = {"split_per_warp": 1, "no_split_pass": 2, "one_pass": 3, "one_accumulator": 4}
 
@@ -227,80 +213,6 @@ def _flash(trees, ablate, ceiling):
         print(f"[ceiling] flash_attention {shape} in turns: {_in_turns(entries, call, reps)}")
 
 
-def _flash_bwd(trees, ceiling):
-    """The f32 flash_attention backward at the training shape: each tree's
-    build held against float64, timed whole and split by kernel, and timed in
-    turns with the others."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import flash_attention as kflash
-    from repro_torch.kernels import ref
-
-    b, hq, hkv, s, d, reps = BWD_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn((b, hq, s, d), generator=gen, device="cuda")
-    k, v = (torch.randn((b, hkv, s, d), generator=gen, device="cuda") for _ in range(2))
-    do = torch.randn((b, hq, s, d), generator=gen, device="cuda")
-    o, lse = kflash.launch(q, k, v, with_lse=True)
-    shape = f"q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}] f32 causal"
-    exact = ref.flash_attention_bwd(*(t.double() for t in (q, k, v, o, do, lse)))
-    plain = ref.flash_attention_bwd(q, k, v, o, do, lse)
-    own = [(p.double() - e).abs().max().item() for p, e in zip(plain, exact)]
-    del plain
-    delta = torch.empty_like(lse)
-    outs = tuple(torch.empty_like(t) for t in (q, k, v))
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def call(fn):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), b, hq, hkv,
-                 s, s, d, 0, d ** -0.5, stream)
-        if err:
-            raise RuntimeError(f"flash_attention_bwd_f32 launch failed with error {err}")
-
-    pairs = b * hq * s * (s + 1) / 2
-    tf32 = 3 * 2.0 * d * pairs              # three TF32 passes of one causal product
-    entries = {name: lib.flash_attention_bwd_f32 for name, lib in trees.items()}
-    for name, fn in entries.items():
-        call(fn)
-        torch.cuda.synchronize()
-        line, ok = [], True
-        for gname, g, e, o64 in zip(("dq", "dk", "dv"), outs, exact, own):
-            err = (g.double() - e).abs().max().item()
-            limit = max(1e-5 * e.abs().max().item(), o64)
-            ok &= err <= limit
-            line.append(f"{gname} {err:.3g} (limit {limit:.3g})")
-        if name == "this" and not ok:
-            raise AssertionError(f"flash_attention backward f32 disagrees: {line}")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                call(fn)
-            torch.cuda.synchronize()
-        split = {label: sum(e.self_device_time_total for e in prof.key_averages()
-                            if e.device_type == DeviceType.CUDA and mark in e.key) / 5e3
-                 for label, mark, _ in BWD_KERNELS}
-        ms = _time_ms(lambda: call(fn), reps)  # noqa: B023
-        parts = []
-        for label, _, n in BWD_KERNELS:
-            share = (f", {100 * n * tf32 / (split[label] * 1e-3) / 1e12 / ceiling:.1f} % of "
-                     f"the ceiling" if n else "")
-            parts.append(f"{label} {split[label]:.4f} ms{share}")
-        print(f"[ceiling] flash_attention backward {shape} {name}: {ms:.4f} ms "
-              f"({5 * tf32 / (ms * 1e-3) / 1e12:.1f} TFLOP/s of TF32 products over the five "
-              f"products the gradient needs, {7 * tf32 / (ms * 1e-3) / 1e12:.1f} over the seven "
-              f"computed); {'; '.join(parts)}; max |grad - float64| {'; '.join(line)}")
-    print(f"[ceiling] flash_attention backward {shape}: three passes of five products at the "
-          f"ceiling {5 * tf32 / ceiling / 1e9:.4f} ms, of seven {7 * tf32 / ceiling / 1e9:.4f} "
-          f"ms; at the dense TF32 peak {5 * tf32 / TF32_FLOPS * 1e3:.4f} and "
-          f"{7 * tf32 / TF32_FLOPS * 1e3:.4f} ms")
-    if len(entries) > 1:
-        print(f"[ceiling] flash_attention backward {shape} in turns: "
-              f"{_in_turns(entries, call, reps)}")
-    del q, k, v, do, o, lse, exact, outs, delta
-    torch.cuda.empty_cache()
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, action="append", default=[],
@@ -333,7 +245,6 @@ def main() -> int:
     for other in args.against:
         trees[f"other ({other.resolve()})"] = _library(other.resolve())
     _flash(trees, args.ablate, ceiling)
-    _flash_bwd(trees, ceiling)
     entries = ({name: lib.sage_aggregate_f32 for name, lib in trees.items()}
                if len(trees) > 1 else None)
     gen = torch.Generator(device="cuda").manual_seed(0)
