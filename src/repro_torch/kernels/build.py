@@ -26,7 +26,8 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel entry point: (argtypes, restype).
 SIGNATURES = {
-    "sage_aggregate_f32": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "sage_aggregate_f32": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "sage_aggregate_scratch_bytes": ([_I, _I, _I], ctypes.c_longlong),
     "sim_topk_plan": ([_I, _I, _I, _I, _P], _I),
     "sim_topk_f32": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "sim_topk_plan_rows": ([_I] * 5 + [_P], _I),

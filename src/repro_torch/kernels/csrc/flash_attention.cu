@@ -19,7 +19,7 @@
 // see: from the window start of its first row to the diagonal of its last.
 // Skipping fully masked tiles changes no result.
 //
-// Accuracy: the 3-pass TF32 split of sage_aggregate.cu (helpers in tf32.cuh).
+// Accuracy: the 3-pass TF32 split of tf32.cuh (its note says why).
 // One TF32 product keeps 11 significant bits of each operand: ~1e-3 of the
 // output at the serving shape, 100 times the 1e-5 the f32 route is held to.
 // Each operand is written as x = hi + lo, both TF32, which holds x to

@@ -1,332 +1,349 @@
 // Batched GraphSAGE neighbor mean: out[b] = (A[b] @ H[b]) / max(rowsum(A[b]), 1),
-// on the tensor cores, accurate to float32.
+// in float32, as a gather over A's nonzeros.
 //
 // Replaces the TPU kernel `sage_aggregate` / `_sage_kernel` in
 // src/repro/kernels/sage_aggregate.py (wrapper and custom VJP in
-// src/repro/kernels/ops.py). The Pallas kernel walks a sequential
-// (row, col, k) grid, carries the product and the row degree in VMEM scratch
-// across k steps and divides on the last one. Here the k loop runs inside the
-// block, and one launch covers every client: blockIdx.z indexes the batch.
+// src/repro/kernels/ops.py). The Pallas kernel is a dense product over a
+// sequential (row, col, k) grid that carries the product and the row degree
+// in VMEM scratch across k steps and divides on the last one. Here the same
+// function is computed from A's nonzeros only, for every client in one call.
 //
-// Accuracy: the 3-pass TF32 split ("3xTF32"). TF32 keeps 10 mantissa bits,
-// so one TF32 product is off by up to ~2^-11 of each operand: ~1e-3 at the
-// main path's shapes, 100 times the 1e-5 the tests hold the kernel to. Each
-// operand is written instead as x = hi + lo, with hi = tf32(x) and
-// lo = tf32(x - hi), both rounded to nearest with ties away from zero (the
-// rounding of cvt.rna.tf32.f32, issued as an add and a mask). x - hi is exact
-// in f32 and |lo| <= 2^-11 |x|, so hi + lo holds x to ~2^-22. The kernel sums
-// a_lo h_hi + a_hi h_lo + a_hi h_hi into f32 accumulators, the two small
-// products first. Each hi * hi product (11 x 11 significant bits) is exact in
-// f32; the one term left out, a_lo h_lo, is ~2^-22 of the product. So the
-// result is float32 to within summation order. Both operands need the split:
-// A on the main path is a_norm, rows of 1/deg, which TF32 does not hold
-// exactly. The row degree is summed in plain f32 from the unsplit A values,
-// and the division happens once in the epilogue.
+// What bounds it on the H100: bytes. On the FGL main paths A is a_norm, a
+// normalised adjacency that is almost all zeros: SpreadFGL's Coauthor-CS
+// batch (6 clients, n = 6123) holds 94,046 nonzeros over its six 6123^2
+// adjacencies, at most 18 a row. The work those inputs need is to read A
+// once (0.90 GB at layer 1), read H once (1.00 GB at d = 6805) and write the
+// output once (1.00 GB): 2.90 GB, 0.87 ms at 3.35 TB/s. The products, 2
+// operations per nonzero and column (1.3 GFLOP), take nothing. Layer 2
+// (d = 32) is reading A: 0.27 ms.
 //
-// Non-finite inputs: the add and mask would carry a NaN's mantissa into its
-// sign (the canonical NaN 0x7fffffff becomes -0) and a ±Inf would leave
-// NaN in lo. So a non-finite x goes whole into lo, with hi = 0: then a_lo h_hi
-// or a_hi h_lo carries the product's ±Inf or NaN, as a * h would (a_hi is 0
-// only where a is), and the other two products are 0. That fails only where
-// both operands of one product are non-finite: a_lo h_lo, the one product
-// that holds both, is left out, and the two kept pair an Inf with a 0, giving
-// NaN where a * h is ±Inf (a -Inf in A against a ±Inf in H). No placement of
-// a non-finite value in the split avoids some Inf x 0 among three products.
-// So the rule is: wherever an accumulator is NaN, the epilogue recomputes that
-// output as a plain f32 dot of A's row and H's column read from global memory,
-// which gives the IEEE result (NaN, ±Inf) the plain version gives. Finite
-// inputs never make a NaN, so on the main path this costs one compare per
-// output. The degree clamp keeps a NaN, as torch.clamp_min does. The
-// finiteness test costs ~16 % at layer 1 (8 instructions per split value
-// against 5: the kernel is short of issue slots).
+// What the design does about it: three launches, each streaming what it must
+// read once, with nothing of a dense n x n product left.
+// - sage_index_kernel: one warp a row of A, read once with aligned float4
+//   loads after a peeled head (n = 6123 and 914 are not multiples of 4, so
+//   rows start off 16-byte boundaries; TMA and cp.async.bulk cannot take
+//   them), four loads a lane in flight. It writes the row's degree (summed
+//   in f32 over the row: lane partial sums, then a butterfly), its count of
+//   entries with a != 0 (NaN and ±Inf count), and the first CAP of them as
+//   (column, value) pairs in ascending column order (ballots and popcounts
+//   place each lane's entries). It also zeroes the column flags.
+// - sage_gather_kernel<V>: blocks walk (client, column stripe, 64 rows) with
+//   the rows fastest, so every row of one client's stripe runs together and
+//   the stripe of H they gather (n x 32V floats, 6.3 MB at V = 8) stays in
+//   the 50 MB L2: H comes from HBM about once. A warp owns one output row of
+//   the stripe, each lane V columns 32 apart (coalesced 4-byte loads: H's
+//   rows are not 16-byte aligned either). It adds a * H[j, stripe] for the
+//   row's entries in ascending j with fmaf, four rows of H in flight at a
+//   time, divides once by max(deg, 1) and writes the output once. A row with
+//   more than CAP entries walks its row of A instead, in ascending j: a dense
+//   row is right, only slower. The warp also reads its own row of H's stripe
+//   and flags every (client, column) that holds a NaN or ±Inf (a plain store
+//   of 1, the same in any order): that is H read once, from L2 where the
+//   gathers already brought it. So that a row waits on H alone, the warp
+//   loads its rows' counts and degrees at once, one a lane, loads each row's
+//   slot entries while the row before it is gathered, and tests its own H
+//   only after the row's products.
+// - sage_fixup_kernel: in a dense product a NaN or ±Inf in H[j, c] meets the
+//   zeros of A and makes every output of column c NaN or ±Inf, which a
+//   gather never sees. Each block reads the flags of 32 columns of a client
+//   and exits if none is set (every call on finite inputs); otherwise each
+//   flagged column is recomputed as the plain f32 dot of A's row and H's
+//   column, read from global memory, which gives the IEEE result of the
+//   plain version (such an output is NaN or ±Inf whatever the order of the
+//   sum). A non-finite value in A needs nothing more: it is an entry of the
+//   index, multiplied as the dense product multiplies it.
+// No atomics and no float reductions across threads but the fixed-order
+// butterflies: two calls give the same bits. Nothing is synchronised with
+// the host. Scratch (the caller's, sage_aggregate_scratch_bytes): 8 * CAP + 8
+// bytes a row and 4 a (client, column), 9.9 MB at layer 1 of Coauthor-CS.
 //
-// What bounds it on the H100: operations. At the main path's layer-1 shape
-// (6 clients, n = 6123, d = 6805) the product is 2*6*6123^2*6805 = 3.06 TFLOP
-// over ~2.9 GB of inputs and output; three TF32 passes at the 495 TFLOP/s
-// dense TF32 peak take at least 18.6 ms (f32 on the CUDA cores, 67 TFLOP/s:
-// 45.7 ms). mma.sync alone reaches 308-322 TFLOP/s of TF32 on the H100
-// (tools/mma_tf32_ceiling.py), so three passes through it take at least ~29 ms.
-// Layer 2 (d = 32) is bound by reading A once: 0.9 GB, 0.27 ms.
-//
-// What the design does about it:
-// - mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32. A warp owns 64 x 64
-//   outputs (4 x 8 mma tiles) and splits each A fragment once per k-step for
-//   its 8 n-tiles and each B fragment once for its 4 m-tiles, then issues the
-//   32 products of one pass before the next pass adds to the same
-//   accumulators. Blocks of 4 warps (128 x 128 outputs), two per SM, for
-//   d > 64; for d <= 64 (layer 2, d = 32), 64 x 32 blocks of 8 warps, where a
-//   wider tile would compute columns nobody asked for.
-// - A and H tiles arrive by cp.async into a ring of 4 stages in dynamic
-//   shared memory (BK = 16 deep for d > 64, 32 for the narrow instance),
-//   with one __syncthreads per tile. None of the main path's widths
-//   (n = 6123, 914; d = 6805, 1433) is a multiple of 4 floats, so rows and
-//   the per-client bases start off 16-byte boundaries, where neither a
-//   16-byte cp.async nor TMA can read them. The copies are 4-byte
-//   cp.async.ca, each warp on contiguous floats of a row, so the inputs are
-//   read where they lie and nothing is copied to aligned buffers; ragged
-//   edges are zero-filled by the copy. Through L1, the part of a 128-byte
-//   line that one tile leaves is still there for the next, so the ring is
-//   kept shallow: its shared memory comes out of L1.
-// - In each k-step of 8, lane t's mma index t is column 2t of the step and
-//   index t + 4 the column after it, for A and H alike (any order of k is the
-//   same sum). A lane then reads its two A values of a row as one 8-byte word.
-//   Shared rows are padded (A: BK + 8 floats, H: BN + 4) so that every
-//   fragment read of a warp hits distinct banks.
-// - The row degree comes from the A values each warp already reads: per lane
-//   two partial sums per m-tile, reduced across the quad by shuffles.
-// - Grouped tile order: consecutive blocks walk GROUP row tiles before the
-//   next column tile, so the ~264 blocks resident at once cover ~16 row
-//   stripes and ~16 column stripes of a client: ~50 MB of A and ~52 MB of H
-//   per wave of 264 tiles, ~59 waves at layer 1, ~6 GB from HBM in all
-//   (~1.8 ms), where a column-fastest order spans all 54 column stripes
-//   (167 MB of H) per wave, 10-19 GB.
-//
-// Why mma.sync and cp.async, not wgmma and TMA: TF32 wgmma takes B only
-// K-major from shared memory, and H is d-contiguous, so every H tile would
-// need a transposing pass; TMA needs 16-byte multiples for global strides,
-// and these rows are 4-byte aligned. mma.sync gathers B from shared memory in
-// any layout. wgmma (or a bf16 split, which wgmma takes N-major) is later work.
+// Why no tensor cores, TMA or wgmma: a row has fewer than 19 products to
+// add at the main shapes, which is nothing to a tensor core, and the rows of
+// A and H start 4-byte aligned, which TMA cannot address. The time is in
+// moving bytes, and plain loads with enough of them in flight do that.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
-#include "tf32.cuh"
-
 namespace {
 
-constexpr int GROUP = 16;      // row tiles walked before the next column tile
-constexpr int STAGES = 4;      // tiles in the shared-memory ring
-constexpr int MIN_BLOCKS = 2;  // blocks per SM the register allocation must allow
+constexpr int CAP = 32;           // index slots a row: entries past it walk A's row
+constexpr int WARPS = 8;          // warps a block, every kernel
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS_PER_WARP = 8;  // gather: rows a warp takes in its block's stripe
+constexpr int GROUP = 4;          // gather: rows of H loaded before their products
+constexpr int UNROLL = 4;         // index: float4 loads a lane has in flight
+constexpr unsigned FULL = 0xffffffffu;
 
-// A block tile of BM x BN outputs, split among warps of WM x WN, with A and H
-// tiles BK deep.
-template <int BM_, int BN_, int BK_, int WM_, int WN_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_;
-  static constexpr int LDA = BK + 8;  // A tile row pitch (8-byte fragment reads: 32 banks)
-  static constexpr int THREADS = 32 * (BM / WM) * (BN / WN);
-  static constexpr int MT = WM / 16;  // m16 tiles per warp
-  static constexpr int NT = WN / 8;   // n8 tiles per warp
-  static constexpr int WARPS_N = BN / WN;
-  static constexpr int LDH = BN + 4;  // H tile row pitch (B fragment reads: 32 banks)
-  static constexpr int A_FLOATS = BM * LDA;
-  static constexpr int H_FLOATS = BK * LDH;
-  static constexpr size_t SMEM = sizeof(float) * (size_t)STAGES * (A_FLOATS + H_FLOATS);
-  static_assert(BM * BK % THREADS == 0 && BK * BN % THREADS == 0 && THREADS % BN == 0,
-                "whole copy rounds");
+struct Scratch {
+  int2* slots;   // [rows, CAP] (column, value bits)
+  int* count;    // [rows]
+  float* deg;    // [rows]
+  int* flags;    // [batch, d] 1 where a column of H holds a NaN or ±Inf
 };
 
-using Wide = Tile<128, 128, 16, 64, 64>;
-using Narrow = Tile<64, 32, 32, 16, 16>;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+inline size_t scratch_bytes(long long rows, long long flag_count) {
+  return (size_t)rows * (CAP * sizeof(int2) + sizeof(int) + sizeof(float)) +
+         (size_t)flag_count * sizeof(int);
 }
 
-// 4 bytes global -> shared, or 4 zero bytes where !valid (nothing is read).
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool valid) {
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// sum_k a[k] h[k * d] in f32, in order: the IEEE result for an output whose
-// split sum is NaN (see the note on non-finite inputs). Off the main path.
-__device__ __noinline__ float plain_dot(const float* a, const float* h, int n, int d) {
-  float s = 0.0f;
-  for (int k = 0; k < n; ++k) s = fmaf(a[k], h[(size_t)k * d], s);
+inline Scratch carve(void* base, long long rows) {
+  Scratch s;
+  s.slots = static_cast<int2*>(base);
+  s.count = reinterpret_cast<int*>(s.slots + (size_t)rows * CAP);
+  s.deg = reinterpret_cast<float*>(s.count + rows);
+  s.flags = reinterpret_cast<int*>(s.deg + rows);
   return s;
 }
 
-template <class T>
-__global__ void __launch_bounds__(T::THREADS, MIN_BLOCKS)
-sage_aggregate_kernel(const float* __restrict__ adj, const float* __restrict__ h,
-                      float* __restrict__ out, int n, int d) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                         // [STAGES][BM][LDA]
-  float* Hs = smem + STAGES * T::A_FLOATS;  // [STAGES][BK][LDH]
-
-  const size_t b = blockIdx.z;
-  const float* A = adj + b * (size_t)n * n;
-  const float* H = h + b * (size_t)n * d;
-  float* O = out + b * (size_t)n * d;
-
-  // Grouped tile order: GROUP row tiles per column tile, then the next column.
-  const int tiles_m = (n + T::BM - 1) / T::BM;
-  const int tiles_n = (d + T::BN - 1) / T::BN;
-  const int per_group = GROUP * tiles_n;
-  const int first_m = (int)(blockIdx.x / per_group) * GROUP;
-  const int group_rows = min(tiles_m - first_m, GROUP);
-  const int in_group = (int)(blockIdx.x % per_group);
-  const int row0 = (first_m + in_group % group_rows) * T::BM;
-  const int col0 = (in_group / group_rows) * T::BN;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;  // fragment row (A, C) / column (B)
-  const int t = lane & 3;   // fragment column (A) / row (B)
-  const int wm = (warp / T::WARPS_N) * T::WM;
-  const int wn = (warp % T::WARPS_N) * T::WN;
-
-  // Copy roles: A column (tid % BK) of rows tid / BK + i * (THREADS / BK);
-  //             H column (tid % BN) of k rows tid / BN + i * (THREADS / BN).
-  // Each walks one pointer by a fixed stride, so no address is kept per copy.
-  constexpr int THREADS = T::THREADS;
-  constexpr int A_STEP = THREADS / T::BK, H_STEP = THREADS / T::BN;
-  const int a_c = tid % T::BK, a_r = tid / T::BK;
-  const int h_c = tid % T::BN, h_r = tid / T::BN;
-  const int a_rows_left = n - row0 - a_r;  // copy i is in range while i * A_STEP < this
-  const bool h_col_ok = col0 + h_c < d;
-  const float* a_src = A + (size_t)(row0 + a_r) * n + a_c;
-  const float* h_src = H + (size_t)h_r * d + col0 + h_c;
-
-  auto load_stage = [&](int stage, int k0) {
-    const uint32_t as = smem_u32(As + stage * T::A_FLOATS + a_r * T::LDA + a_c);
-    const uint32_t hs = smem_u32(Hs + stage * T::H_FLOATS + h_r * T::LDH + h_c);
-    const bool a_col_ok = k0 + a_c < n;
-    const float* pa = a_src + k0;
+// The entries among a lane's four values x at columns col..col + 3 (the
+// warp's lanes in column order), appended to the row's slots in ascending
+// column order; cnt is the row's running count, the same in every lane.
+__device__ __forceinline__ void take(float4 x, int col, int lane, int2* slot, int& cnt) {
+  const bool nz[4] = {x.x != 0.0f, x.y != 0.0f, x.z != 0.0f, x.w != 0.0f};
+  if (!__any_sync(FULL, nz[0] | nz[1] | nz[2] | nz[3])) return;
+  const float v[4] = {x.x, x.y, x.z, x.w};
+  const unsigned below = (1u << lane) - 1u;
+  int pos = cnt, total = 0;
 #pragma unroll
-    for (int i = 0; i < T::BM * T::BK / THREADS; ++i, pa += (size_t)A_STEP * n) {
-      const bool ok = a_col_ok && i * A_STEP < a_rows_left;
-      cp_async4(as + 4 * i * A_STEP * T::LDA, ok ? pa : A, ok);
-    }
-    const int h_rows_left = n - k0 - h_r;
-    const float* ph = h_src + (size_t)k0 * d;
+  for (int k = 0; k < 4; ++k) {
+    const unsigned b = __ballot_sync(FULL, nz[k]);
+    pos += __popc(b & below);
+    total += __popc(b);
+  }
 #pragma unroll
-    for (int i = 0; i < T::BK * T::BN / THREADS; ++i, ph += (size_t)H_STEP * d) {
-      const bool ok = h_col_ok && i * H_STEP < h_rows_left;
-      cp_async4(hs + 4 * i * H_STEP * T::LDH, ok ? ph : H, ok);
+  for (int k = 0; k < 4; ++k) {
+    if (nz[k]) {
+      if (pos < CAP) slot[pos] = make_int2(col + k, __float_as_int(v[k]));
+      ++pos;
     }
+  }
+  cnt += total;
+}
+
+__global__ void __launch_bounds__(THREADS)
+sage_index_kernel(const float* __restrict__ adj, Scratch s, long long rows, int n,
+                  long long flag_count) {
+  for (long long k = (long long)blockIdx.x * THREADS + threadIdx.x; k < flag_count;
+       k += (long long)gridDim.x * THREADS)
+    s.flags[k] = 0;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float* a = adj + (size_t)row * n;
+  int2* slot = s.slots + (size_t)row * CAP;
+  int head = (int)(((16u - (uint32_t)(reinterpret_cast<uintptr_t>(a) & 15u)) & 15u) >> 2);
+  head = min(head, n);
+  const int nvec = (n - head) >> 2;
+  const int tail = head + 4 * nvec;
+  int cnt = 0;
+  float dg = 0.0f;
+
+  float x = lane < head ? a[lane] : 0.0f;   // the head, one value a lane
+  dg += x;
+  take(make_float4(x, 0.0f, 0.0f, 0.0f), lane, lane, slot, cnt);
+  const float4* body = reinterpret_cast<const float4*>(a + head);
+  for (int base = 0; base < nvec; base += 32 * UNROLL) {
+    float4 v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = base + u * 32 + lane;
+      v[u] = i < nvec ? __ldcs(body + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      dg += v[u].x + v[u].y + v[u].z + v[u].w;
+      take(v[u], head + 4 * (base + u * 32 + lane), lane, slot, cnt);
+    }
+  }
+  x = tail + lane < n ? a[tail + lane] : 0.0f;   // the tail, up to 3 values
+  dg += x;
+  take(make_float4(x, 0.0f, 0.0f, 0.0f), tail + lane, lane, slot, cnt);
+
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) dg += __shfl_xor_sync(FULL, dg, off);
+  if (lane == 0) {
+    s.count[row] = cnt;
+    s.deg[row] = dg;
+  }
+}
+
+// Lane's V columns c0 + 32 v of one client's stripe: out rows from the index.
+template <int V>
+__global__ void __launch_bounds__(THREADS, 3)
+sage_gather_kernel(const float* __restrict__ adj, const float* __restrict__ h,
+                   float* __restrict__ out, Scratch s, int n, int d, int stripes,
+                   int row_blocks) {
+  constexpr int W = 32 * V;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rb = (int)(blockIdx.x % row_blocks);
+  const int bs = (int)(blockIdx.x / row_blocks);
+  const int stripe = bs % stripes, b = bs / stripes;
+  const int c0 = stripe * W + lane;
+  const float* H = h + (size_t)b * n * d + c0;
+  bool ok[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) ok[v] = c0 + 32 * v < d;
+
+  // The warp's rows are i0 + r * WARPS: lane r < ROWS_PER_WARP holds row r's
+  // count and degree, and each row's first slot entries are loaded while
+  // the row before it is gathered, so a row waits on H alone.
+  const int i0 = rb * ROWS_PER_WARP * WARPS + warp;
+  const size_t row0 = (size_t)b * n + i0;
+  int my_cnt = 0;
+  float my_deg = 0.0f;
+  if (lane < ROWS_PER_WARP && i0 + lane * WARPS < n) {
+    my_cnt = s.count[row0 + (size_t)lane * WARPS];
+    my_deg = s.deg[row0 + (size_t)lane * WARPS];
+  }
+  auto entry = [&](int r, int cnt) {
+    return lane < cnt && cnt <= CAP ? s.slots[(row0 + (size_t)r * WARPS) * CAP + lane]
+                                    : make_int2(0, 0);
   };
+  int cnt = __shfl_sync(FULL, my_cnt, 0);
+  int2 e = entry(0, cnt);
+  unsigned bad = 0;   // bit v: a NaN or ±Inf in column c0 + 32 v of a row's own H
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    const int i = i0 + r * WARPS;
+    if (i >= n) break;
+    const size_t row = row0 + (size_t)r * WARPS;
+    float self[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) self[v] = ok[v] ? __ldg(H + (size_t)i * d + 32 * v) : 0.0f;
+    const int next_cnt = __shfl_sync(FULL, my_cnt, (r + 1) & 31);   // 0 past the last row
+    const int2 next = entry(r + 1, next_cnt);
 
-  float acc[T::MT][T::NT][4];
+    float acc[V];
 #pragma unroll
-  for (int i = 0; i < T::MT; ++i)
+    for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+    if (cnt <= CAP) {
+      int k = 0;
+      for (; k + GROUP <= cnt; k += GROUP) {
+        float a[GROUP], x[GROUP][V];
 #pragma unroll
-    for (int j = 0; j < T::NT; ++j)
+        for (int u = 0; u < GROUP; ++u) {
+          const int j = __shfl_sync(FULL, e.x, k + u);
+          a[u] = __int_as_float(__shfl_sync(FULL, e.y, k + u));
+          const float* hj = H + (size_t)j * d;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
-  float deg[T::MT][2];  // partial row sums of A: rows g, g + 8 of each m-tile
-#pragma unroll
-  for (int i = 0; i < T::MT; ++i) deg[i][0] = deg[i][1] = 0.0f;
-
-  const int k_tiles = (n + T::BK - 1) / T::BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < k_tiles) load_stage(s, s * T::BK);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed, for this thread
-    __syncthreads();                 // ... for every thread; stage kt - 1 is free
-    const int next = kt + STAGES - 1;
-    if (next < k_tiles) load_stage(next % STAGES, next * T::BK);
-    cp_async_commit();
-
-    const float* as = As + (kt % STAGES) * T::A_FLOATS + (wm + g) * T::LDA + 2 * t;
-    const float* hs = Hs + (kt % STAGES) * T::H_FLOATS + 2 * t * T::LDH + wn + g;
-#pragma unroll
-    for (int kk = 0; kk < T::BK; kk += 8) {
-      // k-step kk: mma index t is tile column (A) / row (H) kk + 2t, index
-      // t + 4 the one after it.
-      uint32_t a_hi[T::MT][4], a_lo[T::MT][4];
-#pragma unroll
-      for (int i = 0; i < T::MT; ++i) {
-        const float2 r0 = *reinterpret_cast<const float2*>(as + i * 16 * T::LDA + kk);
-        const float2 r1 = *reinterpret_cast<const float2*>(as + (i * 16 + 8) * T::LDA + kk);
-        // (row, mma index) a0: (g, t), a1: (g + 8, t), a2: (g, t + 4), a3: (g + 8, t + 4).
-        const float x[4] = {r0.x, r1.x, r0.y, r1.y};
-        deg[i][0] += x[0] + x[2];
-        deg[i][1] += x[1] + x[3];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split(x[q], a_hi[i][q], a_lo[i][q]);
-      }
-      // (mma index, column) b0: (t, g), b1: (t + 4, g).
-      uint32_t b_hi[T::NT][2], b_lo[T::NT][2];
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j) {
-        const float* p = hs + kk * T::LDH + j * 8;
-        split(p[0], b_hi[j][0], b_lo[j][0]);
-        split(p[T::LDH], b_hi[j][1], b_lo[j][1]);
-      }
-      // The two small products first; MT * NT independent products per pass.
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-        for (int i = 0; i < T::MT; ++i) mma_tf32(acc[i][j], a_lo[i], b_hi[j][0], b_hi[j][1]);
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-        for (int i = 0; i < T::MT; ++i) mma_tf32(acc[i][j], a_hi[i], b_lo[j][0], b_lo[j][1]);
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-        for (int i = 0; i < T::MT; ++i) mma_tf32(acc[i][j], a_hi[i], b_hi[j][0], b_hi[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue: the quad's four partial degrees, then one division per value.
-  // c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8.
-#pragma unroll
-  for (int i = 0; i < T::MT; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float dg = deg[i][half];
-      dg += __shfl_xor_sync(0xffffffffu, dg, 1);
-      dg += __shfl_xor_sync(0xffffffffu, dg, 2);
-      const float den = dg < 1.0f ? 1.0f : dg;  // max(dg, 1), NaN kept
-      const int r = row0 + wm + i * 16 + half * 8 + g;
-      if (r >= n) continue;
-      float* o = O + (size_t)r * d;
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j) {
-        const int c = col0 + wn + j * 8 + 2 * t;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (c + e >= d) continue;
-          float v = acc[i][j][2 * half + e];
-          if (isnan(v)) v = plain_dot(A + (size_t)r * n, H + c + e, n, d);
-          o[c + e] = v / den;
+          for (int v = 0; v < V; ++v) x[u][v] = ok[v] ? __ldg(hj + 32 * v) : 0.0f;
         }
+#pragma unroll
+        for (int u = 0; u < GROUP; ++u)
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = fmaf(a[u], x[u][v], acc[v]);
+      }
+      for (; k < cnt; ++k) {
+        const int j = __shfl_sync(FULL, e.x, k);
+        const float a = __int_as_float(__shfl_sync(FULL, e.y, k));
+        const float* hj = H + (size_t)j * d;
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          if (ok[v]) acc[v] = fmaf(a, __ldg(hj + 32 * v), acc[v]);
+      }
+    } else {
+      // Past CAP entries: A's row, 32 columns at a time, entries in ascending j.
+      const float* ar = adj + row * n;
+      for (int j0 = 0; j0 < n; j0 += 32) {
+        const float x = j0 + lane < n ? ar[j0 + lane] : 0.0f;
+        unsigned m = __ballot_sync(FULL, x != 0.0f);
+        while (m) {
+          const int t = __ffs(m) - 1;
+          m &= m - 1;
+          const float a = __shfl_sync(FULL, x, t);
+          const float* hj = H + (size_t)(j0 + t) * d;
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            if (ok[v]) acc[v] = fmaf(a, __ldg(hj + 32 * v), acc[v]);
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) bad |= (unsigned)!isfinite(self[v]) << v;
+    const float dg = __shfl_sync(FULL, my_deg, r);
+    const float den = dg < 1.0f ? 1.0f : dg;  // max(dg, 1), NaN kept
+    float* o = out + row * d + c0;
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (ok[v]) o[32 * v] = acc[v] / den;
+    cnt = next_cnt;
+    e = next;
+  }
+  // Flag the columns (a plain store of 1: the same in any order).
+  int* flags = s.flags + (size_t)b * d + c0;
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    if (bad >> v & 1u) flags[32 * v] = 1;
+}
+
+// Blocks of 32 columns of one client: the flagged ones recomputed densely.
+__global__ void __launch_bounds__(THREADS)
+sage_fixup_kernel(const float* __restrict__ adj, const float* __restrict__ h,
+                  float* __restrict__ out, Scratch s, int n, int d, int col_blocks) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = (int)(blockIdx.x / col_blocks);
+  const int c0 = (int)(blockIdx.x % col_blocks) * 32;
+  unsigned m = __ballot_sync(FULL, c0 + lane < d && s.flags[(size_t)b * d + c0 + lane] != 0);
+  if (m == 0) return;
+  const float* A = adj + (size_t)b * n * n;
+  const float* H = h + (size_t)b * n * d;
+  while (m) {
+    const int c = c0 + __ffs(m) - 1;
+    m &= m - 1;
+    for (int i = warp; i < n; i += WARPS) {
+      const float* ar = A + (size_t)i * n;
+      float acc = 0.0f;
+      for (int j = lane; j < n; j += 32) acc = fmaf(ar[j], H[(size_t)j * d + c], acc);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
+      if (lane == 0) {
+        const float dg = s.deg[(size_t)b * n + i];
+        out[((size_t)b * n + i) * d + c] = acc / (dg < 1.0f ? 1.0f : dg);
       }
     }
   }
 }
 
-template <class T>
-int launch(const float* adj, const float* h, float* out, int batch, int n, int d,
-           cudaStream_t stream) {
-  const cudaError_t set = cudaFuncSetAttribute(
-      sage_aggregate_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::SMEM);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const unsigned tiles = (unsigned)((n + T::BM - 1) / T::BM) * ((d + T::BN - 1) / T::BN);
-  const dim3 grid(tiles, 1, batch);
-  sage_aggregate_kernel<T><<<grid, T::THREADS, T::SMEM, stream>>>(adj, h, out, n, d);
-  return static_cast<int>(cudaGetLastError());
+template <int V>
+cudaError_t gather(const float* adj, const float* h, float* out, Scratch s, int batch, int n,
+                   int d, cudaStream_t stream) {
+  const int stripes = (d + 32 * V - 1) / (32 * V);
+  const int row_blocks = (n + ROWS_PER_WARP * WARPS - 1) / (ROWS_PER_WARP * WARPS);
+  const unsigned blocks = (unsigned)batch * stripes * row_blocks;
+  sage_gather_kernel<V><<<blocks, THREADS, 0, stream>>>(adj, h, out, s, n, d, stripes,
+                                                        row_blocks);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// Bytes of the scratch that sage_aggregate_f32 takes for these sizes.
+extern "C" long long sage_aggregate_scratch_bytes(int batch, int n, int d) {
+  return (long long)scratch_bytes((long long)batch * n, (long long)batch * d);
+}
+
 // adj [batch, n, n], h [batch, n, d], out [batch, n, d]: contiguous float32 on
-// the device. Launches on `stream` and returns the cudaError_t of the launch.
-extern "C" int sage_aggregate_f32(const float* adj, const float* h, float* out,
+// the device; scratch: sage_aggregate_scratch_bytes(batch, n, d) bytes on the
+// device, 8-byte aligned. Launches the index, gather and fix-up kernels on
+// `stream` and returns the first cudaError_t among them.
+extern "C" int sage_aggregate_f32(const float* adj, const float* h, float* out, void* scratch,
                                   int batch, int n, int d, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 64) return launch<Narrow>(adj, h, out, batch, n, d, s);
-  return launch<Wide>(adj, h, out, batch, n, d, s);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long rows = (long long)batch * n;
+  const Scratch s = carve(scratch, rows);
+  const unsigned index_blocks = (unsigned)((rows + WARPS - 1) / WARPS);
+  sage_index_kernel<<<index_blocks, THREADS, 0, st>>>(adj, s, rows, n, (long long)batch * d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (d <= 32) err = gather<1>(adj, h, out, s, batch, n, d, st);
+  else if (d <= 64) err = gather<2>(adj, h, out, s, batch, n, d, st);
+  else if (d <= 128) err = gather<4>(adj, h, out, s, batch, n, d, st);
+  else err = gather<8>(adj, h, out, s, batch, n, d, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int col_blocks = (d + 31) / 32;
+  sage_fixup_kernel<<<(unsigned)batch * col_blocks, THREADS, 0, st>>>(adj, h, out, s, n, d,
+                                                                    col_blocks);
+  return static_cast<int>(cudaGetLastError());
 }

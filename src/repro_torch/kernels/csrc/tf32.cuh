@@ -1,9 +1,22 @@
 // TF32 helpers shared by the kernels that run float32 products on the tensor
-// cores with the 3-pass split (sage_aggregate.cu, flash_attention.cu,
-// flash_attention_bwd.cu): a
-// float32 x is written as x = hi + lo, both TF32, and a product as
-// a_lo b_hi + a_hi b_lo + a_hi b_hi, accurate to ~2^-22 (the note at the top
-// of sage_aggregate.cu says why, and how non-finite values are carried).
+// cores with the 3-pass split (flash_attention.cu, flash_attention_bwd.cu).
+//
+// TF32 keeps 10 mantissa bits, so one TF32 product is off by up to ~2^-11 of
+// each operand: ~1e-3 at the main paths' shapes, 100 times the 1e-5 the
+// tests hold the f32 kernels to. Each operand is written instead as
+// x = hi + lo, with hi = tf32(x) and lo = tf32(x - hi), both rounded to
+// nearest with ties away from zero (the rounding of cvt.rna.tf32.f32, done
+// as an add and a mask). x - hi is exact in f32 and |lo| <= 2^-11 |x|, so
+// hi + lo holds x to ~2^-22. A product is summed as a_lo b_hi + a_hi b_lo +
+// a_hi b_hi into f32 accumulators, the two small products first. Each
+// hi * hi product (11 x 11 significant bits) is exact in f32; the one term
+// left out, a_lo b_lo, is ~2^-22 of the product.
+//
+// Non-finite inputs: the add and mask would carry a NaN's mantissa into its
+// sign (the canonical NaN 0x7fffffff becomes -0) and a ±Inf would leave NaN
+// in lo. So a non-finite x goes whole into lo, with hi = 0: then a_lo b_hi or
+// a_hi b_lo carries the product's ±Inf or NaN, as a * b would, and the other
+// two products are 0.
 #pragma once
 
 #include <cuda_runtime.h>

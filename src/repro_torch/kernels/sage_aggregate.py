@@ -2,23 +2,22 @@
 
 Replaces the TPU kernel ``sage_aggregate`` / ``_sage_kernel`` of
 ``src/repro/kernels/sage_aggregate.py`` and the custom VJP around it in
-``src/repro/kernels/ops.py``. The kernel (``csrc/sage_aggregate.cu``) computes
-``(A @ H) / max(rowsum(A), 1)`` for every client of a ``[M, n, n] x [M, n, d]``
-batch in one launch, on the tensor cores (``mma.sync`` TF32) with each
-operand split into two TF32 parts and three products summed in f32, which
-holds the result to float32 accuracy; NaN and ±Inf inputs give NaN and ±Inf
-where the plain version does (an output whose split sum is NaN is recomputed
-as a plain f32 dot, as the source note explains). It
-picks one of two tile shapes per launch by ``d`` (``d <= 64``, wider). Its
+``src/repro/kernels/ops.py``. The kernels (``csrc/sage_aggregate.cu``)
+compute ``(A @ H) / max(rowsum(A), 1)`` for every client of a
+``[M, n, n] x [M, n, d]`` batch in f32 from A's nonzeros: an index pass reads
+A once and writes each row's degree, count and first ``CAP`` entries; a
+gather adds ``a * H[j]`` over each row's entries in ascending ``j`` and flags
+the columns of H that hold a NaN or ±Inf; a fix-up recomputes the flagged
+columns as plain dots, so non-finite inputs give NaN and ±Inf where the plain
+version's dense product does. Any A is right; a sparse one is fast. Its
 source note says what bounds it on the H100 and what its design does about
 that. Its plain version is ``ref.sage_aggregate``.
 
 ``SageAggregate`` mirrors the reference's VJP: kernel forward, plain
 backward. ``grad_h = Aᵀ @ (g / max(deg, 1))``, with no n x n temporary, runs
 through ``torch.bmm`` only when ``h`` needs a gradient (layer 1's input
-features do not, and skipping it saves a second 3 TFLOP product per step at
-full size); ``grad_adj`` runs through autograd of the plain version only when
-``adj`` needs one.
+features do not); ``grad_adj`` runs through autograd of the plain version
+only when ``adj`` needs one.
 """
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-launches = 0   # kernel launches made by `launch`, read by chip_smoke.py
+launches = 0   # calls of `launch` (each its three kernels), read by chip_smoke.py
 
 
 def launch(adj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -44,16 +43,17 @@ def launch(adj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     if n != n2 or h.shape[0] != m or h.shape[1] != n:
         raise ValueError(f"shape mismatch: adj {tuple(adj.shape)}, h {tuple(h.shape)}")
     d = h.shape[2]
-    if m > 65535:
-        raise ValueError(f"batch {m} exceeds the grid's z limit")
     adj = adj.contiguous()
     h = h.contiguous()
     out = torch.empty((m, n, d), dtype=torch.float32, device=h.device)
     if out.numel() == 0:
         return out
     lib = build.load()
+    scratch = torch.empty(lib.sage_aggregate_scratch_bytes(m, n, d), dtype=torch.uint8,
+                          device=h.device)
     err = lib.sage_aggregate_f32(adj.data_ptr(), h.data_ptr(), out.data_ptr(),
-                                 m, n, d, torch.cuda.current_stream(h.device).cuda_stream)
+                                 scratch.data_ptr(), m, n, d,
+                                 torch.cuda.current_stream(h.device).cuda_stream)
     build.check(err, "sage_aggregate")
     launches += 1
     return out

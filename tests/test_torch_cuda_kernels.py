@@ -6,9 +6,9 @@ kernels from ``src/repro_torch/kernels/csrc`` and run them:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_kernels.py -q
 
-Tolerances: ``sage_aggregate`` sums up to n products per output in another
-order than cuBLAS, each from three TF32 products whose split leaves out
-~2^-22 of it, so values agree within 1e-5 absolute plus 1e-5 relative;
+Tolerances: ``sage_aggregate`` sums an output's products in f32 in
+ascending column order of A, another order than cuBLAS's, so values agree
+within 1e-5 absolute plus 1e-5 relative;
 ``sim_topk`` scores within 1e-5 and indices exact except between candidates
 whose scores lie within 1e-5 (``torch_parity.assert_topk_match``);
 ``flash_attention`` within 1e-5 in f32 (the f32 route's 3-pass TF32 split
@@ -23,6 +23,9 @@ products, and the gradients are rounded to bf16), the row log-sum-exp within
 within 1e-5 in f32 and 3e-2 in bf16, absolute and relative, the JAX tests'
 own tolerances.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -49,8 +52,9 @@ def _adj(gen, m, n, dev):
     a[:, 0] = 0.0                              # an isolated row: the clamp matters
     a = a * torch.rand((m, n, n), generator=gen, device=dev) * 2
     if n > 2:
-        # Rows the kernel's TF32 split must carry: 1/3 everywhere, and a
-        # row-normalised neighbour set (1/deg, as the main path's a_norm).
+        # A dense row of 1/3 (past the kernel's index capacity: its gather
+        # walks A's row), and a row-normalised neighbour set (1/deg, as the
+        # main path's a_norm).
         a[:, 1] = 1.0 / 3.0
         nb = (torch.rand((m, n), generator=gen, device=dev) < 0.1).float()
         a[:, 2] = nb / torch.clamp_min(nb.sum(-1, keepdim=True), 1.0)
@@ -72,11 +76,11 @@ SAGE_NONFINITE_PAIRS = [(("adj", 0xFF800000, (0, 5, 3)), ("h", 0x7F800000, (0, 3
                         (("adj", 0xFF800000, (0, 8, 12)), ("h", 0xFF800000, (0, 12, 30)))]
 
 
-# Ragged shapes, then n and d with every remainder mod 4 (the kernel copies
-# rows that start off 16-byte boundaries), then the narrow instance (d <= 64)
-# and the first width past it; then each non-finite input at the wide and
-# the narrow instance, and each pair of them, which must give NaN and ±Inf
-# where the plain version does.
+# Ragged shapes, then n and d with every remainder mod 4 (the index pass
+# peels each row's head up to a 16-byte boundary), then the gather's
+# instances (d <= 32, <= 64, <= 128, wider) and the widths past them; then
+# each non-finite input at two instances, and each pair of them, which must
+# give NaN and ±Inf where the plain version does.
 @pytest.mark.parametrize("m,n,d,nonfinite", [
     *((m, n, d, None) for m, n, d in [
         (3, 1001, 77), (2, 130, 129), (1, 5, 1), (6, 257, 32), (2, 1001, 77), (1, 914, 1433),
@@ -98,6 +102,63 @@ def test_sage_forward_matches_plain(dev, m, n, d, nonfinite):
     want = ref.sage_aggregate(adj, h)
     assert bool(torch.isfinite(want).all()) == (nonfinite is None)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5, equal_nan=True)
+
+
+SAGE_CAP = int(re.search(r"constexpr int CAP = (\d+);", (
+    Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
+    / "sage_aggregate.cu").read_text()).group(1))
+
+
+def _cap_adj(gen, m, n, dev):
+    """Rows at the kernel's index capacity: rows 0-5 of every client but the
+    last hold CAP - 1, CAP, CAP + 1, 0, 1 and n entries, row r >= 6 holds
+    r % (CAP + 2); the last client has no edge at all."""
+    a = torch.zeros((m, n, n), device=dev)
+    for b in range(m - 1):
+        for r in range(n):
+            k = (SAGE_CAP - 1, SAGE_CAP, SAGE_CAP + 1, 0, 1, n)[r] if r < 6 else r % (SAGE_CAP + 2)
+            cols = torch.randperm(n, generator=gen, device=dev)[:k]
+            a[b, r, cols] = torch.rand((k,), generator=gen, device=dev) * 2 + 0.01
+    return a
+
+
+# The rows on both sides of the index's capacity and a client with no edge,
+# at the three widths of the gather (d <= 32, <= 128, wider), finite and with
+# each non-finite write: two calls bit for bit, and the plain version's values.
+@pytest.mark.parametrize("d", [32, 77, 300])
+@pytest.mark.parametrize("nonfinite", [None, *SAGE_NONFINITE, *SAGE_NONFINITE_PAIRS])
+def test_sage_index_capacity_and_empty_client(dev, d, nonfinite):
+    gen = torch.Generator(device=dev).manual_seed(d)
+    adj = _cap_adj(gen, 3, 1001, dev)
+    h = torch.randn((3, 1001, d), generator=gen, device=dev)
+    writes = (nonfinite,) if nonfinite and isinstance(nonfinite[0], str) else nonfinite or ()
+    for operand, bits, at in writes:
+        x = adj if operand == "adj" else h
+        x.view(torch.int32)[at] = bits - (1 << 32) if bits >> 31 else bits
+    got = ops.sage_aggregate(adj, h)
+    again = ops.sage_aggregate(adj, h)
+    want = ref.sage_aggregate(adj, h)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert not got[2].any()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("flags", [["--dataset", "coauthor_cs", "--scale", "0.05"],
+                                   ["--dataset", "cora", "--scale", "1.0"]])
+def test_sage_main_path_adjacency(dev, flags):
+    """An FGL batch's own normalised adjacency, as ``gnn.apply_sage`` makes
+    it, at both layers' widths; two calls bit for bit."""
+    from repro_torch.core import gnn
+    from repro_torch.launch import fgl_train
+    batch, _, _ = fgl_train.build_data(fgl_train.parse(flags))
+    a_norm = gnn.normalize_adjacency(torch.as_tensor(batch.adj).to(dev),
+                                     torch.as_tensor(batch.node_mask).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for width in (batch.x.shape[-1], 32):
+        h = torch.randn(a_norm.shape[:2] + (width,), generator=gen, device=dev)
+        got = ops.sage_aggregate(a_norm, h)
+        assert torch.equal(got, ops.sage_aggregate(a_norm, h))
+        torch.testing.assert_close(got, ref.sage_aggregate(a_norm, h), atol=1e-5, rtol=1e-5)
 
 
 def test_sage_grads_match_plain(dev):

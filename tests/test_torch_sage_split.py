@@ -1,17 +1,19 @@
-"""The arithmetic of the CUDA ``sage_aggregate`` kernel's 3-pass TF32 split, on the CPU.
+"""The arithmetic of the 3-pass TF32 split of ``csrc/tf32.cuh``, on the CPU.
 
-The kernel (``src/repro_torch/kernels/csrc/sage_aggregate.cu``) runs on the
-tensor cores in TF32, which keeps 10 mantissa bits. It writes each operand as
-``x = hi + lo`` with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, rounding to
-nearest with ties away from zero, and sums ``a_lo h_hi + a_hi h_lo + a_hi h_hi``
-in f32. Here TF32 rounding is emulated by bit arithmetic on float32 and the
-same sum is formed with float32 matrix products, at a main-path-like input: a
-row-normalised sparse ``a_norm`` (one isolated row, one dense row of 1/n)
-and Gaussian ``h``. The three passes must agree with the plain version's
-formula in float64 within 1e-5 absolute and relative, the CUDA tests'
-tolerance; one pass (``a_hi h_hi``) must not, which is why the kernel takes
-three. A non-finite operand goes whole into ``lo`` with ``hi = 0``, so that
-NaN and ±Inf inputs give NaN and ±Inf where the plain version does.
+The f32 ``flash_attention`` kernels (``src/repro_torch/kernels/csrc/
+flash_attention.cu`` and ``flash_attention_bwd.cu``) run their products on
+the tensor cores in TF32, which keeps 10 mantissa bits. They write each
+operand as ``x = hi + lo`` with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``,
+rounding to nearest with ties away from zero, and sum
+``a_lo h_hi + a_hi h_lo + a_hi h_hi`` in f32. Here TF32 rounding is emulated
+by bit arithmetic on float32 and the same sum is formed with float32 matrix
+products, at a hard input for it: a row-normalised sparse ``a_norm`` (one
+isolated row, one dense row of 1/n), whose values TF32 does not hold, and
+Gaussian ``h``. The three passes must agree with the plain version's formula
+in float64 within 1e-5 absolute and relative, the CUDA tests' tolerance; one
+pass (``a_hi h_hi``) must not, which is why the kernels take three. A
+non-finite operand goes whole into ``lo`` with ``hi = 0``, so that NaN and
+±Inf inputs give NaN and ±Inf where the plain version does.
 """
 import numpy as np
 import pytest

@@ -1,24 +1,20 @@
 #!/usr/bin/env python3
-"""The TF32 rate ``mma.sync`` reaches on this GPU, against the rates of the
-kernels built on it: ``sage_aggregate`` and ``flash_attention``'s f32
-forward.
+"""The TF32 rate ``mma.sync`` reaches on this GPU, against the rate of the
+kernel built on it: ``flash_attention``'s f32 forward.
 
     python3 tools/mma_tf32_ceiling.py [--against OTHER_CHECKOUT ...] [--ablate]
 
 Builds a loop of independent ``mma.sync.m16n8k8`` TF32 products on operands
 held in registers, with nothing to load, into ``build/mma_tf32_ceiling/``, and
 prints the rate it reaches at 1, 2 and 4 blocks of 8 warps per SM: the ceiling
-of any kernel built on that instruction. Then it times the CUDA
-``sage_aggregate`` of this checkout at the layers of both FGL main paths
-(SpreadFGL on Coauthor-CS, ``[6,6123,6123] x [6,6123,6805]`` and
-``x [6,6123,32]``; FedGL on Cora, ``[6,914,914] x [6,914,1433]`` and
-``x [6,914,32]``) and prints its rate in TF32 products (three per
-multiply-add) as a share of that ceiling. Then it times the f32
+of any kernel built on that instruction. Then it times the f32
 ``flash_attention`` at the serving shape, q ``[8,32,2048,80]`` and kv
 ``[8,8,2048,80]``, causal, and prints its rate in TF32 products (three per
 multiply-add of the causal work) as a share of the ceiling and of the dense
 TF32 peak. (The f32 backward runs on TF32 wgmma, whose rate mma.sync does
-not bound: ``tools/flash_bwd_turns.py --dtype float32`` times it.)
+not bound: ``tools/flash_bwd_turns.py --dtype float32`` times it;
+``sage_aggregate`` runs no product on the tensor cores:
+``tools/sage_turns.py`` times it.)
 
 With ``--against`` (which may be given more than once) it also builds the
 kernels from another checkout's sources, by that checkout's own
@@ -93,10 +89,6 @@ def _build_bench():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
-
-
-# (M, n, d, timed calls) of each layer: SpreadFGL Coauthor-CS, FedGL Cora.
-SHAPES = ((6, 6123, 6805, 3), (6, 6123, 32, 10), (6, 914, 1433, 20), (6, 914, 32, 50))
 
 
 # The f32 flash_attention at the serving shape: (b, hq, hkv, s, d, timed calls).
@@ -224,8 +216,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("mma_tf32_ceiling: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels import sage_aggregate as ksage
-
     print(f"[ceiling] card: {_card_line()}")
     bench = _build_bench()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -245,31 +235,6 @@ def main() -> int:
     for other in args.against:
         trees[f"other ({other.resolve()})"] = _library(other.resolve())
     _flash(trees, args.ablate, ceiling)
-    entries = ({name: lib.sage_aggregate_f32 for name, lib in trees.items()}
-               if len(trees) > 1 else None)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    for m, n, d, reps in SHAPES:
-        a = (torch.rand((m, n, n), generator=gen, device="cuda") < 2e-3).float()
-        adj = a / torch.clamp_min(a.sum(-1, keepdim=True), 1.0)
-        h = torch.randn((m, n, d), generator=gen, device="cuda")
-        shape = f"[{m},{n},{n}]x[{m},{n},{d}]"
-        ms = _time_ms(lambda: ksage.launch(adj, h), reps)  # noqa: B023
-        tf32 = 3 * 2.0 * m * n * n * d / ms / 1e9
-        print(f"[ceiling] sage_aggregate {shape}: {ms:.4f} ms, "
-              f"{tf32:.1f} TFLOP/s of TF32 products, {100 * tf32 / ceiling:.1f} % of the "
-              f"ceiling; three passes at the ceiling: {3 * 2.0 * m * n * n * d / ceiling / 1e9:.4f} ms")
-        if entries is not None:
-            out = torch.empty_like(h)
-            stream = torch.cuda.current_stream().cuda_stream
-
-            def call(fn):
-                err = fn(adj.data_ptr(), h.data_ptr(), out.data_ptr(), m, n, d, stream)  # noqa: B023
-                if err:
-                    raise RuntimeError(f"sage_aggregate launch failed with error {err}")
-            print(f"[ceiling] sage_aggregate {shape} in turns: {_in_turns(entries, call, reps)}")
-            del out
-        del a, adj, h
-        torch.cuda.empty_cache()
     return 0
 
 
