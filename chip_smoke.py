@@ -16,7 +16,9 @@ Phases (any failure raises, and the script exits non-zero):
    output written once), and held bit for bit across two calls. ``flash_attention`` has
    two routes, checked and timed apart, both on the tensor cores: bf16, and
    f32 by three TF32 passes, against the bound of those passes and that of
-   one f32 pass on the CUDA cores.
+   one f32 pass on the CUDA cores; the f32 route also at the main paths'
+   own shape (q [2,32,2048,80], kv 8 heads: the f32 prefill and training
+   step), with and without the row log-sum-exp, two calls bit for bit.
    ``sim_topk`` is checked at shapes that cross its split of the candidate
    axis and timed at SpreadFGL's, against the bound of the full gram and
    that of the cross-client pairs the data needs, and its general form as
@@ -373,22 +375,25 @@ def _sass_counts(lib: Path, ops=("HGMMA", "UTMALDG", "HMMA")) -> dict:
 # forward's serving and training kernels and the backward's dK/dV and dQ.
 WGMMA_FLASH_KERNELS = ("flash_attention_tc_kernel", "flash_attention_tc_lse_kernel",
                        "flash_attention_bwd_dkdv_tc_kernel", "flash_attention_bwd_dq_tc_kernel")
-# The f32 backward's dK/dV and dQ kernels, TF32 wgmma fed by TMA.
+# The f32 forward, and the f32 backward's dK/dV and dQ kernels: TF32 wgmma
+# fed by TMA.
+WGMMA_F32_FWD_KERNELS = ("flash_attention_f32_kernel",)
 WGMMA_F32_BWD_KERNELS = ("flash_attention_bwd_dkdv_f32_kernel",
                          "flash_attention_bwd_dq_f32_kernel")
 
 
 def _check_flash_sass(ptxas: dict) -> None:
     """Every instance of the bf16 forward (serving and training kernels), of
-    the bf16 backward's dK/dV and dQ kernels and of the f32 backward's, each
-    head dim, runs wgmma fed by TMA and no mma.sync: a hard failure
+    the bf16 backward's dK/dV and dQ kernels, of the f32 forward and of the
+    f32 backward's dK/dV and dQ kernels, each head dim, runs wgmma fed by
+    TMA and no mma.sync: a hard failure
     otherwise. Prints each instance's counts beside its registers and spills
     (``ptxas``: the ``-Xptxas -v`` line of each instance)."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kflash
 
     counts = _sass_counts(build.library_path())
-    for kind in WGMMA_FLASH_KERNELS + WGMMA_F32_BWD_KERNELS:
+    for kind in WGMMA_FLASH_KERNELS + WGMMA_F32_FWD_KERNELS + WGMMA_F32_BWD_KERNELS:
         for d in kflash.HEAD_DIMS:
             name = f"{kind}<{d}>"
             c = counts.get(name)
@@ -873,7 +878,62 @@ def _check_flash(dev, gen):
                                  + f"{name} causal"})
     del q, k, v
     torch.cuda.empty_cache()
+    entries[1]["cases"] = [_check_flash_f32_main(dev, gen)]
     return entries
+
+
+# The f32 route's launches on the main paths all run at one shape: the f32
+# Qwen3-4B prefill (36 a prefill, without the row log-sum-exp) and training
+# step (72 a step, with it), batch 2 x 2048, 32 q heads, 8 kv heads of 80.
+F32_MAIN_SHAPE = (2, 32, 8, 2048, 80)
+
+
+def _check_flash_f32_main(dev, gen):
+    """The f32 forward at the main paths' own shape (``F32_MAIN_SHAPE``):
+    the output within 1e-5 of the plain version and the row log-sum-exp
+    within 1e-5, two calls bit for bit; timed without the log-sum-exp (the
+    prefill's call) and with it (the training step's) against the plain
+    version, SDPA in f32 (TF32 off) and the bound of three TF32 passes of
+    the causal work at the TF32 peak. Returns the entry's case."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    b, hq, hkv, s, d = F32_MAIN_SHAPE
+    q = torch.randn((b, hq, s, d), generator=gen, device=dev)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev) for _ in range(2))
+    o, lse = kflash.launch(q, k, v, with_lse=True)
+    again, lse_again = kflash.launch(q, k, v, with_lse=True)
+    same = torch.equal(o, again) and torch.equal(lse, lse_again)
+    err = (o - ref.flash_attention(q, k, v)).abs().max().item()
+    lse_err = (lse - ref.flash_attention_lse(q, k)).abs().max().item()
+    del o, lse, again, lse_again
+    shape = f"q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}] f32 causal"
+    print(f"[smoke] flash_attention f32 main paths' shape {shape}: output max_abs_err "
+          f"{err:.3g} (limit 1e-05); lse max_abs_err {lse_err:.3g} (limit 1e-05); two calls "
+          f"bit for bit: {same}")
+    if not (err <= 1e-5 and lse_err <= 1e-5 and same):
+        raise AssertionError(f"flash_attention f32 at {shape}: output {err}, lse {lse_err}, "
+                             f"bit for bit {same}")
+    flops = 4.0 * d * b * hq * _causal_pairs(s, s, None)
+    io = 2 * b * hq * s * d + 2 * b * hkv * s * d
+    ms = _time_ms(lambda: kflash.launch(q, k, v), 20)
+    lse_ms = _time_ms(lambda: kflash.launch(q, k, v, with_lse=True), 20)
+    plain_ms = _time_ms(lambda: ref.flash_attention(q, k, v), 3)
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                             enable_gqa=True), 20)
+    bound_ms, bound_by = _bound(3 * flops, 4 * io, peak=TF32_FLOPS)
+    print(f"[smoke] flash_attention f32 (3 TF32 passes) main paths' shape {shape}: "
+          f"ms={ms:.4f} (with the row log-sum-exp {lse_ms:.4f}) plain_ms={plain_ms:.3f} "
+          f"library_ms={lib_ms:.3f} (SDPA f32) bound_ms={bound_ms:.4f} ({bound_by}, 3 TF32 "
+          f"passes at {TF32_FLOPS / 1e12:.0f} TFLOP/s) -> {bound_ms / ms:.2f} of the bound")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"what": "the main paths' shape (f32 Qwen3-4B prefill and training)", "shape": shape,
+            "max_abs_err": err, "lse_max_abs_err": lse_err, "ms": ms, "ms_with_lse": lse_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def _causal_pairs(sq: int, skv: int, window) -> float:
@@ -2590,7 +2650,8 @@ def main() -> int:
     fwd_cases, bwd_cases = _check_flash_train_cases(dev, gen, D64_TRAIN_CASES + D240_TRAIN_CASES)
     flash_lse["cases"] += fwd_cases
     flash_bwd["cases"] += bwd_cases
-    flash_f32["cases"], flash_bwd_f32["cases"] = _check_flash_f32_cases(dev, gen, D240_F32_CASES)
+    fwd_cases, flash_bwd_f32["cases"] = _check_flash_f32_cases(dev, gen, D240_F32_CASES)
+    flash_f32["cases"] += fwd_cases
     _check_small_run(dev)
     _check_small_serve(dev)
     _check_bf16_serve(dev)

@@ -33,7 +33,8 @@ SIGNATURES = {
     "sim_topk_plan_rows": ([_I] * 5 + [_P], _I),
     "sim_topk_rows_f32": ([_P] * 12 + [_I] * 8 + [_P], _I),
     "sim_block_fwd": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "flash_attention_f32": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
+    "flash_attention_f32": ([_P] * 6 + [_I] * 7 + [_F, _P], _I),
+    "flash_attention_f32_scratch": ([_I] * 4, ctypes.c_longlong),
     "flash_attention_tc_bf16": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
     "flash_attention_bwd_f32": ([_P] * 10 + [_I] * 7 + [_F, _P], _I),
     "flash_attention_bwd_f32_scratch": ([_I] * 6, ctypes.c_longlong),

@@ -57,7 +57,7 @@
 //   stored; dV += P^T dO, dK += dS^T Q and dQ += dS K contract over rows or
 //   keys, so their B (dO, Q, K) must be transposed, [D, rows].
 // - Three passes need B as two planes, hi and lo. So a pre-pass
-//   (flash_attention_bwd_split_kernel, one launch) writes, from q, dO, k and
+//   (tf32_split_kernel of tf32.cuh, one launch) writes, from q, dO, k and
 //   v, the planes the two kernels stream: hi and lo of each in its own
 //   layout ("natural"), and hi and lo of Q, dO and K transposed, [D, S8]
 //   with S8 = S rounded up to 8 and zeros past S, each group of 8 positions
@@ -782,65 +782,6 @@ flash_attention_bwd_dq_f32_kernel(
 
 // -- the pre-pass ---------------------------------------------------------------
 
-// The operands that the two kernels stream, as TF32 planes (tf32.cuh's
-// split: x = hi + lo, a non-finite x all lo) in device memory: each source
-// [heads, rows, D] into natural planes hi and lo of its own layout and,
-// where `thi` is set, transposed planes [heads, D, rows8] (rows8 = rows
-// rounded up to 8, zeros past `rows`) whose positions in each group of 8
-// hold the rows 0, 2, 4, 6, 1, 3, 5, 7 of the group: the order in which an
-// accumulator's columns become the A fragment of the next product.
-struct SplitJob {
-  const float* src;
-  float *hi, *lo, *thi, *tlo;
-  int heads, rows, rows8, first_block;
-};
-
-struct SplitJobs {
-  SplitJob job[4];   // q, dO, k, v
-};
-
-// One 32 x 32 tile of a source per block of 32 x 8 threads.
-template <int D>
-__global__ void __launch_bounds__(256) flash_attention_bwd_split_kernel(const SplitJobs jobs) {
-  constexpr int CT = (D + 31) / 32;
-  __shared__ float hs[32][33], ls[32][33];
-  int k = 0;
-  while (k + 1 < 4 && (int)blockIdx.x >= jobs.job[k + 1].first_block) ++k;
-  const SplitJob& job = jobs.job[k];
-  const int tiles_r = (job.rows8 + 31) / 32;
-  const int local = blockIdx.x - job.first_block;
-  const int head = local / (tiles_r * CT);
-  const int rt = (local / CT) % tiles_r, ct = local % CT;
-  const int r0 = rt * 32, c0 = ct * 32;
-  const size_t src0 = (size_t)head * job.rows * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = threadIdx.y + 8 * i, row = r0 + r, col = c0 + threadIdx.x;
-    uint32_t h = 0u, l = 0u;
-    if (row < job.rows && col < D) {
-      const size_t at = src0 + (size_t)row * D + col;
-      split(job.src[at], h, l);
-      job.hi[at] = __uint_as_float(h);
-      job.lo[at] = __uint_as_float(l);
-    }
-    hs[r][threadIdx.x] = __uint_as_float(h);
-    ls[r][threadIdx.x] = __uint_as_float(l);
-  }
-  if (job.thi == nullptr) return;
-  __syncthreads();
-  const int r = threadIdx.x, row = r0 + r;
-  const int pos = (row & ~7) | ((row & 7) >> 1) | ((row & 1) << 2);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = threadIdx.y + 8 * i, col = c0 + c;
-    if (col < D && row < job.rows8) {
-      const size_t at = ((size_t)head * D + col) * job.rows8 + pos;
-      job.thi[at] = hs[r][c];
-      job.tlo[at] = ls[r][c];
-    }
-  }
-}
-
 // D = rowsum(dO * O) in f32, one warp per row.
 template <int D>
 __global__ void __launch_bounds__(256)
@@ -924,7 +865,7 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
     jb.rows = kv ? skv : sq;
     jb.rows8 = kv ? skv8 : sq8;
     jb.first_block = blocks;
-    blocks += jb.heads * ((jb.rows8 + 31) / 32) * ((D + 31) / 32);
+    blocks += split_blocks(jb, D);
   }
 
   // Eighteen maps, encoded for this call.
@@ -957,7 +898,7 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  flash_attention_bwd_split_kernel<D><<<blocks, dim3(32, 8), 0, stream>>>(jobs);
+  tf32_split_kernel<D><<<blocks, dim3(32, 8), 0, stream>>>(jobs);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long rows = (long long)bhq * sq;

@@ -1,18 +1,19 @@
 // Hopper (sm_90a) building blocks for kernels that run the tensor cores the
 // way this card is built to be fed (flash_attention_tc.cu,
-// flash_attention_bwd_tc.cu, flash_attention_bwd.cu): mbarriers, the Tensor
-// Memory Accelerator (TMA) with its host-side tensor maps, thread block
-// clusters (distributed shared memory and barriers across their CTAs),
-// warpgroup register reallocation (setmaxnreg), and warpgroup matrix
-// products (wgmma, bf16 and TF32) with their shared-memory descriptors.
+// flash_attention_bwd_tc.cu, flash_attention.cu, flash_attention_bwd.cu):
+// mbarriers, the Tensor Memory Accelerator (TMA) with its host-side tensor
+// maps, thread block clusters (distributed shared memory and barriers across
+// their CTAs), warpgroup register reallocation (setmaxnreg), and warpgroup
+// matrix products (wgmma, bf16 and TF32) with their shared-memory
+// descriptors.
 //
 // Every tile these helpers address is a stack of boxes 128 bytes (64 bf16,
 // 32 f32) wide with the 128-byte swizzle: row r of a box sits at byte 128 r,
 // and its 16-byte chunk c at chunk c ^ (r % 8), each box starting on a
 // 1024-byte boundary. TMA writes that layout (CU_TENSOR_MAP_SWIZZLE_128B)
-// and the wgmma descriptors read it (layout type 1). The f32 backward also
-// uses boxes 64 bytes wide (16 f32) with the 64-byte swizzle, chunk c of
-// row r at c ^ (r / 2 % 4), each box on a 512-byte boundary (layout type 2,
+// and the wgmma descriptors read it (layout type 1). The f32 kernels also
+// use boxes 64 bytes wide (16 f32) with the 64-byte swizzle, chunk c of row
+// r at c ^ (r / 2 % 4), each box on a 512-byte boundary (layout type 2,
 // wgmma_desc64).
 #pragma once
 
@@ -484,7 +485,8 @@ __device__ __forceinline__ void wgmma_rs_t<240>(float (&d)[120], const uint32_t 
 }
 
 
-// The TF32 instances: the f32 backward's products (flash_attention_bwd.cu).
+// The TF32 instances: the f32 forward's and backward's products
+// (flash_attention.cu, flash_attention_bwd.cu).
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const uint32_t (&a)[4],
@@ -514,6 +516,23 @@ __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<40>(float (&d)[20], const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<48>(float (&d)[24], const uint32_t (&a)[4],

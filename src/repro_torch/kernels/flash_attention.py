@@ -8,9 +8,11 @@ one contract, chosen by the inputs' type, both on the tensor cores:
 bfloat16 in ``csrc/flash_attention_tc.cu`` (Hopper's ``wgmma`` fed by TMA
 through a ring of shared-memory stages, a producer warpgroup and two consumer
 warpgroups; f32 accumulation, P rounded to bf16), float32 in
-``csrc/flash_attention.cu`` (``mma.sync`` TF32 with the 3-pass split of
-``csrc/tf32.cuh``, which keeps f32 parity at 1e-5). Neither falls back to the
-other. Both take q ``[B, Hq, Sq, D]`` and k, v
+``csrc/flash_attention.cu`` (TF32 ``wgmma`` fed by TMA with the 3-pass split
+of ``csrc/tf32.cuh``, which keeps f32 parity at 1e-5: a pre-pass writes the
+split planes of k and v, transposed for v, and a producer warpgroup feeds
+them to two consumer warpgroups). Neither falls back to the other. Both take
+q ``[B, Hq, Sq, D]`` and k, v
 ``[B, Hkv, Skv, D]`` as they are: they map each q head to its kv head and
 mask ragged sequence lengths themselves. Each source note says what bounds
 it on the H100 and what its design does about that. The plain version of
@@ -44,7 +46,7 @@ from repro_torch.kernels import build, meta, ref
 launches = 0
 launches_tc = 0     # bfloat16, tensor cores (flash_attention_tc.cu, serving kernel)
 launches_tc_lse = 0  # bfloat16 keeping the row log-sum-exp (its training kernel)
-launches_f32 = 0    # float32, 3-pass TF32 (flash_attention.cu, either use)
+launches_f32 = 0    # float32, 3-pass TF32 (flash_attention.cu, either use; its pre-pass too)
 launches_bwd = 0    # backward, either route
 launches_bwd_tc = 0   # backward, bfloat16 on the tensor cores (flash_attention_bwd_tc.cu)
 launches_bwd_f32 = 0  # backward, float32, 3-pass TF32 (flash_attention_bwd.cu)
@@ -104,10 +106,19 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() > 0:
         tc = q.dtype == torch.bfloat16
         lib = build.load()
-        fn = lib.flash_attention_tc_bf16 if tc else lib.flash_attention_f32
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr() if with_lse else None, b, hq, hkv, sq, skv, d, window or 0,
-                 scale, torch.cuda.current_stream(q.device).cuda_stream)
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if with_lse else None]
+        if tc:
+            fn = lib.flash_attention_tc_bf16
+        else:
+            # Scratch for the pre-pass: the TF32 planes of k and v that the
+            # kernel streams.
+            fn = lib.flash_attention_f32
+            scratch = torch.empty(lib.flash_attention_f32_scratch(b, hkv, skv, d),
+                                  dtype=torch.float32, device=q.device)
+            ptrs.append(scratch.data_ptr())
+        err = fn(*ptrs, b, hq, hkv, sq, skv, d, window or 0, scale,
+                 torch.cuda.current_stream(q.device).cuda_stream)
         build.check(err, "flash_attention (bf16)" if tc else "flash_attention (f32)")
         if tc and with_lse:
             launches_tc_lse += 1

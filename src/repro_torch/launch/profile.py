@@ -53,7 +53,8 @@ from repro_torch.train import step as train_step
 
 # Kinds of kernel by name: cuBLAS's and CUTLASS's products, the port's
 # attention kernels (backward first: its names contain the forward's).
-_KINDS = (("attention backward", ("flash_attention_bwd",)),
+_KINDS = (("attention TF32 split (f32 pre-passes)", ("tf32_split",)),
+          ("attention backward", ("flash_attention_bwd",)),
           ("attention forward", ("flash_attention",)),
           ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
           ("copies and fills", ("memcpy", "memset")))

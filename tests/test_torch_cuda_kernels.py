@@ -444,6 +444,23 @@ FLASH_SHAPES = [
     (1, 4, 4, 191, 129, 32, None, torch.bfloat16),
     (1, 25, 5, 1100, 1100, 64, 1024, torch.bfloat16),
     (4, 40, 8, 300, 300, 128, None, torch.bfloat16),
+    # The f32 wgmma kernel's tiling: Sq of 65, 129 and 191 around its 64-row
+    # consumers and 128-row blocks (64-row blocks at D = 240, whose two
+    # consumers take the tiles in turn: one tile, then an odd count); Skv
+    # not a multiple of its key tiles (64, 32 at D = 128, 16 at D = 240) nor
+    # of 8 (the transposed V planes' groups); D = 80 across the partial last
+    # 32-column box; GQA 25:5 with a window at D = 64; B * H = 160 heads,
+    # more blocks than SMs.
+    (1, 4, 2, 65, 65, 64, None, torch.float32),
+    (2, 4, 2, 129, 129, 80, 100, torch.float32),
+    (1, 4, 1, 191, 191, 128, None, torch.float32),
+    (1, 4, 2, 100, 333, 128, None, torch.float32),
+    (1, 4, 2, 10, 10, 240, None, torch.float32),
+    (1, 4, 2, 70, 201, 240, 64, torch.float32),
+    (1, 8, 4, 257, 257, 240, None, torch.float32),
+    (1, 4, 4, 191, 129, 32, None, torch.float32),
+    (1, 25, 5, 1100, 1100, 64, 1024, torch.float32),
+    (4, 40, 8, 300, 300, 80, None, torch.float32),
 ]
 
 
@@ -527,6 +544,45 @@ def test_flash_backward_f32_is_wgmma(dev):
         for d in kflash.HEAD_DIMS:
             c = counts[f"{kind}<{d}>"]
             assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, (kind, d, c)
+
+
+def test_flash_forward_f32_is_wgmma(dev):
+    """Every instance of the f32 forward, one at each head dim, runs TF32
+    wgmma (HGMMA) on tiles that TMA loads (UTMALDG) and no mma.sync (HMMA),
+    in the SASS of the built library."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import WGMMA_F32_FWD_KERNELS, _sass_counts
+
+    build.load()
+    counts = _sass_counts(build.library_path())
+    for kind in WGMMA_F32_FWD_KERNELS:
+        for d in kflash.HEAD_DIMS:
+            c = counts[f"{kind}<{d}>"]
+            assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, (kind, d, c)
+
+
+# (b, hq, hkv, sq, skv, d, window): the main paths' shape, gemma3-12b's f32
+# training shape with a window, and a ragged GQA case at every other head dim.
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window", [
+    (2, 32, 8, 2048, 2048, 80, None), (2, 16, 8, 2048, 2048, 240, 1024),
+    (1, 4, 2, 333, 301, 32, 100), (1, 4, 2, 333, 301, 64, None),
+    (1, 4, 2, 333, 301, 128, 100)])
+def test_flash_attention_f32_two_calls_bit_for_bit(dev, b, hq, hkv, sq, skv, d, window):
+    """The f32 forward is deterministic: two calls give the same bits, the
+    output and the row log-sum-exp (the persistent CTAs take the blocks in
+    another order each call; no atomics touch a result)."""
+    gen = torch.Generator(device=dev).manual_seed(sq + d)
+    q = torch.randn((b, hq, sq, d), generator=gen, device=dev)
+    k, v = (torch.randn((b, hkv, skv, d), generator=gen, device=dev) for _ in range(2))
+    first, lse = kflash.launch(q, k, v, window=window, with_lse=True)
+    again, lse_again = kflash.launch(q, k, v, window=window, with_lse=True)
+    assert torch.equal(first, again) and torch.equal(lse, lse_again)
+    assert torch.equal(kflash.launch(q, k, v, window=window), first)
 
 
 def _attention_f64(q, k, v):

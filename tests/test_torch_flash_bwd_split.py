@@ -47,6 +47,9 @@ LOG2E = np.float32(1.4426950408889634)
 GPU_NAN = np.array([0x7FFFFFFF], dtype=np.uint32).view(np.float32)[0]   # the card's NaN
 SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
           / "flash_attention_bwd.cu").read_text()
+# The pre-pass the backward launches, shared with the f32 forward.
+SPLIT_SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
+                / "tf32.cuh").read_text()
 BLOCK = int(re.search(r"constexpr int ROWS = (\d+);", SOURCE).group(1))
 CONSUMERS = int(re.search(r"constexpr int CONSUMERS = (\d+);", SOURCE).group(1))
 BT = {int(d): int(bt) for d, bt in re.findall(
@@ -276,8 +279,10 @@ def _forward(q, k, v, window):
 def test_fragment_orders_agree():
     """The A fragment a C fragment gives and the B operand a transposed plane
     gives hold the same row at every k index: rows 0, 2, 4, 6 at indices
-    0-3, rows 1, 3, 5, 7 at 4-7 (the pre-pass's `pos` in the .cu)."""
-    assert "pos = (row & ~7) | ((row & 7) >> 1) | ((row & 1) << 2);" in SOURCE
+    0-3, rows 1, 3, 5, 7 at 4-7 (the pre-pass's `pos` in tf32.cuh, whose
+    tf32_split_kernel the backward launches)."""
+    assert "tf32_split_kernel<D><<<" in SOURCE
+    assert "pos = (row & ~7) | ((row & 7) >> 1) | ((row & 1) << 2);" in SPLIT_SOURCE
     np.testing.assert_array_equal(_a_fragment_cols(), [0, 2, 4, 6, 1, 3, 5, 7])
     np.testing.assert_array_equal(_b_fragment_rows(), _a_fragment_cols())
 

@@ -5,18 +5,24 @@ The kernel (``src/repro_torch/kernels/csrc/flash_attention.cu``) runs
 mantissa bits, with the 3-pass split of ``csrc/tf32.cuh``: each operand is
 ``x = hi + lo`` (both TF32, rounded to nearest with ties away from zero) and
 each product ``x_lo y_hi + x_hi y_lo + x_hi y_hi`` in f32. Here the kernel's
-sums are emulated tile by tile in numpy: TF32 rounding by bit arithmetic
-(``torch_parity.tf32`` / ``split``), one f32 rounding per ``mma`` of a
-k-step of 8, the two small passes of S in their own accumulator, each kv
-tile's P V in a fresh one, and the online softmax with the scale folded into
-the exponent. P's A fragment is taken from the S accumulator by the
-kernel's own lane rule, and V's B fragment from its plane by the kernel's
-read rule, so a mismatch of the two key orders shows as a wrong result.
+sums are emulated tile by tile in numpy, one row's keys in order: TF32
+rounding by bit arithmetic (``torch_parity.tf32`` / ``split``), one f32
+rounding per TF32 k-step of 8, the two small passes of S in their own
+accumulator, each kv tile's P V in a fresh one, and the online softmax with
+the scale folded into the exponent; the key tiles are read from the
+kernel's ``Tiling<D>``. P's A fragment is taken from the S accumulator by
+the kernel's lane rule, and V's B operand from the transposed plane by the
+pre-pass's key order, so a mismatch of the two orders shows as a wrong
+result. (At D = 240 the kernel's two consumers take a block's tiles in turn
+and merge; ``tests/test_torch_flash_fwd_f32_wgmma.py`` walks that schedule.)
 
 The three passes hold 1e-5 (absolute and relative) against the port's plain
 version and the JAX package's oracle (kv heads repeated), at Qwen3-4B's head
 dim 80 and at 128; one pass (``q_hi k_hi``, ``p_hi v_hi``) misses 1e-5.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +32,11 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ref
 from torch_parity import split, tf32
 
+SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
+          / "flash_attention.cu").read_text()
+# Keys a tile, by head dim: the kernel's Tiling<D>.
+BKV = {int(d): int(n) for d, n in re.findall(
+    r"struct Tiling<(\d+)> \{ static constexpr int BKV = (\d+),", SOURCE)}
 TOL = 1e-5
 LOG2E = 1.4426950408889634
 GPU_NAN = np.array([0x7FFFFFFF], dtype=np.uint32).view(np.float32)[0]   # what ex2 gives
@@ -46,13 +57,14 @@ def _a_fragment_keys():
 
 
 def _b_fragment_keys():
-    """Key (row of the V tile) that each mma index k of V's B fragment holds:
-    lane (g, t) reads plane floats 4t..4t + 3 of row d = g, hi and lo of keys
-    2t and 2t + 1 as (hi, hi, lo, lo), so b0 (index t) is key 2t and b1
-    (index t + 4) key 2t + 1."""
+    """Key (row of the V tile) that each mma index k of V's B operand holds:
+    k index i reads position i of its group of 8 in the transposed V plane,
+    where the pre-pass (tf32.cuh) writes key r at position
+    (r >> 1) | ((r & 1) << 2), so index t holds key 2t and index t + 4 key
+    2t + 1."""
     keys = np.full(8, -1)
-    for t in range(4):
-        keys[t], keys[t + 4] = 2 * t, 2 * t + 1
+    for r in range(8):
+        keys[(r >> 1) | ((r & 1) << 2)] = r
     return keys
 
 
@@ -66,7 +78,7 @@ def kernel_attention(q, k, v, *, window=None, passes=3):
     """The kernel's sums for q [Sq, D], k, v [Skv, D] (one head), float32."""
     sq, d = q.shape
     skv = k.shape[0]
-    bkv = {128: 32, 240: 16}.get(d, 64)   # the kernel's tiles
+    bkv = BKV[d]                          # the kernel's tiles
     sl2 = np.float32(np.float32(d ** -0.5) * np.float32(LOG2E))
     (q_hi, q_lo), (k_hi, k_lo), (v_hi, v_lo) = split(q), split(k), split(v)
     a_keys, b_keys = _a_fragment_keys(), _b_fragment_keys()
@@ -142,8 +154,9 @@ def test_fragment_key_orders_agree():
 # (b, hq, hkv, sq, skv, d, window): Qwen3-4B's head dim with GQA 2:1 over
 # four 64-key tiles; fewer queries than keys, 301 keys (the last k-step
 # holds 5); D = 128 (32-key tiles) with a window and MQA; D = 240 (16-key
-# tiles, P V in fresh accumulators of 48 columns: the same sums) with GQA
-# 2:1 and a window, then fewer queries than keys, 141 keys.
+# tiles, P V in fresh accumulators of 48 columns: the same sums; one row's
+# tiles in order) with GQA 2:1 and a window, then fewer queries than keys,
+# 141 keys.
 SHAPES = [(1, 4, 2, 256, 256, 80, None), (1, 2, 1, 77, 301, 80, None),
           (1, 2, 1, 200, 200, 128, 64), (1, 4, 2, 100, 100, 240, 40),
           (1, 2, 1, 60, 141, 240, None)]

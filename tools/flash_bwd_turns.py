@@ -75,9 +75,11 @@ SHAPES = (("Qwen3-4B training", 2, 32, 8, 2048, 80, None),
 # dK/dV kernel has a name of its own), and the products each computes.
 KERNELS = (("D pass", "delta_tc_kernel"), ("dK/dV", "dkdv"), ("dQ", "dq_tc_kernel"))
 PRODUCTS = {"dK/dV": 4, "dQ": 3}
-# The f32 route's launches: the pre-pass (none in builds before it), the D
-# pass, dK/dV (the parent's D = 240 instance has a name of its own) and dQ.
-F32_KERNELS = (("pre-pass", "bwd_split_kernel"), ("D pass", "bwd_delta_kernel"),
+# The f32 route's launches: the pre-pass (none in builds before it;
+# flash_attention_bwd_split_kernel until it moved to tf32.cuh as
+# tf32_split_kernel), the D pass, dK/dV (the parent's D = 240 instance has a
+# name of its own) and dQ.
+F32_KERNELS = (("pre-pass", "split_kernel"), ("D pass", "bwd_delta_kernel"),
                ("dK/dV", "dkdv"), ("dQ", "bwd_dq"))
 
 _NEXT = "x = gridDim.x + (int)__shfl_sync(FULL, taken, 0);"

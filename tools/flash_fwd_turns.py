@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""The bf16 ``flash_attention`` forward of this checkout against another's, in turns.
+"""The ``flash_attention`` forward of this checkout against another's, in turns.
 
-    python3 tools/flash_fwd_turns.py [--against OTHER_CHECKOUT ...] [--variants]
-                                     [--reps N] [--json PATH]
+    python3 tools/flash_fwd_turns.py [--dtype bfloat16|float32] [--against OTHER_CHECKOUT ...]
+                                     [--variants] [--reps N] [--json PATH]
 
 Builds this checkout's kernel library and, for each ``--against`` (for
 example the parent commit unpacked under ``build/``: ``git archive HEAD~1 |
@@ -30,6 +30,20 @@ builds in the same turns. Prints one JSON
 line of every number (also written to ``--json``).
 Without a CUDA device it exits non-zero; a result that disagrees exits
 non-zero too.
+
+``--dtype float32`` does the same for the f32 route
+(``csrc/flash_attention.cu``, 3-pass TF32 ``wgmma``, its pre-pass
+included) at ``F32_SHAPES``: the main paths' q ``[2,32,2048,80]`` kv 8
+heads with and without the log-sum-exp (the f32 Qwen3-4B prefill and
+training step), the kernel phase's timing shape ``[8,32,2048,80]``, and
+Gemma3-12B's ``[2,16,2048,240]`` kv 8 global and window 1024. Each build is
+held to the plain version within 1e-5 (the log-sum-exp within 1e-5) and bit
+for bit across two calls; beside the times SDPA in f32 (TF32 off; no
+window) and the bound of three TF32 passes of the causal work at the TF32
+peak; each build's pre-pass and kernel apart (``torch.profiler`` over 5
+calls); the host part at Whisper's shape in f32; ``--variants`` builds
+``F32_VARIANTS`` from ``csrc/flash_attention.cu``. A tree whose entry takes
+no scratch (before the pre-pass) is called without one.
 """
 from __future__ import annotations
 
@@ -46,8 +60,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-from chip_smoke import (BF16_FLOPS, _bound, _card_line, _causal_pairs,  # noqa: E402
-                        _plain_by_head)
+from chip_smoke import (BF16_FLOPS, TF32_FLOPS, _bound, _card_line,  # noqa: E402
+                        _causal_pairs, _plain_by_head)
+from flash_bwd_turns import _by_kernel  # noqa: E402
 
 # (what, b, hq, hkv, s, d, window, keeps the log-sum-exp)
 SHAPES = (("Qwen3-4B prefill", 8, 32, 8, 2048, 80, None, False),
@@ -65,6 +80,15 @@ SHAPES = (("Qwen3-4B prefill", 8, 32, 8, 2048, 80, None, False),
           ("Whisper-medium decoder training", 8, 16, 16, 448, 64, None, True),
           ("Gemma3-12B training, local layers", 2, 16, 8, 2048, 240, 1024, True),
           ("Gemma3-12B training, global layers", 2, 16, 8, 2048, 240, None, True))
+
+# The f32 route's shapes: the main paths' (Qwen3-4B's f32 prefill without
+# the log-sum-exp, its training forward with it), the kernel phase's timing
+# shape, Gemma3-12B's training shapes.
+F32_SHAPES = (("Qwen3-4B f32 prefill", 2, 32, 8, 2048, 80, None, False),
+              ("Qwen3-4B f32 training", 2, 32, 8, 2048, 80, None, True),
+              ("Qwen3-4B timing shape", 8, 32, 8, 2048, 80, None, False),
+              ("Gemma3-12B f32 training, global layers", 2, 16, 8, 2048, 240, None, True),
+              ("Gemma3-12B f32 training, local layers", 2, 16, 8, 2048, 240, 1024, True))
 
 
 _GRID = "const dim3 grid(blocks < sms ? blocks : sms);"
@@ -88,9 +112,30 @@ VARIANTS = {
 }
 
 
-def _variants():
-    """``flash_attention_tc_bf16`` of one build of flash_attention_tc.cu per
-    variant, under build/flash_fwd_variants/<name>/, all nvcc runs at once."""
+def _f32_tiling(d: int, fields: str) -> str:
+    return f"template <> struct Tiling<{d}> {{ static constexpr int {fields}; }};"
+
+
+_T80 = "BKV = 64, STAGES = 2, DCH = 80, HOLD = 1, SPLIT = 0"
+# Design choices of the f32 kernel, undone or changed: round-robin blocks;
+# one block a CTA; P V into two fresh accumulators of 40 columns at D = 80
+# (one of all 80 in the kernel); 32-key tiles in four stages at D = 80; Q
+# split two k-steps at a time where it is split at use (D = 128 and 240;
+# four in the kernel).
+F32_VARIANTS = {
+    "round_robin": {_BCAST: "x += gridDim.x;"},
+    "one_block_a_cta": {_GRID: "const dim3 grid(blocks);"},
+    "dch_40_at_80": {_f32_tiling(80, _T80): _f32_tiling(80, _T80.replace("DCH = 80", "DCH = 40"))},
+    "keys_32_at_80": {_f32_tiling(80, _T80): _f32_tiling(
+        80, _T80.replace("BKV = 64, STAGES = 2", "BKV = 32, STAGES = 4"))},
+    "kch_2": {"constexpr int KCH = 4;": "constexpr int KCH = 2;"},
+}
+
+
+def _variants(f32: bool):
+    """The forward entry of one build per variant (of flash_attention_tc.cu,
+    or with ``f32`` of flash_attention.cu), under
+    build/flash_fwd_variants/<name>/, all nvcc runs at once."""
     import ctypes
     import shutil
     import subprocess
@@ -98,21 +143,23 @@ def _variants():
     from chip_smoke import _ptxas_report
     from repro_torch.kernels import build
 
-    source = (build.CSRC / "flash_attention_tc.cu").read_text()
+    cu, entry = _SOURCE[f32]
+    source = (build.CSRC / cu).read_text()
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in (F32_VARIANTS if f32 else VARIANTS).items():
         text = source
         for old, new in subs.items():
             if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} is not in flash_attention_tc.cu")
+                raise RuntimeError(f"variant {name}: {old!r} is not in {cu}")
             text = text.replace(old, new)
         out = ROOT / "build" / "flash_fwd_variants" / name
         out.mkdir(parents=True, exist_ok=True)
-        (out / "flash_attention_tc.cu").write_text(text)
-        shutil.copy(build.CSRC / "hopper.cuh", out / "hopper.cuh")
+        (out / cu).write_text(text)
+        for header in build.CSRC.glob("*.cuh"):
+            shutil.copy(header, out / header.name)
         procs[name] = (out / "lib.so", subprocess.Popen(
             [build._nvcc(), *build.ARCH, *build.FLAGS, "-Xptxas", "-v", "-shared", "-o",
-             str(out / "lib.so"), str(out / "flash_attention_tc.cu")],
+             str(out / "lib.so"), str(out / cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
     for name, (so, proc) in procs.items():
@@ -121,17 +168,43 @@ def _variants():
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         for line in _ptxas_report(log):
             print(f"[turns] variant {name} ptxas {line}")
-        print(f"[turns] variant {name} highest register: {_registers(so)}")
-        fn = ctypes.CDLL(str(so)).flash_attention_tc_bf16
-        fn.argtypes, fn.restype = build.SIGNATURES["flash_attention_tc_bf16"]
-        fns[f"variant {name}"] = fn
+        print(f"[turns] variant {name} highest register: {_registers(so, f32)}")
+        lib = ctypes.CDLL(str(so))
+        fns[f"variant {name}"] = _bind(lib, entry)
     return fns
 
 
-def _registers(lib: Path) -> dict:
-    """The highest register each ``flash_attention_tc_kernel<D>`` instance of a
-    built library touches in its SASS: past 167, the consumers use registers
-    that ``setmaxnreg`` moved to them beyond the launch bound's 168."""
+# Per route: the source, its entry, and the kernel whose registers to read.
+_SOURCE = {False: ("flash_attention_tc.cu", "flash_attention_tc_bf16"),
+           True: ("flash_attention.cu", "flash_attention_f32")}
+_KERNEL = {False: "flash_attention_tc_kernel<", True: "flash_attention_f32_kernel<"}
+
+
+def _bind(lib, entry: str):
+    """``entry`` of a loaded library, with its argument types: this tree's
+    signature, or for an f32 entry without a scratch argument (a tree from
+    before the pre-pass) one pointer fewer."""
+    from repro_torch.kernels import build
+
+    fn = getattr(lib, entry)
+    argtypes, restype = build.SIGNATURES[entry]
+    if entry == "flash_attention_f32":
+        if hasattr(lib, "flash_attention_f32_scratch"):
+            scratch = lib.flash_attention_f32_scratch
+            scratch.argtypes, scratch.restype = build.SIGNATURES["flash_attention_f32_scratch"]
+            fn.scratch = scratch
+        else:
+            argtypes = argtypes[:5] + argtypes[6:]
+    fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
+def _registers(lib: Path, f32: bool = False) -> dict:
+    """The highest register each kernel instance of the route (with ``f32``,
+    ``flash_attention_f32_kernel<D>``, else ``flash_attention_tc_kernel<D>``)
+    of a built library touches in its SASS: past 167, the consumers use
+    registers that ``setmaxnreg`` moved to them beyond the launch bound's
+    168."""
     import re
     import shutil
     import subprocess
@@ -144,29 +217,40 @@ def _registers(lib: Path) -> dict:
     out = {}
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
         name = _kernel_name(body.split("\n", 1)[0])
-        if name.startswith("flash_attention_tc_kernel<"):
+        if name.startswith(_KERNEL[f32]):
             out[name] = max(int(r) for r in re.findall(r"\bR(\d+)\b", body))
     return out
 
 
-def _entry(tree: Path):
-    """``flash_attention_tc_bf16`` of the kernel library that checkout
-    ``tree`` builds from its own sources with its own build module."""
+def _entry(tree: Path, f32: bool = False):
+    """The forward entry of the route (``flash_attention_tc_bf16`` or
+    ``flash_attention_f32``) of the kernel library that checkout ``tree``
+    builds from its own sources with its own build module."""
     spec = importlib.util.spec_from_file_location(
         f"build_of_{abs(hash(str(tree)))}", tree / "src" / "repro_torch" / "kernels" / "build.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.load().flash_attention_tc_bf16
+    return _bind(mod.load(), _SOURCE[f32][1])
+
+
+_scratch = {}   # (entry, shape) -> the f32 pre-pass's scratch of that entry
 
 
 def _call(fn, q, k, v, out, lse, window):
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
+    extra = ()
+    if hasattr(fn, "scratch"):
+        key = (id(fn), b, hq, hkv, sq, skv, d)
+        if key not in _scratch:
+            _scratch[key] = torch.empty(fn.scratch(b, hkv, skv, d), dtype=torch.float32,
+                                        device=q.device)
+        extra = (_scratch[key].data_ptr(),)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             None if lse is None else lse.data_ptr(), b, hq, hkv, sq, skv, d, window or 0,
-             d ** -0.5, torch.cuda.current_stream().cuda_stream)
+             None if lse is None else lse.data_ptr(), *extra, b, hq, hkv, sq, skv, d,
+             window or 0, d ** -0.5, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention_tc_bf16 launch failed with error {err}")
+        raise RuntimeError(f"flash_attention forward launch failed with error {err}")
 
 
 def _graph_ms(fn, reps: int) -> float:
@@ -192,8 +276,11 @@ def _graph_ms(fn, reps: int) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the route to time: bf16 (flash_attention_tc.cu) or f32 "
+                         "(flash_attention.cu)")
     ap.add_argument("--against", type=Path, action="append", default=[],
-                    help="another checkout whose bf16 forward to time in turns with this one's "
+                    help="another checkout whose forward to time in turns with this one's "
                          "(may be repeated)")
     ap.add_argument("--variants", action="store_true",
                     help="also time builds with each of VARIANTS' design choices undone")
@@ -207,48 +294,70 @@ def main() -> int:
 
     from repro_torch.kernels import ref
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = args.dtype == "float32"
+    dtype, tag = (torch.float32, "f32") if f32 else (torch.bfloat16, "bf16")
+    # f32: within 1e-5 of the plain version, bit for bit across two calls;
+    # bf16: within 2e-2 (P is rounded to bf16 before P V).
+    limit = 1e-5 if f32 else 2e-2
     card = _card_line()
-    print(f"[turns] card: {card}")
-    entries = {"this": _entry(ROOT)}
+    print(f"[turns] card: {card}; {args.dtype}")
+    entries = {"this": _entry(ROOT, f32)}
     for other in args.against:
-        entries[f"other ({other})"] = _entry(other.resolve())
+        entries[f"other ({other})"] = _entry(other.resolve(), f32)
     if args.variants:
         from repro_torch.kernels import build
-        print(f"[turns] this highest register: {_registers(build.library_path())}")
-        entries.update(_variants())
+        print(f"[turns] this highest register: {_registers(build.library_path(), f32)}")
+        entries.update(_variants(f32))
     names = list(entries)
     gen = torch.Generator(device="cuda").manual_seed(0)
     results, ok = [], True
-    for what, b, hq, hkv, s, d, window, with_lse in SHAPES:
-        q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(torch.bfloat16)
-        k, v = (torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    for what, b, hq, hkv, s, d, window, with_lse in F32_SHAPES if f32 else SHAPES:
+        q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
         out = torch.empty_like(q)
         lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda") if with_lse else None
         plain = _plain_by_head(ref.flash_attention, q, k, v, causal=True, window=window).float()
         plain_lse = (_plain_by_head(ref.flash_attention_lse, q, k, window=window)
                      if with_lse else None)
-        row = {"what": what, "shape": f"q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}] bf16 causal"
+        row = {"what": what, "shape": f"q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}] {tag} causal"
                + (f" window {window}" if window else ""), "lse": with_lse, "max_abs_err": {},
                "ms": {name: [] for name in names}}
         for name in names:
             out.zero_()
             _call(entries[name], q, k, v, out, lse, window)
             torch.cuda.synchronize()
+            first = out.clone()
             err = (out.float() - plain).abs().max().item()
             lse_err = (lse - plain_lse).abs().max().item() if with_lse else 0.0
             row["max_abs_err"][name] = [err, lse_err] if with_lse else err
-            if not (err <= 2e-2 and lse_err <= 1e-5):
+            same = True
+            if f32:
+                _call(entries[name], q, k, v, out, lse, window)
+                torch.cuda.synchronize()
+                same = torch.equal(first, out)
+            del first
+            if not (err <= limit and lse_err <= 1e-5 and same):
                 ok = False
                 print(f"[turns] {what}: {name} disagrees with the plain version: output "
-                      f"{err}, log-sum-exp {lse_err}")
+                      f"{err}, log-sum-exp {lse_err}, two calls bit for bit {same}")
         del plain, plain_lse
         for name in (*names, *reversed(names)):
             row["ms"][name].append(_graph_ms(
                 lambda: _call(entries[name], q, k, v, out, lse, window), args.reps))  # noqa: B023
         flops = 4.0 * d * b * hq * _causal_pairs(s, s, window)
-        nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + (4 * b * hq * s if with_lse else 0)
-        row["bound_ms"], row["bound_by"] = _bound(flops, nbytes, peak=BF16_FLOPS)
+        nbytes = (q.element_size() * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+                  + (4 * b * hq * s if with_lse else 0))
+        # f32: three TF32 passes of the products at the TF32 peak.
+        row["bound_ms"], row["bound_by"] = (_bound(3 * flops, nbytes, peak=TF32_FLOPS) if f32
+                                            else _bound(flops, nbytes, peak=BF16_FLOPS))
+        if f32:   # each build's launches apart: the pre-pass (where it has one), the kernel
+            parts = (("pre-pass", "tf32_split_kernel"), ("kernel", "flash_attention"))
+            row["by_kernel"] = {name: _by_kernel(
+                lambda: _call(entries[name], q, k, v, out, lse, window), parts)  # noqa: B023
+                for name in names}
         row["sdpa_ms"] = None if window else _graph_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
             args.reps)
@@ -258,16 +367,21 @@ def main() -> int:
         ratios = "".join(f", this / {name} {this / min(ts):.3f}"
                          for name, ts in row["ms"].items() if name != "this")
         sdpa = "" if row["sdpa_ms"] is None else f", SDPA {row['sdpa_ms']:.4f} ms"
+        split = "" if not f32 else "; by launch " + "; ".join(
+            f"{name} " + " ".join(f"{label} {ms:.4f}" for label, ms in parts.items())
+            for name, parts in row["by_kernel"].items())
         print(f"[turns] {what} {row['shape']}{' (keeping the log-sum-exp)' if with_lse else ''}: "
               f"{line} ms{ratios}{sdpa}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-              f"this at {row['bound_ms'] / this:.2f} of it); max_abs_err {row['max_abs_err']}")
+              f"this at {row['bound_ms'] / this:.2f} of it){split}; max_abs_err "
+              f"{row['max_abs_err']}")
         results.append(row)
         del q, k, v, out, lse
         torch.cuda.empty_cache()
 
     # The host's share: one call of each entry at Whisper's prompt, enqueued
-    # 200 times without a graph (the wgmma kernel encodes four tensor maps).
-    q = torch.randn((8, 16, 224, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    # 200 times without a graph (the wgmma kernels encode their tensor maps
+    # for every call).
+    q = torch.randn((8, 16, 224, 64), generator=gen, device="cuda").to(dtype)
     k, v, out = torch.randn_like(q), torch.randn_like(q), torch.empty_like(q)
     host = {}
     for name in (*names, *reversed(names)):
@@ -278,9 +392,10 @@ def main() -> int:
             _call(entries[name], q, k, v, out, None, None)
         host.setdefault(name, []).append((time.perf_counter() - t0) / 200 * 1e6)
         torch.cuda.synchronize()
-    print(f"[turns] host us a call at q[8,16,224,64]: "
+    print(f"[turns] host us a call at q[8,16,224,64] {tag}: "
           + "; ".join(f"{name} {' '.join(f'{t:.1f}' for t in ts)}" for name, ts in host.items()))
-    record = {"card": card, "reps": args.reps, "shapes": results, "host_us": host}
+    record = {"card": card, "dtype": args.dtype, "reps": args.reps, "shapes": results,
+              "host_us": host}
     line = json.dumps(record)
     print(line)
     if args.json:

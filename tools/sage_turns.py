@@ -31,6 +31,7 @@ result that disagrees exits non-zero too.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import sys
 import time
@@ -44,7 +45,6 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from chip_smoke import FEDGL_ARGS, SPREAD_ARGS, _bound, _card_line  # noqa: E402
 from flash_bwd_turns import _by_kernel, _graph_ms  # noqa: E402
-from mma_tf32_ceiling import _library  # noqa: E402
 
 # (what, the launcher's flags, the layers' widths)
 PATHS = (("SpreadFGL Coauthor-CS", SPREAD_ARGS, (6805, 32)),
@@ -52,6 +52,16 @@ PATHS = (("SpreadFGL Coauthor-CS", SPREAD_ARGS, (6805, 32)),
 RANDOM_DENSITY = 2e-3        # chip_smoke.py's random adjacency
 KERNELS = (("index", "sage_index_kernel"), ("gather", "sage_gather_kernel"),
            ("fix-up", "sage_fixup_kernel"))
+
+
+def _library(tree: Path):
+    """The kernel library that checkout ``tree`` builds from its own sources
+    with its own build module."""
+    spec = importlib.util.spec_from_file_location(
+        f"build_of_{abs(hash(str(tree)))}", tree / "src" / "repro_torch" / "kernels" / "build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load()
 
 
 def _caller(lib, adj, h, out):
