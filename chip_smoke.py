@@ -49,7 +49,14 @@ Phases (any failure raises, and the script exits non-zero):
    [8,8,2048,240], global and window 1024), the bf16 training forward and
    backward at its training shape (q [2,16,2048,240], kv 8 heads, window
    1024 and global), and the f32 route's forward and backward there
-   (global), each held and timed as above, two backward runs bit for bit.
+   (global) and at Whisper's decoder training shape (q [8,16,448,64]), each
+   held and timed as above, two backward runs bit for bit. At hymba-1.5b's
+   smoke config's head dim, 20, which no kernel instance has (q
+   [2,5,128,20], kv 1 head, window 1024 and global): every kernel in bf16
+   and f32, forward (with and without the row log-sum-exp) and backward,
+   zero-padded to the instance 32 and cut back, one launch a call, held to
+   the plain versions at head dim 20 with the limits above, two backward
+   runs bit for bit, each timed beside SDPA and its bound at head dim 20.
 3. Small training runs of every method and option (SpreadFGL, FedSage+,
    partial participation, async and gossip aggregation, GCN and GAT) and
    small f32 serving runs (the qwen3-4b, gemma3-12b, olmoe-1b-7b,
@@ -60,8 +67,8 @@ Phases (any failure raises, and the script exits non-zero):
    CPU (the kernels' plain versions), from the same weights, noise and
    prompts; the trainers draw their own participation masks and async
    schedules on both; whisper-medium's smoke config with its frames through
-   the encoder, hymba-1.5b's at d_model 160 (``HYMBA_SMOKE``: head dim 32
-   where the smoke config's 20 has no kernel instance), xlstm-125m's, and
+   the encoder, hymba-1.5b's at d_model 160 (``HYMBA_SMOKE``: head dim 32,
+   an instance; phase 5 serves its smoke config's own 20), xlstm-125m's, and
    gemma3-12b's at head dim 240 (``GEMMA_D240_SMOKE``, its full config's).
    Then the qwen3-4b and olmoe-1b-7b smoke configs in
    bf16 on the card, the prefill through the tensor-core kernel against the
@@ -135,7 +142,20 @@ Phases (any failure raises, and the script exits non-zero):
    against their measured seconds (its ``compute_s`` a bound) and peak
    memory (the step's within 10 %); then the fleet's Qwen3-4B records and
    ``gossip_dryrun``'s line are printed.
-5. One JSON line describing every kernel, the card line, and the result line
+5. The four examples of ``examples_torch/`` on the card, each with the launch
+   counters set to 0 just before and read just after, its wall seconds and
+   peak memory printed: ``quickstart`` (its rounds bit for bit a plain
+   ``fit(rounds=10)`` from the same initial state, ``sage_aggregate`` and
+   ``sim_topk`` launched); ``spreadfgl_multiserver`` (each of its six
+   methods: losses finite, accuracies in [0, 1], ``sage_aggregate``
+   launched, and ``sim_topk`` by the methods with the imputation round);
+   ``serve_lm`` for each of the ten arch ids (one f32 flash launch per
+   attention layer, hymba-1.5b at head dim 20, greedy tokens equal to the
+   CPU's from the same weights); ``train_lm_gossip`` at xLSTM-125M full
+   width on 4 pods sharing the card, cut to ``GOSSIP_EXAMPLE_STEPS`` steps a
+   mode (the pods identical after every all-reduce step, their mean kept by
+   every gossip exchange, losses finite).
+6. One JSON line describing every kernel, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or without the repository around it, it exits
@@ -210,8 +230,9 @@ F32_TRAIN_ARGS = ["--arch", "qwen3-4b", "--variant", "full", "--batch", "2", "--
 # which drops nothing; its runs at this factor drop (token, k) slots.
 TIGHT_CAPACITY = 0.5
 # hymba's smoke config has head dim 20 (d 100, 5 heads), which the flash
-# kernels do not take: its card runs use the smoke config at this width and
-# head dim 32, on both devices.
+# kernels run zero-padded to 32 (phase 2's D20_CASES, phase 5's serve_lm);
+# these small runs, card against CPU, take the instance 32 itself at this
+# width, on both devices.
 HYMBA_SMOKE = {"d_model": 160, "head_dim": 32}
 # gemma3-12b's smoke config at its full config's head dim, 240 (d_model 128,
 # 4 q heads of 240): its small runs, card against CPU, take the D = 240
@@ -1274,7 +1295,18 @@ D64_TRAIN_CASES = (("Hymba-1.5B training", 2, 25, 5, 2048, 64, 1024),
 # on the 3-pass TF32 routes (D240_F32_CASES, _check_flash_f32_cases).
 D240_TRAIN_CASES = (("Gemma3-12B training, local layers", 2, 16, 8, 2048, 240, 1024),
                     ("Gemma3-12B training, global layers", 2, 16, 8, 2048, 240, None))
-D240_F32_CASES = (("Gemma3-12B training, global layers", 2, 16, 8, 2048, 240),)
+D240_F32_CASES = (("Gemma3-12B training, global layers", 2, 16, 8, 2048, 240, None),)
+# The f32 routes at Whisper's decoder training shape (batch 8 x 448, MHA).
+D64_F32_CASES = (("Whisper-medium decoder training", 8, 16, 16, 448, 64, None),)
+# hymba-1.5b's smoke config (the examples' serve_lm): head dim 20, which no
+# kernel instance has, so q, k, v (and o, dO) go zero-padded to the next, 32
+# (``flash_attention.at_kernel_head_dim``); its windowed layers (window 64,
+# its smoke window) and its global ones, 5 heads over 1 kv head, 128 tokens.
+# Every kernel holds them: the bf16 forward (_check_flash_cases), the bf16
+# training forward and backward (_check_flash_train_cases), the f32 ones
+# (_check_flash_f32_cases).
+D20_CASES = (("Hymba-1.5B smoke, windowed layers", 2, 5, 1, 128, 20, 64),
+             ("Hymba-1.5B smoke, global layers", 2, 5, 1, 128, 20, None))
 
 
 def _check_flash_train_cases(dev, gen, shapes):
@@ -1375,42 +1407,55 @@ def _check_flash_train_cases(dev, gen, shapes):
 
 def _check_flash_f32_cases(dev, gen, shapes):
     """The f32 route's forward (keeping the row log-sum-exp) and backward at
-    each of ``shapes`` (what, b, hq, hkv, s, d; causal, no window), from f32
+    each of ``shapes`` (what, b, hq, hkv, s, d, window; causal), from f32
     draws, with _check_flash_bwd's limits: the output within 1e-5 of the
     plain version, the row log-sum-exp within 1e-5, each gradient within
     1e-5 of its max |grad| of the plain formula in float64 (or within the
     plain f32 version's own error against it, where that is larger), a
     second backward bit for bit. Each pass is timed (the forward as serving
     calls it, without the log-sum-exp, and with it) against SDPA in f32
-    without TF32 (its backward through autograd) and the bound of three TF32
-    passes of its products over the causal pairs, two forward and five
-    backward, at the TF32 peak, beside one f32 pass on the CUDA cores.
-    Returns (forward cases, backward cases)."""
+    without TF32 (for a window, with a boolean mask and k, v repeated to the
+    q heads; its backward through autograd) and the bound of three TF32
+    passes of its products over the causal (windowed) pairs, two forward
+    and five backward, at the TF32 peak, beside one f32 pass on the CUDA
+    cores. Returns (forward cases, backward cases)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
 
-    def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    def sdpa_of(q, k, v, window, grad=False):
+        """SDPA on these inputs as a call, and its inputs (leaves needing a
+        gradient where ``grad``): for a window, k and v repeated to the q
+        heads and the boolean mask made beforehand."""
+        if window:      # SDPA's masked kernel takes no GQA
+            k, v = (t.repeat_interleave(q.shape[1] // k.shape[1], dim=1) for t in (k, v))
+        q, k, v = (t.detach().requires_grad_(grad) for t in (q, k, v))
+        if not window:
+            return (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                           enable_gqa=True)), (q, k, v)
+        pos = torch.arange(q.shape[2], device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        return (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)), (q, k, v)
 
     fwd_cases, bwd_cases = [], []
-    for what, b, hq, hkv, s, d in shapes:
+    for what, b, hq, hkv, s, d, window in shapes:
         q, do = (torch.randn((b, hq, s, d), generator=gen, device=dev) for _ in range(2))
         k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev) for _ in range(2))
         before = (kflash.launches_f32, kflash.launches_bwd_f32)
-        o, lse = kflash.launch(q, k, v, with_lse=True)
-        got = kflash.launch_bwd(q, k, v, o, do, lse)
-        again = kflash.launch_bwd(q, k, v, o, do, lse)
+        o, lse = kflash.launch(q, k, v, window=window, with_lse=True)
+        got = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
+        again = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
         if (kflash.launches_f32, kflash.launches_bwd_f32) != (before[0] + 1, before[1] + 2):
             raise AssertionError("flash_attention f32 training kernels did not take their "
                                  "routes (launches_f32, launches_bwd_f32)")
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         del again
-        o_err = (o - ref.flash_attention(q, k, v)).abs().max().item()
-        lse_err = (lse - ref.flash_attention_lse(q, k)).abs().max().item()
-        plain = ref.flash_attention_bwd(q, k, v, o, do, lse)
-        exact = ref.flash_attention_bwd(*(t.double() for t in (q, k, v, o, do, lse)))
+        o_err = (o - ref.flash_attention(q, k, v, window=window)).abs().max().item()
+        lse_err = (lse - ref.flash_attention_lse(q, k, window=window)).abs().max().item()
+        plain = ref.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+        exact = ref.flash_attention_bwd(*(t.double() for t in (q, k, v, o, do, lse)),
+                                        window=window)
         errs, line = [], []
         for gname, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
             err = (g.double() - e).abs().max().item()
@@ -1422,7 +1467,8 @@ def _check_flash_f32_cases(dev, gen, shapes):
                                      f"disagrees with its plain version: {err} > {limit}")
             errs.append(err)
         del got, plain, exact
-        shape = f"q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}] f32 causal"
+        shape = f"q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}] f32 causal" + (
+            f" window {window}" if window else "")
         print(f"[smoke] flash_attention f32 training forward {what} {shape}: output "
               f"max_abs_err {o_err:.3g} (limit 1e-05); lse max_abs_err {lse_err:.3g} (limit "
               f"1e-05); backward max_abs_err {'; '.join(line)}; two runs bit for bit: {same}")
@@ -1430,18 +1476,19 @@ def _check_flash_f32_cases(dev, gen, shapes):
             raise AssertionError(f"flash_attention f32 kernels at {what}: output {o_err}, "
                                  f"lse {lse_err}, bit for bit {same}")
 
-        pairs = b * hq * _causal_pairs(s, s, None)
+        pairs = b * hq * _causal_pairs(s, s, window)
         io = 2 * b * hq * s * d + 2 * b * hkv * s * d
-        fwd_ms = _time_ms(lambda: kflash.launch(q, k, v), 10)
-        lse_ms = _time_ms(lambda: kflash.launch(q, k, v, with_lse=True), 10)
-        fwd_plain = _time_ms(lambda: ref.flash_attention(q, k, v), 3)
-        fwd_lib = _time_ms(lambda: sdpa(q, k, v), 10)
+        fwd_ms = _time_ms(lambda: kflash.launch(q, k, v, window=window), 10)
+        lse_ms = _time_ms(lambda: kflash.launch(q, k, v, window=window, with_lse=True), 10)
+        fwd_plain = _time_ms(lambda: ref.flash_attention(q, k, v, window=window), 3)
+        fwd_lib = _time_ms(sdpa_of(q, k, v, window)[0], 10)
         fwd_bound, fwd_by = _bound(3 * 4.0 * d * pairs, 4 * io, peak=TF32_FLOPS)
-        bwd_ms = _time_ms(lambda: kflash.launch_bwd(q, k, v, o, do, lse), 5)
-        bwd_plain = _time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, do, lse), 2)
-        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-        out = sdpa(qg, kg, vg)
-        bwd_lib = _time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+        bwd_ms = _time_ms(lambda: kflash.launch_bwd(q, k, v, o, do, lse, window=window), 5)
+        bwd_plain = _time_ms(lambda: ref.flash_attention_bwd(q, k, v, o, do, lse,
+                                                             window=window), 2)
+        sdpa, grad_leaves = sdpa_of(q, k, v, window, grad=True)
+        out = sdpa()
+        bwd_lib = _time_ms(lambda: torch.autograd.grad(out, grad_leaves, do,
                                                        retain_graph=True), 5)
         bwd_bytes = 4 * (2 * io) + 4 * b * hq * s
         bwd_bound, bwd_by = _bound(3 * 10.0 * d * pairs, bwd_bytes, peak=TF32_FLOPS)
@@ -1461,7 +1508,7 @@ def _check_flash_f32_cases(dev, gen, shapes):
         bwd_cases.append({"what": what, "shape": shape, "max_abs_err": max(errs), "ms": bwd_ms,
                           "plain_ms": bwd_plain, "bound_ms": bwd_bound, "bound_by": bwd_by,
                           "bound_f32_ms": f32_bwd, "library_ms": bwd_lib})
-        del q, k, v, o, do, lse, qg, kg, vg, out
+        del q, k, v, o, do, lse, sdpa, grad_leaves, out
         torch.cuda.empty_cache()
     return fwd_cases, bwd_cases
 
@@ -2614,6 +2661,224 @@ def _f32_train_path(dev):
     return counts
 
 
+# -- phase 5: the examples -----------------------------------------------------
+
+# train_lm_gossip at the reference's sizes (xLSTM-125M full, 4 pods, batch 8 x
+# 128 tokens, gossip every 4 steps), cut from its 100 steps to these.
+GOSSIP_EXAMPLE_STEPS = 8
+
+
+def _example(name: str):
+    """``examples_torch/<name>.py`` as the module ``examples_torch.<name>``."""
+    import importlib
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    return importlib.import_module(f"examples_torch.{name}")
+
+
+def _history_ok(what: str, hist: dict) -> None:
+    """Every loss finite, every accuracy and F1 in [0, 1]."""
+    if not (all(math.isfinite(x) for x in hist["loss"])
+            and all(0.0 <= x <= 1.0 for key in ("acc", "f1") for x in hist[key])):
+        raise AssertionError(f"{what}: loss {hist['loss']}, acc {hist['acc']}, f1 {hist['f1']}")
+
+
+def _example_start() -> float:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    return time.perf_counter()
+
+
+def _example_end(t0: float) -> tuple:
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def _quickstart_example() -> dict:
+    """``examples_torch/quickstart.py`` on the card at its own sizes (Cora
+    stand-in at scale 0.15, 6 clients, FedGL, 4 steps then ``fit`` for 6
+    rounds): losses finite, accuracies in [0, 1], both FGL kernels
+    launched, and every round bit for bit a plain ``fit(rounds=10)`` from
+    the same initial state."""
+    qs = _example("quickstart")
+    t0 = _example_start()
+    out = qs.main(["--device", "cuda"])
+    wall, peak = _example_end(t0)
+    counts = _launches()
+    got = {key: out["step"][key] + out["fit"][key] for key in ("round", "loss", "acc", "f1")}
+    _history_ok("quickstart", got)
+    _, plain = out["trainer"].fit(out["batch"], rounds=len(got["round"]))
+    same = all(got[key] == plain[key] for key in got)
+    print(f"[smoke] example quickstart --device cuda: {wall:.1f} s wall, peak memory "
+          f"{peak / 1e9:.3f} GB; launches sage_aggregate {counts['sage_aggregate']}, sim_topk "
+          f"{counts['sim_topk']}; rounds 0-3 by step and 4-9 by fit(state=) bit for bit a "
+          f"plain fit(rounds=10): {same}")
+    if not (counts["sage_aggregate"] > 0 and counts["sim_topk"] > 0):
+        raise AssertionError(f"quickstart did not launch the FGL kernels: {counts}")
+    if not same:
+        raise AssertionError(f"quickstart: step + fit(state=) {got} differ from a plain fit "
+                             f"{plain}")
+    return counts
+
+
+def _multiserver_example() -> list:
+    """``examples_torch/spreadfgl_multiserver.py`` on the card at its own
+    sizes (Citeseer stand-in at scale 0.15, six methods, 12 rounds each),
+    each method's ``fit`` with the launch counters set to 0 just before it
+    and read just after: losses finite, accuracies in [0, 1],
+    ``sage_aggregate`` launched by every method and ``sim_topk`` by those
+    with the imputation round (FedGL and both SpreadFGL rows)."""
+    from repro_torch.core.fedgl import FGLTrainer
+
+    ms = _example("spreadfgl_multiserver")
+    fit, per_fit = FGLTrainer.fit, []
+
+    def counted(self, *args, **kwargs):
+        _reset_launches()
+        result = fit(self, *args, **kwargs)
+        per_fit.append(_launches())
+        return result
+
+    t0 = _example_start()
+    FGLTrainer.fit = counted
+    try:
+        out = ms.main(["--device", "cuda"])
+    finally:
+        FGLTrainer.fit = fit
+    wall, peak = _example_end(t0)
+    print(f"[smoke] example spreadfgl_multiserver --device cuda: {wall:.1f} s wall, peak "
+          f"memory {peak / 1e9:.3f} GB")
+    for (name, hist), counts in zip(out["methods"].items(), per_fit, strict=True):
+        _history_ok(f"spreadfgl_multiserver {name}", hist)
+        imputes = name == "FedGL" or name.startswith("SpreadFGL")
+        print(f"[smoke]   {name}: {len(hist['round'])} rounds in {sum(hist['seconds']):.2f} s; "
+              f"launches sage_aggregate {counts['sage_aggregate']}, sim_topk "
+              f"{counts['sim_topk']}")
+        if counts["sage_aggregate"] == 0 or imputes != (counts["sim_topk"] > 0):
+            raise AssertionError(f"spreadfgl_multiserver {name}: launches {counts}")
+    return per_fit
+
+
+def _serve_example() -> list:
+    """``examples_torch/serve_lm.py`` on the card for each of the ten arch
+    ids at its own sizes (smoke config, 4 requests of 16 prompt tokens, 24
+    greedy steps; hymba-1.5b at head dim 20 through the padded kernel), its
+    launch counters set to 0 just before and read just after: one f32 flash
+    launch per attention layer (the smoke configs are f32), and the greedy
+    tokens equal to a CPU run's (the script draws its weights on the CPU
+    from seed 0, so both devices serve the same model)."""
+    from repro_torch import configs
+
+    sl = _example("serve_lm")
+    runs = []
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch, "smoke")
+        t0 = _example_start()
+        out = sl.main(["--arch", arch, "--device", "cuda"])
+        wall, peak = _example_end(t0)
+        counts = _launches()
+        cpu = sl.run(arch, device="cpu")
+        same = np.array_equal(out["tokens"], cpu["tokens"])
+        flash = {name: counts[name] for name in ("flash_attention_f32", "flash_attention_tc",
+                                                 "flash_attention_tc_lse")}
+        print(f"[smoke] example serve_lm --arch {arch} --device cuda: head dim {cfg.head_dim}, "
+              f"{wall:.2f} s wall, peak memory {peak / 1e9:.3f} GB; flash launches {flash}; "
+              f"24 greedy tokens of 4 requests identical to the CPU's: {same}")
+        want = {"flash_attention_f32": _attn_layers(cfg), "flash_attention_tc": 0,
+                "flash_attention_tc_lse": 0}
+        if flash != want:
+            raise AssertionError(f"serve_lm {arch}: flash launches {flash}, expected {want}")
+        if not same:
+            raise AssertionError(f"serve_lm {arch}: the card's greedy tokens "
+                                 f"{out['tokens'].tolist()} differ from the CPU's "
+                                 f"{cpu['tokens'].tolist()}")
+        runs.append(counts)
+        del out, cpu
+    return runs
+
+
+def _check_gossip_example(ranks: list, steps: int, gossip_every: int, eps: float) -> float:
+    """The pods' reports of ``examples_torch/train_lm_gossip.py``: every
+    pod's losses finite; in mode allreduce an exchange after each of the
+    ``steps`` steps, after which every pod's parameters have the same
+    fingerprint; in mode spread an exchange on each gossip step, which
+    changed each pod's parameters (fingerprint after != before). Every
+    exchange keeps the pods' mean: for each leaf the pods' summed sums after
+    within (1e-5 + ``eps``, the parameters' dtype's) of their summed sums of
+    |p| before their summed sums before. Returns the largest such shift, as
+    a share of the summed |p|."""
+    want = {"allreduce": list(range(steps)),
+            "spread": [i for i in range(steps) if (i + 1) % gossip_every == 0]}
+    worst = 0.0
+    for r, rank in enumerate(ranks):
+        losses = rank["allreduce"] + rank["spread"]
+        if not (len(losses) == 2 * steps and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"train_lm_gossip pod {r}: losses {losses}")
+    for mode, steps_at in want.items():
+        per_pod = [rank["exchanges"][mode] for rank in ranks]
+        for r, seen in enumerate(per_pod):
+            if [e["step"] for e in seen] != steps_at:
+                raise AssertionError(f"train_lm_gossip {mode} pod {r}: exchanges at steps "
+                                     f"{[e['step'] for e in seen]}, expected {steps_at}")
+        for i, each in zip(steps_at, zip(*per_pod)):
+            after = [e["print_after"] for e in each]
+            if mode == "allreduce" and len(set(after)) != 1:
+                raise AssertionError(f"train_lm_gossip allreduce step {i}: the pods' parameters "
+                                     f"differ after the exchange (fingerprints {after})")
+            if mode == "spread" and any(e["print_after"] == e["print_before"] for e in each):
+                raise AssertionError(f"train_lm_gossip spread step {i}: an exchange left a "
+                                     f"pod's parameters as they were")
+            before, moved, scale = (np.sum([e[key] for e in each], axis=0)
+                                    for key in ("sum_before", "sum_after", "abs_before"))
+            shift = float(np.max(np.abs(moved - before) / np.maximum(scale, 1e-30)))
+            worst = max(worst, shift)
+            if not shift <= 1e-5 + eps:
+                raise AssertionError(f"train_lm_gossip {mode} step {i}: the exchange moved the "
+                                     f"pods' mean by {shift:.3g} of the summed |p|")
+    return worst
+
+
+def _gossip_example() -> list:
+    """``examples_torch/train_lm_gossip.py`` on the card: xLSTM-125M at full
+    width, 4 pods sharing the card over gloo, batch 8 x 128 tokens, gossip
+    every 4 steps, both modes, cut to ``GOSSIP_EXAMPLE_STEPS`` steps each;
+    the pods' reports held by ``_check_gossip_example``. No kernel of the
+    port is on its path (the xLSTM has no attention): no launches."""
+    from repro_torch import configs
+
+    tl = _example("train_lm_gossip")
+    steps, every = GOSSIP_EXAMPLE_STEPS, 4
+    eps = torch.finfo(getattr(torch, configs.get_config("xlstm-125m", "full").dtype)).eps
+    t0 = time.perf_counter()
+    out = tl.run(steps=steps, batch=8, seq=128, gossip_every=every, variant="full", pods=4,
+                 device="cuda", timeout=300)
+    wall = time.perf_counter() - t0
+    worst = _check_gossip_example(out["ranks"], steps, every, eps)
+    print(f"[smoke] example train_lm_gossip (xlstm-125m full, 4 pods on one card over gloo, "
+          f"8 x 128 tokens, gossip every {every}, {steps} steps a mode): {wall:.1f} s wall "
+          f"(pod start included); losses allreduce {[round(x, 4) for x in out['allreduce']]}, "
+          f"spread {[round(x, 4) for x in out['spread']]}; pods' fingerprints identical after "
+          f"every allreduce step, changed by every spread exchange; the pods' mean kept within "
+          f"{worst:.3g} of the summed |p| (limit {1e-5 + eps:.3g}); peak memory a pod "
+          f"{[round(r['peak_bytes'] / 1e9, 3) for r in out['ranks']]} GB")
+    return []
+
+
+def _examples_phase() -> list:
+    """The four examples of ``examples_torch/`` on the card, each through its
+    ``main`` (``train_lm_gossip`` through ``run``, its steps cut)."""
+    t0 = time.perf_counter()
+    runs = [_quickstart_example()]
+    runs += _multiserver_example()
+    runs += _serve_example()
+    runs += _gossip_example()
+    print(f"[smoke] the examples: {time.perf_counter() - t0:.1f} s wall")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2644,13 +2909,16 @@ def main() -> int:
     flash_tc, flash_f32 = _check_flash(dev, gen)
     flash_tc["cases"] = (_check_flash_cases(dev, gen, D128_CASES)
                          + _check_flash_cases(dev, gen, D64_CASES)
-                         + _check_flash_cases(dev, gen, D240_CASES))
+                         + _check_flash_cases(dev, gen, D240_CASES)
+                         + _check_flash_cases(dev, gen, D20_CASES))
     block = _check_sim_block(dev, gen)
     flash_lse, flash_bwd, flash_bwd_f32 = _check_flash_bwd(dev, gen)
-    fwd_cases, bwd_cases = _check_flash_train_cases(dev, gen, D64_TRAIN_CASES + D240_TRAIN_CASES)
+    fwd_cases, bwd_cases = _check_flash_train_cases(dev, gen, D64_TRAIN_CASES + D240_TRAIN_CASES
+                                                    + D20_CASES)
     flash_lse["cases"] += fwd_cases
     flash_bwd["cases"] += bwd_cases
-    fwd_cases, flash_bwd_f32["cases"] = _check_flash_f32_cases(dev, gen, D240_F32_CASES)
+    fwd_cases, flash_bwd_f32["cases"] = _check_flash_f32_cases(
+        dev, gen, D64_F32_CASES + D240_F32_CASES + D20_CASES)
     flash_f32["cases"] += fwd_cases
     _check_small_run(dev)
     _check_small_serve(dev)
@@ -2679,6 +2947,7 @@ def main() -> int:
     runs.append(_olmoe_train_path(dev))
     runs += _family_paths()
     runs += _gemma_paths(card)
+    runs += _examples_phase()
     for entry, counter in ((sage, "sage_aggregate"), (sim, "sim_topk"),
                            (flash_tc, "flash_attention_tc"),
                            (flash_f32, "flash_attention_f32"), (block, "sim_block"),

@@ -31,13 +31,23 @@ CTAs split by output).
 Neither falls back to the other; both are deterministic. Their plain version is
 ``ref.flash_attention_bwd``. ``FlashAttention`` ties the two passes together
 for autograd.
+
+Each kernel has template instances for the head dims in ``HEAD_DIMS``. Any
+other head dim d up to the largest runs through the smallest instance
+D >= d (``at_kernel_head_dim``, which both ``launch`` and ``launch_bwd`` go
+through): q, k, v (and o, dO) are zero-padded to D, the kernel is called
+with the scale of the true d, and the outputs are cut back to d. Zero
+columns add nothing to any score or to the row log-sum-exp, and their
+gradients are zero, so the result is that of attention at d; the call is
+one launch. A head dim above the largest instance raises.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build, meta, ref
 
@@ -53,6 +63,45 @@ launches_bwd_f32 = 0  # backward, float32, 3-pass TF32 (flash_attention_bwd.cu)
 
 HEAD_DIMS = (32, 64, 80, 128, 240)   # each kernel's template instances
 _GRID_Y = 65535                 # query blocks (64 or 128 rows) ride the grid's y axis
+
+
+def kernel_head_dim(d: int) -> int:
+    """The template instance a head dim of ``d`` runs through: the smallest
+    of ``HEAD_DIMS`` at or above it."""
+    for inst in HEAD_DIMS:
+        if 1 <= d <= inst:
+            return inst
+    raise ValueError(f"flash_attention kernel has no head dim {d}; it takes head dims from 1 "
+                     f"to {HEAD_DIMS[-1]} (instances {HEAD_DIMS}, a smaller one zero-padded "
+                     f"to the next)")
+
+
+def at_kernel_head_dim(fn: Callable, q: torch.Tensor, *rest: torch.Tensor,
+                       scale: Optional[float] = None, **kw):
+    """``fn(q, *rest, scale=scale, **kw)`` at a head dim the kernels have.
+
+    ``fn`` is a pass of attention (a kernel's launch or its plain version)
+    whose 4-D arguments and results share q's last axis, the head dim d.
+    Where d is an instance, or the arguments do not agree on it (``fn``
+    then refuses them), ``fn`` is called as it is. Otherwise every 4-D
+    argument is zero-padded along its last axis to ``kernel_head_dim(d)``,
+    ``fn`` is called with the scale of d (``scale``, else 1/sqrt(d)), and
+    every 4-D result is cut back to d; others (the row log-sum-exp) are
+    returned as they are."""
+    d = q.shape[-1] if q.ndim == 4 else None
+    if d is None or d in HEAD_DIMS or any(t.ndim == 4 and t.shape[-1] != d for t in rest):
+        return fn(q, *rest, scale=scale, **kw)
+    width = kernel_head_dim(d)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+
+    def pad(t):
+        return F.pad(t, (0, width - d)) if t.ndim == 4 else t
+
+    def cut(t):
+        return t[..., :d].contiguous() if t.ndim == 4 else t
+
+    out = fn(pad(q), *(pad(t) for t in rest), scale=scale, **kw)
+    return tuple(cut(t) for t in out) if isinstance(out, tuple) else cut(out)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -95,8 +144,13 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Returns the output, or with ``with_lse`` the pair (output, each row's
     log-sum-exp of its scaled scores ``[B, Hq, Sq]`` f32, -inf for a fully
-    masked row), which the backward pass needs.
+    masked row), which the backward pass needs. Any head dim up to the
+    largest of ``HEAD_DIMS`` (``at_kernel_head_dim``).
     """
+    return at_kernel_head_dim(_launch, q, k, v, window=window, scale=scale, with_lse=with_lse)
+
+
+def _launch(q, k, v, *, window, scale, with_lse):
     global launches, launches_tc, launches_tc_lse, launches_f32
     b, hq, hkv, sq, skv, d, scale = _check(q, k, v, window, scale)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -134,7 +188,12 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
                do: torch.Tensor, lse: torch.Tensor, *, window: Optional[int] = None,
                scale: Optional[float] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) on the card; arguments as ``ref.flash_attention_bwd``."""
+    """(dq, dk, dv) on the card; arguments as ``ref.flash_attention_bwd``.
+    Any head dim up to the largest of ``HEAD_DIMS`` (``at_kernel_head_dim``)."""
+    return at_kernel_head_dim(_launch_bwd, q, k, v, o, do, lse, window=window, scale=scale)
+
+
+def _launch_bwd(q, k, v, o, do, lse, *, window, scale):
     global launches_bwd, launches_bwd_tc, launches_bwd_f32
     b, hq, hkv, sq, skv, d, scale = _check(q, k, v, window, scale)
     if -(-skv // 64) > _GRID_Y:      # the backward's key tiles ride the y axis too

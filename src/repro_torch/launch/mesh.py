@@ -38,6 +38,7 @@ import os
 import pickle
 import shutil
 import tempfile
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -270,7 +271,7 @@ def _rank_entry(rank: int, fn: Callable, world_size: int, device: str, init: str
 
 
 def spawn(fn: Callable, world_size: int, device: str = "cuda", *, args: tuple = (),
-          kwargs: Optional[dict] = None) -> List[Any]:
+          kwargs: Optional[dict] = None, timeout: Optional[float] = None) -> List[Any]:
     """Run ``fn(*args, **kwargs)`` on ``world_size`` new ranks joined by a
     process group, and return each rank's result (picklable) in rank order.
 
@@ -280,15 +281,26 @@ def spawn(fn: Callable, world_size: int, device: str = "cuda", *, args: tuple = 
     ``file://`` in a temporary directory, so no port is fixed. Rank r
     computes on ``cuda:(r % card count)`` (``device="cuda"``) or on the CPU;
     the backend is ``nccl`` when each rank has a card of its own, otherwise
-    ``gloo``. A rank that fails fails the call.
+    ``gloo``. A rank that fails fails the call. With ``timeout``
+    (seconds), the ranks still running then are killed and the call raises
+    ``TimeoutError``.
     """
     import torch.multiprocessing as mp
 
     tmp = tempfile.mkdtemp(prefix="repro-torch-mesh-")
     try:
         init = f"file://{os.path.join(tmp, 'rendezvous')}"
-        mp.spawn(_rank_entry, args=(fn, world_size, device, init, tmp, args, kwargs or {}),
-                 nprocs=world_size, join=True)
+        ranks = mp.spawn(_rank_entry, args=(fn, world_size, device, init, tmp, args,
+                                            kwargs or {}), nprocs=world_size, join=False)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not ranks.join(None if deadline is None
+                             else max(deadline - time.monotonic(), 0.0)):
+            if deadline is not None and time.monotonic() >= deadline:
+                for proc in ranks.processes:
+                    proc.kill()
+                    proc.join()
+                raise TimeoutError(f"mesh.spawn: {world_size} ranks of {fn.__name__} still "
+                                   f"running after {timeout} s; killed")
         results = []
         for r in range(world_size):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:

@@ -677,7 +677,7 @@ def test_flash_attention_f32_nonfinite_inputs(dev, operand, value):
 
 
 def test_flash_attention_refuses_what_it_cannot_run(dev):
-    q = torch.randn((1, 2, 16, 48), device=dev)
+    q = torch.randn((1, 2, 16, 256), device=dev)      # above the largest instance
     with pytest.raises(ValueError, match="head dim"):
         ops.mha(q, q, q)
     q = torch.randn((1, 2, 16, 32), device=dev)
@@ -687,6 +687,58 @@ def test_flash_attention_refuses_what_it_cannot_run(dev):
         ops.mha(q, q.cpu(), q)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.mha(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [(2, 5, 1, 128, 20, 1024),
+                                                 (2, 5, 1, 128, 20, None),
+                                                 (1, 4, 2, 300, 100, 64),
+                                                 (1, 4, 2, 150, 100, None)])
+def test_flash_attention_padded_head_dim(dev, b, hq, hkv, s, d, window, dtype):
+    """A head dim without an instance (hymba-1.5b's smoke config's 20, and
+    100) runs through the next instance, zero-padded: the forward with and
+    without the row log-sum-exp and the backward on their routes, one launch
+    a call, within the limits of the module docstring of the plain versions
+    at the true head dim, and the backward bit for bit across two runs."""
+    q, k, v, do = _flash_bwd_inputs(dev, b, hq, hkv, s, s, d, dtype, seed=s + d)
+    tc = dtype == torch.bfloat16
+    routes = ("launches_tc", "launches_tc_lse", "launches_bwd_tc") if tc else (
+        "launches_f32", "launches_f32", "launches_bwd_f32")
+    before = {name: getattr(kflash, name) for name in _FLASH_COUNTERS}
+    out = ops.mha(q, k, v, window=window)
+    o, lse = kflash.launch(q, k, v, window=window, with_lse=True)
+    got = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
+    again = kflash.launch_bwd(q, k, v, o, do, lse, window=window)
+    torch.cuda.synchronize()
+    after = {name: getattr(kflash, name) for name in before}
+    want = {name: 0 for name in _FLASH_COUNTERS}
+    for name in routes:
+        want[name] += 1
+    want["launches_bwd"] = 2
+    want[routes[2]] = 2
+    assert {name: after[name] - n for name, n in before.items()} == want
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    plain = ref.flash_attention(q, k, v, window=window).float()
+    for o_got in (out, o):
+        assert o_got.shape == q.shape and o_got.dtype == dtype
+        torch.testing.assert_close(o_got.float(), plain, atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref.flash_attention_lse(q, k, window=window),
+                               atol=1e-5, rtol=0)
+    plain_g = ref.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    if dtype == torch.float32:
+        exact = ref.flash_attention_bwd(*(t.double() for t in (q, k, v, o, do, lse)),
+                                        window=window)
+    for i, (name, g, p) in enumerate(zip(("dq", "dk", "dv"), got, plain_g)):
+        assert g.dtype == dtype and g.shape == p.shape, name
+        scale = p.float().abs().max().item()
+        if tc:
+            err = (g.float() - p.float()).abs().max().item()
+            assert err <= 2e-2 * scale, (name, err, scale)
+        else:
+            err = (g.double() - exact[i]).abs().max().item()
+            own = (p.double() - exact[i]).abs().max().item()
+            assert err <= max(1e-5 * scale, own), (name, err, scale, own)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 # The backward: every head dim in both types; ragged lengths, more queries

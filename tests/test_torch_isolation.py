@@ -1,8 +1,8 @@
 """The port stands alone and never hides the device.
 
-- Every ``repro_torch`` module and ``chip_smoke.py`` import with ``jax``
-  blocked, and none of their sources imports ``jax`` or the ``repro``
-  package.
+- Every ``repro_torch`` module, ``chip_smoke.py`` and the examples of
+  ``examples_torch/`` import with ``jax`` blocked, and none of their sources
+  imports ``jax`` or the ``repro`` package.
 - The trainer, the launchers (FGL training, LM training) and the builders of
   LM weights and FGL state raise without CUDA unless told to use the CPU.
 - The modules of the distributed edge layer (ring top-k, meshes, the edge
@@ -27,7 +27,8 @@ from repro_torch.models import transformer
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 
 
 def _modules():
@@ -40,7 +41,9 @@ def test_imports_without_jax():
         "import sys, importlib, importlib.util",
         "sys.modules['jax'] = None",
         f"sys.path.insert(0, {str(ROOT / 'src')!r})",
+        f"sys.path.insert(0, {str(ROOT)!r})",
         *(f"importlib.import_module({m!r})" for m in _modules()),
+        *(f"importlib.import_module('examples_torch.{p.stem}')" for p in EXAMPLES),
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})",
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
         "assert not any(k == 'repro' or k.startswith(('repro.', 'jax.')) for k in sys.modules), "
@@ -137,6 +140,12 @@ def test_mesh_config_builds(tiny_batch, build):
     tr = build(FGLConfig(hidden_dim=4), tiny_batch, device="cpu", **kw)
     got = tr.imputation.sim_mesh if build is make_fedgl else tr.edge_mesh
     assert got.size == 1 and got.rank == 0
+
+
+def test_examples_are_covered():
+    """The four examples of the JAX package have counterparts of the same
+    names, scanned for imports and imported with jax blocked."""
+    assert [p.name for p in EXAMPLES] == sorted(p.name for p in (ROOT / "examples").glob("*.py"))
 
 
 def test_mesh_modules_are_covered():

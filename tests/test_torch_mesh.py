@@ -24,6 +24,7 @@ ROADMAP §3):
 """
 import concurrent.futures
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +43,7 @@ from repro_torch.launch import fgl_train
 from repro_torch.launch import mesh as mesh_lib
 from torch_fgl_parity import (FIT_TOL, assert_histories_close, port_batch, port_state,
                               replay_noises)
-from torch_mesh_workers import portable_config, world_cases
+from torch_mesh_workers import portable_config, sleep_for, world_cases
 from torch_parity import assert_topk_match, gram_rows
 
 ROUNDS = 2
@@ -271,3 +272,11 @@ def test_spread_training_params_match_reference(world2):
         for path, leaf in got:
             np.testing.assert_allclose(leaf, want[path], atol=1e-4, rtol=1e-4,
                                        err_msg=jax.tree_util.keystr(path))
+
+
+def test_spawn_kills_ranks_past_its_timeout():
+    """Ranks still running at ``timeout`` are killed, and spawn raises."""
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="still running after 3 s"):
+        mesh_lib.spawn(sleep_for, 2, "cpu", args=(600,), timeout=3)
+    assert time.monotonic() - t0 < 60

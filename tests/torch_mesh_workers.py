@@ -7,6 +7,7 @@ inputs come from the parent as numpy arrays or the port's own types, and
 results go back as numpy.
 """
 import dataclasses
+import time
 
 import torch
 
@@ -124,3 +125,8 @@ def spread_steps(params, arch, batches, every):
 def portable_config(cfg):
     """The reference's ``FGLConfig`` as the port's (a picklable copy)."""
     return FGLConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(FGLConfig)})
+
+
+def sleep_for(seconds: float) -> None:
+    """A rank that outlives a short ``mesh.spawn`` timeout."""
+    time.sleep(seconds)
