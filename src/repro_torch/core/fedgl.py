@@ -49,6 +49,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import assessor as assessor_lib
 from repro_torch.core import gnn, imputation, strategies
 from repro_torch.core.types import ClientBatch, FGLConfig
@@ -232,7 +233,8 @@ class FGLTrainer:
         out = fn(*_map_nodes(lambda x: x[lo:lo + nb], stacked), *shared)
         leaves: list = []
         _map_nodes(leaves.append, out)
-        gathered = iter(mesh_lib.all_gather_tree(mesh, leaves))
+        with trace.span("fgl.impute.gather"):
+            gathered = iter(mesh_lib.all_gather_tree(mesh, leaves))
         return _map_nodes(lambda _: next(gathered), out)
 
     # -- local training (Algorithm 1 lines 8-9) ------------------------------
@@ -255,9 +257,10 @@ class FGLTrainer:
         return torch.sum(self._client_losses(params_m, logits, batch))
 
     def _local_rounds(self, params, opt_state, batch: ClientBatch):
-        for _ in range(self.cfg.local_rounds):
-            grads = _grad(lambda p: self._client_loss(p, batch), params)
-            params, opt_state = self.opt.update(grads, opt_state, params)
+        with trace.span("fgl.local"):
+            for _ in range(self.cfg.local_rounds):
+                grads = _grad(lambda p: self._client_loss(p, batch), params)
+                params, opt_state = self.opt.update(grads, opt_state, params)
         return params, opt_state
 
     # -- aggregation (strategy) ----------------------------------------------
@@ -303,11 +306,12 @@ class FGLTrainer:
         (:meth:`_agg_mask`) when None.
         """
         t = int(round)
-        if mask is None:
-            mask = self._agg_mask(t)
-        return self.aggregator.aggregate(params, adj=self.adj_servers,
-                                         num_servers=self.n_servers, m_per=self.m_per,
-                                         round=self._agg_phase(t), mask=mask)
+        with trace.span("fgl.aggregate"):
+            if mask is None:
+                mask = self._agg_mask(t)
+            return self.aggregator.aggregate(params, adj=self.adj_servers,
+                                             num_servers=self.n_servers, m_per=self.m_per,
+                                             round=self._agg_phase(t), mask=mask)
 
     # -- imputation helpers shared by the strategies --------------------------
 
@@ -348,16 +352,17 @@ class FGLTrainer:
         # over the other network, and lax.scan re-uses each body as traced
         # in the first outer iteration (ROADMAP, queue 3).
         asr_frozen, h_fake = asr, None
-        for _ in range(cfg.ae_outer_iters):
-            for _ in range(cfg.ae_iters):
-                grads = _grad(lambda p: ae_loss(p, asr_frozen), ae)
-                ae, ae_opt = self.gen_opt.update(grads, ae_opt, ae)
-            if self.use_assessor:
-                if h_fake is None:
-                    _, h_fake = imputation.reconstruct(ae, s_noise)
-                for _ in range(cfg.assessor_iters):
-                    grads = _grad(lambda p: as_loss(p, h_fake), asr)
-                    asr, as_opt = self.gen_opt.update(grads, as_opt, asr)
+        with trace.span("fgl.impute.generator"):
+            for _ in range(cfg.ae_outer_iters):
+                for _ in range(cfg.ae_iters):
+                    grads = _grad(lambda p: ae_loss(p, asr_frozen), ae)
+                    ae, ae_opt = self.gen_opt.update(grads, ae_opt, ae)
+                if self.use_assessor:
+                    if h_fake is None:
+                        _, h_fake = imputation.reconstruct(ae, s_noise)
+                    for _ in range(cfg.assessor_iters):
+                        grads = _grad(lambda p: as_loss(p, h_fake), asr)
+                        asr, as_opt = self.gen_opt.update(grads, as_opt, asr)
         return ae, ae_opt, asr, as_opt
 
     def _server_round_gen(self, ae, aeo, asr, aso, emb_j, mask_j, s_noise):
@@ -368,7 +373,8 @@ class FGLTrainer:
         h_flat, flat_mask = imputation.fuse_embeddings(emb_j, mask_j)
         ae, aeo, asr, aso = self._train_generator(ae, aeo, asr, aso, h_flat,
                                                   flat_mask, s_noise)
-        x_bar = imputation.encode(ae, s_noise)              # X̅ = f(S), same S
+        with trace.span("fgl.impute.encode"):
+            x_bar = imputation.encode(ae, s_noise)          # X̅ = f(S), same S
         return ae, aeo, asr, aso, x_bar, h_flat, flat_mask
 
     def _server_round(self, ae, aeo, asr, aso, emb_j, mask_j, client_ids, s_noise):
@@ -380,9 +386,10 @@ class FGLTrainer:
         # Link targets must be REAL local nodes (aug slots are excluded).
         target_mask = flat_mask * imputation.local_slot_mask(
             self.m_per, emb_j.shape[-2], self.n_local, device=flat_mask.device)
-        scores, idx = imputation.similarity_topk(h_flat, flat_mask, client_ids,
-                                                 self.cfg.top_k_links,
-                                                 target_mask=target_mask)
+        with trace.span("fgl.impute.topk"):
+            scores, idx = imputation.similarity_topk(h_flat, flat_mask, client_ids,
+                                                     self.cfg.top_k_links,
+                                                     target_mask=target_mask)
         return ae, aeo, asr, aso, scores, idx, x_bar
 
     # -- evaluation ------------------------------------------------------------
@@ -425,14 +432,15 @@ class FGLTrainer:
         """
         t = int(state.round)
         state = dataclasses.replace(state)   # never mutate the caller's state
-        with torch.no_grad():
+        with trace.span("fgl.round", round=t), torch.no_grad():
             state.params, state.opt_state = self._local_rounds(
                 state.params, state.opt_state, state.batch)
             if self.imputation.active and (t % self.cfg.imputation_interval == 0):
                 state = self.imputation.impute(self, state, noise=noise)
             state.params = self.aggregate(state.params, round=t,
                                           mask=self._agg_mask(t, mask))
-            loss, acc, f1 = self._evaluate(state.params, state.batch)
+            with trace.span("fgl.evaluate"):
+                loss, acc, f1 = self._evaluate(state.params, state.batch)
         state.round = t + 1
         return state, {"round": t, "loss": loss, "acc": acc, "f1": f1}
 

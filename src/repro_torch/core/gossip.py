@@ -15,9 +15,9 @@ the reference runs under ``shard_map``:
    ``axis=None``).
 
 The arithmetic is f32 in the reference's order, ``(p + left + right) / 3``,
-cast back to the leaf's dtype. Each exchange runs inside the profiler range
-``gossip.exchange``. The byte-accounting helpers at the bottom are the one
-home of the cross-server traffic math.
+cast back to the leaf's dtype. Each exchange runs inside the span
+``gossip.exchange`` (``repro_torch.trace``). The byte-accounting helpers at
+the bottom are the one home of the cross-server traffic math.
 """
 from __future__ import annotations
 
@@ -25,8 +25,8 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.tree import tree_map
 
@@ -36,7 +36,7 @@ PyTree = Any
 def _ring_average(p: torch.Tensor, mesh) -> torch.Tensor:
     """(p + left + right) / 3 in f32: left is the previous rank's p, right
     the next rank's."""
-    with record_function("gossip.exchange"):
+    with trace.span("gossip.exchange"):
         (left,) = mesh_lib.shift(mesh, [p], 1)
         (right,) = mesh_lib.shift(mesh, [p], -1)
     return (p.to(torch.float32) + left.to(torch.float32) + right.to(torch.float32)) / 3.0
@@ -55,7 +55,7 @@ def all_average(params: PyTree, mesh) -> PyTree:
     n = 1 if mesh is None else mesh.size
 
     def avg(p):
-        with record_function("gossip.exchange"):
+        with trace.span("gossip.exchange"):
             total = mesh_lib.all_reduce_sum(mesh, p.to(torch.float32)) if n > 1 else p.float()
         return (total / n).to(p.dtype)
 
@@ -97,7 +97,7 @@ def block_ring_gossip(params: PyTree, mesh=None) -> PyTree:
             left = torch.roll(f32, 1, dims=0)
             right = torch.roll(f32, -1, dims=0)
         else:
-            with record_function("gossip.exchange"):
+            with trace.span("gossip.exchange"):
                 (from_prev,) = mesh_lib.shift(mesh, [f32[-1:]], 1)
                 (from_next,) = mesh_lib.shift(mesh, [f32[:1]], -1)
             left = torch.cat([from_prev, f32[:-1]], dim=0)
@@ -120,7 +120,7 @@ def adjacency_gossip(params: PyTree, adj: torch.Tensor, mesh=None) -> PyTree:
         n_block = p.shape[0]
         full = p.to(torch.float32)
         if mesh is not None and mesh.size > 1:
-            with record_function("gossip.exchange"):
+            with trace.span("gossip.exchange"):
                 full = mesh_lib.all_gather(mesh, full, 0)
         num = torch.einsum("rj,r...->j...", adj.to(p.device), full)
         mixed = num / den.to(p.device).reshape((-1,) + (1,) * (num.ndim - 1))

@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.types import ClientBatch
 from repro_torch.kernels.ref import stable_topk
 
@@ -38,7 +39,10 @@ def fix_graphs(batch: ClientBatch, link_scores: torch.Tensor, link_idx: torch.Te
 
     link_scores / link_idx: [M*n_pad, k] imputed links (0 / -1 = invalid);
     x_bar: [M*n_pad, d] imputed features. Returns a new ClientBatch whose aug
-    slots hold the ``aug_max`` strongest links of each client.
+    slots hold the ``aug_max`` strongest links of each client. With the
+    recorder on (``repro_torch.trace``) it counts the valid links from real
+    local nodes (``fgl.links_proposed``) and the aug slots filled
+    (``fgl.links_wired``).
     """
     m, n_pad = batch.x.shape[0], batch.x.shape[1]
     aug_max = batch.aug_max
@@ -60,6 +64,9 @@ def fix_graphs(batch: ClientBatch, link_scores: torch.Tensor, link_idx: torch.Te
     chosen_src = src[top_i]
     chosen_tgt = torch.gather(tgt, 1, top_i)
     chosen_ok = torch.isfinite(top_s)
+    if trace.recording_on():
+        trace.count("fgl.links_proposed", valid.sum())
+        trace.count("fgl.links_wired", chosen_ok.sum())
 
     feats = x_bar[torch.clamp_min(chosen_tgt, 0)] * chosen_ok[..., None].to(x_bar.dtype)
     x = batch.x.clone()

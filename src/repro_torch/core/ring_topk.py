@@ -22,8 +22,9 @@ edge server on one device. Here the CANDIDATE axis is spread over a mesh
 
 On the card the folds give the one-call kernel's answer bit for bit.
 
-Each fold runs inside the profiler range ``ring_topk.fold`` and each
-rotation inside ``ring_topk.rotate`` (``launch/profile.py`` reports both).
+Each fold runs inside the span ``ring_topk.fold`` and each rotation
+inside ``ring_topk.rotate`` (``repro_torch.trace``; ``launch/profile.py``
+reports both).
 The byte and FLOP accounting of the scaling benchmark is at the bottom.
 """
 from __future__ import annotations
@@ -31,8 +32,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
 
@@ -57,7 +58,7 @@ def fold_slab(run: Optional[Tuple[torch.Tensor, torch.Tensor]], rows: torch.Tens
     cross-subgraph valid targets, the slab's columns shifted by ``offset``
     to global candidate indices, and merged with ``run`` (None: an empty
     list) by the kernel's merge."""
-    with record_function("ring_topk.fold"):
+    with trace.span("ring_topk.fold"):
         return ops.sim_topk(cand, cand_cid, cand_mask, k, col_offset=offset, rows=rows,
                             row_cid=row_cid, run=run)
 
@@ -76,7 +77,7 @@ def _ring_fold(rows, row_cid, cand, cand_cid, cand_mask, *, k: int, mesh):
         owner = (me - step) % size
         run = fold_slab(run, rows, row_cid, cand, cand_cid, cand_mask, k, owner * shard_n)
         if step != size - 1:
-            with record_function("ring_topk.rotate"):
+            with trace.span("ring_topk.rotate"):
                 cand, cand_cid, cand_mask = mesh_lib.shift(mesh, [cand, cand_cid, cand_mask])
     return run
 

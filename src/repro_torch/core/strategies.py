@@ -27,6 +27,7 @@ from typing import Any, Callable, Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import gossip, imputation, patcher
 from repro_torch.core.partition import group_clients_by_server, ring_adjacency
 from repro_torch.core.types import ClientBatch
@@ -528,7 +529,8 @@ class SpreadImputation:
         with leading [N] axes: the raw link proposals.
         """
         batch = state.batch
-        emb = engine._embeddings(state.params, batch)       # [M, n_pad, c]
+        with trace.span("fgl.impute.embed"):
+            emb = engine._embeddings(state.params, batch)   # [M, n_pad, c]
         n_pad = batch.x.shape[1]
         n, mp = engine.n_servers, engine.m_per
         emb_g = emb.reshape((n, mp) + emb.shape[1:])        # [N, M_per, n_pad, c]
@@ -548,16 +550,19 @@ class SpreadImputation:
             engine._server_round_gen, stacked)
         tmask_all = fmask_all * imputation.local_slot_mask(
             mp, n_pad, engine.n_local, device=fmask_all.device)[None, :]
-        scores, idx = imputation.similarity_topk(
-            h_all, fmask_all, client_ids, engine.cfg.top_k_links,
-            target_mask=tmask_all, mesh=self.sim_mesh)
+        with trace.span("fgl.impute.topk"):
+            scores, idx = imputation.similarity_topk(
+                h_all, fmask_all, client_ids, engine.cfg.top_k_links,
+                target_mask=tmask_all, mesh=self.sim_mesh)
         return ae, aeo, asr, aso, scores, idx, x_bar
 
     def impute(self, engine, state, noise=None):
-        (ae_params, ae_opt, as_params, as_opt, scores, idx,
-         x_bar) = self.server_outputs(engine, state, noise)
-        scores, idx, x_bar = patcher.stitch_server_links(scores, idx, x_bar)
-        batch = patcher.fix_graphs(state.batch, scores, idx, x_bar)
+        with trace.span("fgl.impute"):
+            (ae_params, ae_opt, as_params, as_opt, scores, idx,
+             x_bar) = self.server_outputs(engine, state, noise)
+            with trace.span("fgl.impute.patch"):
+                scores, idx, x_bar = patcher.stitch_server_links(scores, idx, x_bar)
+                batch = patcher.fix_graphs(state.batch, scores, idx, x_bar)
         return dataclasses.replace(state, batch=batch, ae_params=ae_params,
                                    ae_opt=ae_opt, as_params=as_params,
                                    as_opt=as_opt)
@@ -608,7 +613,9 @@ class LocalGenImputation:
     active = True
 
     def impute(self, engine, state, noise=None):
-        return dataclasses.replace(state, batch=_local_generation(state.batch, self.gen_steps))
+        with trace.span("fgl.impute"):
+            batch = _local_generation(state.batch, self.gen_steps)
+        return dataclasses.replace(state, batch=batch)
 
 
 def _local_generation(batch: ClientBatch, gen_steps: int) -> ClientBatch:

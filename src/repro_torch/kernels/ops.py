@@ -4,7 +4,10 @@ Counterpart of ``repro.kernels.ops``. A tensor on the CPU runs the plain
 version in ``ref``; a CUDA tensor launches the hand-written kernel, or the
 launch raises. There is no fallback from one to the other. ``mha`` also
 takes ``meta`` tensors (``kernels.meta``: the kernel's output shapes, its
-work charged to the dry-run's counter); no other device is accepted.
+work charged to the dry-run's counter); no other device is accepted. The
+CUDA launches of ``sage_aggregate`` (its forward) and ``sim_topk`` run
+inside the spans ``kernel.sage_aggregate`` and ``kernel.sim_topk``
+(``repro_torch.trace``).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import meta, ref
 from repro_torch.kernels import sage_aggregate as _sage
@@ -66,7 +70,8 @@ def sage_aggregate(adj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """
     if _route(h, "sage_aggregate") == "cpu":
         return ref.sage_aggregate(adj, h)
-    return _sage.SageAggregate.apply(adj, h)
+    with trace.span("kernel.sage_aggregate"):
+        return _sage.SageAggregate.apply(adj, h)
 
 
 def sim_topk(h: torch.Tensor, client_ids: torch.Tensor, target_mask: torch.Tensor,
@@ -96,14 +101,15 @@ def sim_topk(h: torch.Tensor, client_ids: torch.Tensor, target_mask: torch.Tenso
         h = h[None]
         rows = None if rows is None else rows[None]
         run = None if run is None else (run[0][None], run[1][None])
-    if rows is None and run is None:
-        vals, idx = _sim.launch(h, client_ids, target_mask, k, col_offset)
-    elif rows is None:
-        vals, idx = _sim.launch_rows(h, client_ids, h, client_ids, target_mask, k, col_offset,
-                                     run)
-    else:
-        vals, idx = _sim.launch_rows(rows, row_cid, h, client_ids, target_mask, k, col_offset,
-                                     run)
+    with trace.span("kernel.sim_topk"):
+        if rows is None and run is None:
+            vals, idx = _sim.launch(h, client_ids, target_mask, k, col_offset)
+        elif rows is None:
+            vals, idx = _sim.launch_rows(h, client_ids, h, client_ids, target_mask, k,
+                                         col_offset, run)
+        else:
+            vals, idx = _sim.launch_rows(rows, row_cid, h, client_ids, target_mask, k,
+                                         col_offset, run)
     return (vals[0], idx[0]) if flat else (vals, idx)
 
 

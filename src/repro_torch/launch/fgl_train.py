@@ -18,7 +18,12 @@ JAX package resumes it too); ``--resume`` continues one at its round. A
 checkpoint the JAX package wrote resumes too: every leaf but its PRNG
 ``key`` is taken, and the port's generator starts from ``--seed``, so its
 later imputation noise differs from the reference's. Each round's wall
-time is printed after the round lines.
+time is printed after the round lines. ``--trace`` runs the rounds under the
+port's span recorder (``repro_torch.trace``) and then prints, for each span
+of the round (``fgl.round``, ``fgl.local``, ``fgl.impute`` and its parts,
+``fgl.aggregate``, ``fgl.evaluate``, ``kernel.*``), its calls and its host
+and device milliseconds a round, and the links proposed and wired per
+imputation round (``fgl.links_proposed``, ``fgl.links_wired``).
 
 ``--edge-mesh`` places the [N] server axis on a mesh of ranks
 (``launch.mesh.make_edge_mesh``) and ``--sim-shard`` rotates the
@@ -37,6 +42,7 @@ prints and writes files.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -45,6 +51,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch.distributed as dist
 
+from repro_torch import trace
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import registry
 from repro_torch.core.fedgl import FGLState, resolve_device
@@ -109,6 +116,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--sim-shard", action="store_true",
                     help="ring-rotate the imputation candidate axis around the "
                          "ranks (core/ring_topk.py)")
+    ap.add_argument("--trace", action="store_true",
+                    help="record the rounds' spans and link counters "
+                         "(repro_torch.trace) and print them after the rounds")
     return ap
 
 
@@ -248,15 +258,20 @@ def _run(args: argparse.Namespace,
     if args.resume:
         state = resume_state(args.resume, tr.init(batch))
         say(f"[fgl] resumed {args.resume} at round {state.round}")
-        state, hist = tr.fit(state=state, rounds=args.rounds)
-    else:
-        state, hist = tr.fit(batch, rounds=args.rounds)
+    with trace.recording() if args.trace else contextlib.nullcontext():
+        if args.resume:
+            state, hist = tr.fit(state=state, rounds=args.rounds)
+        else:
+            state, hist = tr.fit(batch, rounds=args.rounds)
     for i, r in enumerate(hist["round"]):
         say(f"[fgl] round {r:3d} loss={hist['loss'][i]:8.4f} "
             f"acc={hist['acc'][i]:.3f} f1={hist['f1'][i]:.3f}")
     say(f"[fgl] best acc={max(hist['acc']):.3f} f1={max(hist['f1']):.3f}")
     say("[fgl] round seconds: "
         + " ".join(f"{s:.3f}" for s in hist["seconds"]) + f" ({args.device})")
+    if args.trace:
+        for line in trace_lines(trace.drain(), len(hist["round"])):
+            say(line)
     if args.save_state and lead:
         ckpt_io.save(args.save_state, state)
         say(f"[fgl] saved FGLState (round {state.round}) to {args.save_state}")
@@ -264,6 +279,29 @@ def _run(args: argparse.Namespace,
         with open(args.json_out, "w") as f:
             json.dump(hist, f)
     return hist
+
+
+def trace_lines(rec: trace.Recording, rounds: int) -> list:
+    """One line per span name, in the order the names first began (calls,
+    host and device ms a round), and the link counters per imputation
+    round."""
+    by_name: Dict[str, list] = {}
+    for s in rec.spans:
+        by_name.setdefault(s.name, []).append(s)
+    lines = []
+    for name, spans in by_name.items():
+        host = sum(s.host_ms for s in spans) / rounds
+        dev = ("n/a" if any(s.device_ms is None for s in spans)
+               else f"{sum(s.device_ms for s in spans) / rounds:.3f}")
+        lines.append(f"[fgl] span {name}: {len(spans)} calls, host {host:.3f} ms a round, "
+                     f"device {dev} ms a round")
+    imputing = len(by_name.get("fgl.impute", []))
+    links = {k: sum(v.values()) for k, v in rec.counters.items()}
+    if imputing and "fgl.links_wired" in links:
+        lines.append(f"[fgl] links per imputation round ({imputing}): proposed "
+                     f"{links['fgl.links_proposed'] / imputing:.1f}, wired "
+                     f"{links['fgl.links_wired'] / imputing:.1f}")
+    return lines
 
 
 def _printer(lead: bool):

@@ -31,10 +31,14 @@ distributed edge layer's ``ring_topk.fold`` (one ``sim_topk`` call on a
 visiting slab), ``ring_topk.rotate`` (a slab sent to the next rank) and
 ``gossip.exchange`` (parameters or boundary slices sent to neighbors), each
 also with its host time, the time in collectives (run ``fgl_train
---edge-mesh --sim-shard`` under ``torchrun``: each rank reports its own).
-The profiler's own
-cost lengthens the windows, so a busy share is a lower bound. Needs a CUDA
-device.
+--edge-mesh --sim-shard`` under ``torchrun``: each rank reports its own);
+and the FGL round's layers (``fgl.round``, ``fgl.local``, ``fgl.impute``
+and its ``fgl.impute.*`` parts, ``fgl.aggregate``, ``fgl.evaluate``) and
+kernels (``kernel.sage_aggregate``, ``kernel.sim_topk``). All of them are
+the port's spans (``repro_torch.trace``). The busy share is the union of
+the kernels' intervals, so kernels that overlap count once. The
+profiler's own cost lengthens the windows, so a busy share is a lower
+bound. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ import argparse
 import subprocess
 import sys
 import time
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd import DeviceType
@@ -60,10 +64,26 @@ _KINDS = (("attention TF32 split (f32 pre-passes)", ("tf32_split",)),
           ("copies and fills", ("memcpy", "memset")))
 
 
-# record_function ranges of the port's modules: their device time is that
+# Ranges of the port's spans (repro_torch.trace): their device time is that
 # of the kernels launched inside them, never a kernel of its own. The
-# encoder's range holds its self-attention's "attention.cross" ranges.
-_RANGES = ("moe.", "ssm.", "xlstm.", "attention.cross", "encoder", "ring_topk.", "gossip.")
+# encoder's range holds its self-attention's "attention.cross" ranges; the
+# FGL round's "fgl." ranges nest as its layers, "kernel." ones in them.
+_RANGES = ("moe.", "ssm.", "xlstm.", "attention.cross", "encoder", "ring_topk.", "gossip.",
+           "fgl.", "kernel.")
+
+
+def busy_us(intervals: Iterable[Tuple[float, float]]) -> float:
+    """The length of the union of ``(start, end)`` intervals: the time in
+    which at least one of them ran, overlapping kernels counted once."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
 
 
 def _kind(name: str) -> str:
@@ -81,11 +101,12 @@ def _report(prof, label: str, window_s: float, top: int, *, skip_upload: bool = 
                if e.device_type == DeviceType.CUDA and not e.key.startswith(_RANGES)]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     total_us = sum(e.self_device_time_total for e in kernels)
-    busy_us = sum(e.self_device_time_total for e in kernels
-                  if not (skip_upload and e.key.startswith("Memcpy HtoD")))
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.name.startswith(_RANGES)
+                   and not (skip_upload and e.name.startswith("Memcpy HtoD")))
     print(f"[profile] {label}: device time {total_us / 1e3:.1f} ms in {len(kernels)} "
           f"kernels; window {window_s * 1e3:.1f} ms; device busy "
-          f"{busy_us / 1e4 / window_s:.1f}% of the window")
+          f"{busy / 1e4 / window_s:.1f}% of the window")
     for e in kernels[:top]:
         print(f"[profile] {e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}x "
               f"{100 * e.self_device_time_total / max(total_us, 1):5.1f}%  {e.key[:100]}")

@@ -19,8 +19,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
@@ -196,7 +196,7 @@ def cross_attention(p: Attention, x: torch.Tensor, memory: torch.Tensor, *,
     k and v from memory, plain ``_sdpa`` (f32 math, output in q's type).
     With ``memory`` x itself, the whisper encoder's self-attention. Runs
     under the profiler range ``attention.cross`` (``launch/profile.py``)."""
-    with record_function("attention.cross"):
+    with trace.span("attention.cross"):
         q, k, v = _project_qkv(p, x, memory, num_heads, num_kv_heads, head_dim, qk_norm)
         out = _sdpa(q, k, v, causal=False, window=0)
         return _bias(L.dot(_merge_heads(out), p.wo), p.bo)

@@ -18,9 +18,10 @@ give exact zeros (silu(0)·0 = gelu(0) = 0, no biases), as in the reference.
 Ties among gates resolve as ``jax.lax.top_k`` resolves them, the lower
 expert index first (a stable descending sort).
 
-Each phase runs under a ``torch.profiler.record_function`` range
-(``moe.router``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``), so
-``launch/profile.py`` can split an MoE layer's device time.
+Each phase runs under a span of ``repro_torch.trace`` (``moe.router``,
+``moe.dispatch``, ``moe.experts``, ``moe.combine``), a profiler range when
+a profiler runs, so ``launch/profile.py`` can split an MoE layer's device
+time.
 """
 from __future__ import annotations
 
@@ -29,8 +30,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.models import layers as L
 
 
@@ -109,11 +110,11 @@ def apply_moe(p: MoE, x: torch.Tensor, *, num_experts: int, top_k: int,
     xt = x.reshape(g, g_len, d)
     cap = max(1, int(capacity_factor * g_len * top_k / e))     # the reference's float math
 
-    with record_function("moe.router"):
+    with trace.span("moe.router"):
         gates, topw, topi = route(p.router, xt, top_k)
         pos = slot_positions(topi, e)
         keep = pos < cap
-    with record_function("moe.dispatch"):
+    with trace.span("moe.dispatch"):
         # Slot (expert, group, c) at flat index (e·G + g)·C + c holds its
         # token's row of xt padded with a zero row at g_len; dropped
         # assignments write to one spare slot past the end.
@@ -126,14 +127,14 @@ def apply_moe(p: MoE, x: torch.Tensor, *, num_experts: int, top_k: int,
         src = src[:n_slots].view(e, g, cap) + gi.view(1, g, 1) * (g_len + 1)
         xpad = torch.cat([xt, xt.new_zeros(g, 1, d)], dim=1).reshape(g * (g_len + 1), d)
         expert_in = xpad[src.reshape(-1)].view(e, g * cap, d)
-    with record_function("moe.experts"):
+    with trace.span("moe.experts"):
         up = torch.bmm(expert_in, p.w_up)
         if act == "silu":
             up = F.silu(torch.bmm(expert_in, p.w_gate)) * up
         else:
             up = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
         expert_out = torch.bmm(up, p.w_down).view(e * g * cap, d)
-    with record_function("moe.combine"):
+    with trace.span("moe.combine"):
         # Each token's k slots (a dropped one points at slot 0 with weight
         # 0); the weights in x's dtype, as the reference casts them, summed
         # in f32 by one [1, k] x [k, d] product a token.

@@ -16,9 +16,9 @@ reference. Decode is the single-step recurrence on the carried state.
 
 Types follow the reference: projections in the model's dtype, gates, state
 and ``y`` in f32, then ``y`` cast back before ``out_proj``; ``a_log`` is an
-f32 parameter whatever the model's dtype. The scan runs under a
-``torch.profiler.record_function`` range, ``ssm.scan`` (``ssm.step`` in
-decode), so ``launch/profile.py`` can split its device time from the
+f32 parameter whatever the model's dtype. The scan runs under a span
+of ``repro_torch.trace``, ``ssm.scan`` (``ssm.step`` in decode), a
+profiler range when a profiler runs, so ``launch/profile.py`` can split its device time from the
 projections'.
 """
 from __future__ import annotations
@@ -28,8 +28,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.models import layers as L
 
 CHUNK = 128
@@ -108,7 +108,7 @@ def apply_mamba(p: Mamba, x: torch.Tensor, *, state: int, return_state: bool = F
     def chunks(t):                                            # [B, S, ...] -> [B, nc, q, ...]
         return t.reshape(bsz, nc, q, *t.shape[2:])
 
-    with record_function("ssm.scan"):
+    with trace.span("ssm.scan"):
         y, h = _scan(a, chunks(xt.float()), chunks(dt), chunks(bmat), chunks(cmat), state)
     out = _output(p, y.reshape(bsz, s, di), xt, z, x.dtype)
     if return_state:
@@ -149,7 +149,7 @@ def decode_mamba(p: Mamba, x: torch.Tensor, cache: Dict[str, torch.Tensor], *, s
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-step recurrence. x: [B, 1, d] -> (out [B, 1, d], {"h": new state})."""
     xt, z, dt, bmat, cmat = _gates(p, x[:, 0])                # [B, ...]
-    with record_function("ssm.step"):
+    with trace.span("ssm.step"):
         a = -torch.exp(p.a_log)
         decay = torch.exp(a[None] * dt[..., None])            # [B, di, n]
         drive = (dt * xt.float())[..., None] * bmat[:, None, :]

@@ -38,9 +38,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch.core.fedgl import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -397,7 +397,7 @@ def encode_memory(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     f32 frames against bf16 weights run in f32, as jnp promotes. Runs under
     the profiler range ``encoder`` (``launch/profile.py``)."""
     cfg, enc = model.cfg, model.encoder
-    with record_function("encoder"):
+    with trace.span("encoder"):
         x = frames + enc.positions[:frames.shape[1]]
         remat = cfg.remat and torch.is_grad_enabled()
         for bp in enc.blocks:

@@ -13,8 +13,8 @@ Numerics are the reference's: exponent arguments are clipped (-60, 30, and
 ``_ICLIP`` on the input gate) instead of carrying a running-max stabiliser
 in the mLSTM; gates are computed in f32, and their weights are f32
 parameters in a bf16 model. The recurrences run under
-``torch.profiler.record_function`` ranges (``xlstm.mlstm``,
-``xlstm.slstm``), so ``launch/profile.py`` can split their device time from
+spans of ``repro_torch.trace`` (``xlstm.mlstm``, ``xlstm.slstm``),
+profiler ranges when a profiler runs, so ``launch/profile.py`` can split their device time from
 the projections'.
 """
 from __future__ import annotations
@@ -24,8 +24,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.models import layers as L
 
 CHUNK = 128
@@ -140,7 +140,7 @@ def apply_mlstm(p: MLSTM, x: torch.Tensor, num_heads: int, *, return_state: bool
     c = torch.zeros((b, num_heads, dh, dh), dtype=torch.float32, device=x.device)
     n = torch.zeros((b, num_heads, dh), dtype=torch.float32, device=x.device)
     ys = []
-    with record_function("xlstm.mlstm"):
+    with trace.span("xlstm.mlstm"):
         for chunk in zip(*(torch.split(t, qc, dim=1) for t in (q, k, v, logf, logi))):
             c, n, y = _mlstm_chunk(c, n, *chunk)
             ys.append(y)
@@ -236,7 +236,7 @@ def apply_slstm(p: SLSTM, x: torch.Tensor, num_heads: int, *, return_state: bool
     st = init_slstm_state(b, d, device=x.device)
     carry = (st["c"], st["n"], st["h"], st["m"])
     hs = []
-    with record_function("xlstm.slstm"):
+    with trace.span("xlstm.slstm"):
         for zx_t in zx.unbind(1):   # unbind's backward stacks the steps' gradients once
             carry = _slstm_step(p, carry, zx_t)
             hs.append(carry[2])
