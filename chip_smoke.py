@@ -1885,19 +1885,25 @@ def _check_whole_step(dev, dtype: str = "bfloat16"):
 
 def _expected_launches(flags, start: int = 0, gnn_kind: str = "sage") -> dict:
     """The launches a run of the launcher's flags implies, from its rounds,
-    local steps, K, method and layer count. Every classifier forward
-    launches ``sage_aggregate`` once per layer (GAT's attention launches
-    none): the local steps and the evaluation every round, and the
-    embeddings on each imputation round of the SpreadFGL generator, which
-    launches ``sim_topk`` once. FedSage+'s imputation is plain products."""
+    local steps, K, method and layer count. Classifier forwards run in the
+    local steps and the evaluation every round, and in the embeddings on
+    each imputation round of the SpreadFGL generator, which launches
+    ``sim_topk`` once. Each forward launches ``sage_aggregate`` once per
+    layer after the first (GAT's attention launches none); layer 1's mean
+    is launched once per batch the trainer sees: its first, and each that
+    an imputation round (SpreadFGL's or FedSage+'s) puts in its place.
+    FedSage+'s imputation is plain products."""
     from repro_torch.launch import fgl_train
 
     rounds = range(start, start + flags.rounds)
     imputations = sum(r % flags.imputation_interval == 0 for r in rounds)
     spread = flags.method in ("FedGL", "SpreadFGL", "spreadfgl_gossip", "spreadfgl_async")
     forwards = flags.rounds * (flags.local_rounds + 1) + (imputations if spread else 0)
+    replaces = spread or flags.method == "fedsage_plus"
+    batches = 1 + (imputations if replaces else 0) if forwards else 0
     layers = 0 if gnn_kind == "gat" else fgl_train.config(flags).num_layers
-    return {"sage_aggregate": forwards * layers, "sim_topk": imputations if spread else 0}
+    return {"sage_aggregate": (batches + forwards * (layers - 1)) if layers else 0,
+            "sim_topk": imputations if spread else 0}
 
 
 def _check_run(what, hist, counts, want, wall):

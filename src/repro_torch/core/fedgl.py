@@ -181,6 +181,7 @@ class FGLTrainer:
         self.opt = Adam(lr=cfg.lr_classifier)
         self.gen_opt = Adam(lr=cfg.lr_generator)
         self.edge_mesh = edge_mesh
+        self._prepared: Optional[Tuple[tuple, gnn.Graph]] = None   # see _graph
         if edge_mesh is not None and self.n_servers % edge_mesh.size:
             raise ValueError(f"N={self.n_servers} servers must divide across the "
                              f"{edge_mesh.size}-device edge mesh")
@@ -247,9 +248,32 @@ class FGLTrainer:
             losses = losses + self.cfg.trace_reg * _trace_reg(params_m)
         return losses
 
+    def _graph(self, batch: ClientBatch) -> gnn.Graph:
+        """The classifier's prepared inputs for ``batch`` (``gnn.prepare``):
+        built on the first forward of each batch and reused until the batch
+        is replaced. A batch is never modified in place (``fix_graphs`` and
+        ``_local_generation`` build new tensors), so the identity of its x,
+        adj and node_mask names it; the cache holds those tensors, so their
+        ids cannot be reused while it lives."""
+        key = (batch.x, batch.adj, batch.node_mask)
+        if self._prepared is not None and all(
+                a is b for a, b in zip(self._prepared[0], key)):
+            trace.count("fgl.graph_reused", 1)
+            return self._prepared[1]
+        self._prepared = None           # free the old graph before building anew
+        with trace.span("fgl.graph"), torch.no_grad():
+            graph = gnn.prepare(self.cfg.gnn_kind, *key)
+        self._prepared = (key, graph)
+        trace.count("fgl.graph_built", 1)
+        return graph
+
+    def _release_graph(self) -> None:
+        """Drop the prepared graph before imputation replaces the batch, so
+        that none is alive while the generator and the patcher allocate."""
+        self._prepared = None
+
     def _logits(self, params_m: PyTree, batch: ClientBatch) -> torch.Tensor:
-        return gnn.apply_classifier(params_m, self.cfg.gnn_kind, batch.x, batch.adj,
-                                    batch.node_mask)
+        return gnn.forward(params_m, self.cfg.gnn_kind, self._graph(batch))
 
     def _client_loss(self, params_m: PyTree, batch: ClientBatch) -> torch.Tensor:
         logits = self._logits(params_m, batch)
@@ -316,7 +340,11 @@ class FGLTrainer:
     # -- imputation helpers shared by the strategies --------------------------
 
     def _embeddings(self, params, batch: ClientBatch) -> torch.Tensor:
-        return torch.softmax(self._logits(params, batch), dim=-1)
+        """Softmax embeddings for imputation: the batch's last forward
+        before the imputation replaces it, so it releases the graph."""
+        emb = torch.softmax(self._logits(params, batch), dim=-1)
+        self._release_graph()
+        return emb
 
     def _train_generator(self, ae, ae_opt, asr, as_opt, h_real, flat_mask, s_noise):
         """Alternating AE / assessor training (Algorithm 1 lines 16-23).

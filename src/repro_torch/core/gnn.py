@@ -9,6 +9,13 @@ tensors that may carry a leading ``[M]`` client axis: where the reference
 vmaps one client's forward over M, the port runs it once on the stacked
 batch.
 
+Each kind has a prepare step and an apply step. :func:`prepare` builds a
+:class:`Graph` from what no weight touches: for SAGE and GCN the
+row-normalised adjacency, the masked features and layer 1's neighbour mean;
+for GAT the raw inputs. :func:`forward` runs the layers on it.
+:func:`apply_classifier` is the two in turn; a trainer prepares once per
+batch and reuses the graph in every forward until the batch is replaced.
+
 The neighbor aggregation ``A_norm @ h`` is the per-client compute hot spot;
 ``aggregate`` routes it through ``kernels.ops.sage_aggregate``, which launches
 the CUDA kernel for CUDA tensors and runs the plain version on the CPU. SAGE
@@ -17,7 +24,7 @@ reference's is plain ``jnp``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -49,6 +56,26 @@ def aggregate(a_norm: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return ops.sage_aggregate(a_norm, h)
 
 
+class Graph(NamedTuple):
+    """A batch's classifier inputs that no weight touches (:func:`prepare`).
+
+    SAGE and GCN fill ``a_norm`` (GCN's with self loops), ``h0`` (the
+    masked features) and ``agg1`` (layer 1's neighbour mean ``a_norm @
+    h0``); GAT fills ``x`` and ``adj``."""
+
+    node_mask: torch.Tensor
+    a_norm: Optional[torch.Tensor] = None
+    h0: Optional[torch.Tensor] = None
+    agg1: Optional[torch.Tensor] = None
+    x: Optional[torch.Tensor] = None
+    adj: Optional[torch.Tensor] = None
+
+
+def _mean_graph(a_norm: torch.Tensor, x, node_mask) -> Graph:
+    h0 = x * node_mask[..., None]
+    return Graph(node_mask, a_norm=a_norm, h0=h0, agg1=aggregate(a_norm, h0))
+
+
 def init_sage(generator: torch.Generator, dims: Sequence[int], lead=()) -> PyTree:
     """dims = [d_in, hidden, ..., c]; each layer has self + neighbor weights."""
     params: List[Dict] = []
@@ -62,18 +89,21 @@ def init_sage(generator: torch.Generator, dims: Sequence[int], lead=()) -> PyTre
     return {"layers": params}
 
 
-def apply_sage(params: PyTree, x, adj, node_mask):
+def prepare_sage(x, adj, node_mask) -> Graph:
+    return _mean_graph(normalize_adjacency(adj, node_mask), x, node_mask)
+
+
+def apply_sage(params: PyTree, g: Graph):
     """Per-node logits [.., n, c]. Masked: padded rows output zeros."""
-    a_norm = normalize_adjacency(adj, node_mask)
-    h = x * node_mask[..., None]
+    h = g.h0
     n_layers = len(params["layers"])
     for li, layer in enumerate(params["layers"]):
-        agg = aggregate(a_norm, h)
+        agg = g.agg1 if li == 0 else aggregate(g.a_norm, h)
         # [h || agg] W  ==  h W_self + agg W_nbr
         h = h @ layer["w_self"] + agg @ layer["w_nbr"] + layer["b"][..., None, :]
         if li < n_layers - 1:
             h = torch.relu(h)
-        h = h * node_mask[..., None]
+        h = h * g.node_mask[..., None]
     return h
 
 
@@ -89,17 +119,22 @@ def init_gcn(generator: torch.Generator, dims: Sequence[int], lead=()) -> PyTree
     } for i in range(len(dims) - 1)]}
 
 
-def apply_gcn(params: PyTree, x, adj, node_mask):
-    """Per-node logits [.., n, c]: self loops, then row normalization."""
+def prepare_gcn(x, adj, node_mask) -> Graph:
+    """Self loops, then row normalization."""
     eye = torch.eye(adj.shape[-1], dtype=adj.dtype, device=adj.device)
-    a_norm = normalize_adjacency(adj + eye, node_mask)
-    h = x * node_mask[..., None]
+    return _mean_graph(normalize_adjacency(adj + eye, node_mask), x, node_mask)
+
+
+def apply_gcn(params: PyTree, g: Graph):
+    """Per-node logits [.., n, c]."""
+    h = g.h0
     n_layers = len(params["layers"])
     for li, layer in enumerate(params["layers"]):
-        h = aggregate(a_norm, h) @ layer["w"] + layer["b"][..., None, :]
+        agg = g.agg1 if li == 0 else aggregate(g.a_norm, h)
+        h = agg @ layer["w"] + layer["b"][..., None, :]
         if li < n_layers - 1:
             h = torch.relu(h)
-        h = h * node_mask[..., None]
+        h = h * g.node_mask[..., None]
     return h
 
 
@@ -120,10 +155,15 @@ def init_gat(generator: torch.Generator, dims: Sequence[int], lead=()) -> PyTree
     return {"layers": params}
 
 
-def apply_gat(params: PyTree, x, adj, node_mask):
+def prepare_gat(x, adj, node_mask) -> Graph:
+    return Graph(node_mask, x=x, adj=adj)
+
+
+def apply_gat(params: PyTree, g: Graph):
     """Per-node logits [.., n, c]: masked softmax attention over self loops
     and neighbors (non-edges filled with -1e9, then zeroed), ELU between
     layers."""
+    x, adj, node_mask = g.x, g.adj, g.node_mask
     mask2d = node_mask[..., :, None] * node_mask[..., None, :]
     eye = torch.eye(adj.shape[-1], dtype=adj.dtype, device=adj.device)
     no_edge = ((adj + eye) * mask2d) <= 0
@@ -143,9 +183,9 @@ def apply_gat(params: PyTree, x, adj, node_mask):
 
 
 KINDS = {
-    "sage": (init_sage, apply_sage),
-    "gcn": (init_gcn, apply_gcn),
-    "gat": (init_gat, apply_gat),
+    "sage": (init_sage, prepare_sage, apply_sage),
+    "gcn": (init_gcn, prepare_gcn, apply_gcn),
+    "gat": (init_gat, prepare_gat, apply_gat),
 }
 
 
@@ -154,5 +194,15 @@ def init_classifier(generator: torch.Generator, kind: str, dims: Sequence[int],
     return KINDS[kind][0](generator, dims, lead)
 
 
+def prepare(kind: str, x, adj, node_mask) -> Graph:
+    """The batch's :class:`Graph` for classifiers of ``kind``."""
+    return KINDS[kind][1](x, adj, node_mask)
+
+
+def forward(params: PyTree, kind: str, g: Graph):
+    """Per-node logits [.., n, c] on a prepared graph."""
+    return KINDS[kind][2](params, g)
+
+
 def apply_classifier(params: PyTree, kind: str, x, adj, node_mask):
-    return KINDS[kind][1](params, x, adj, node_mask)
+    return forward(params, kind, prepare(kind, x, adj, node_mask))

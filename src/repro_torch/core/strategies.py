@@ -613,6 +613,7 @@ class LocalGenImputation:
     active = True
 
     def impute(self, engine, state, noise=None):
+        engine._release_graph()
         with trace.span("fgl.impute"):
             batch = _local_generation(state.batch, self.gen_steps)
         return dataclasses.replace(state, batch=batch)

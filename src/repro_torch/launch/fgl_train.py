@@ -21,9 +21,11 @@ later imputation noise differs from the reference's. Each round's wall
 time is printed after the round lines. ``--trace`` runs the rounds under the
 port's span recorder (``repro_torch.trace``) and then prints, for each span
 of the round (``fgl.round``, ``fgl.local``, ``fgl.impute`` and its parts,
-``fgl.aggregate``, ``fgl.evaluate``, ``kernel.*``), its calls and its host
-and device milliseconds a round, and the links proposed and wired per
-imputation round (``fgl.links_proposed``, ``fgl.links_wired``).
+``fgl.aggregate``, ``fgl.evaluate``, ``fgl.graph``, ``kernel.*``), its calls
+and its host and device milliseconds a round, the links proposed and wired
+per imputation round (``fgl.links_proposed``, ``fgl.links_wired``), and how
+often the classifier's graph inputs were built and reused
+(``fgl.graph_built``, ``fgl.graph_reused``).
 
 ``--edge-mesh`` places the [N] server axis on a mesh of ranks
 (``launch.mesh.make_edge_mesh``) and ``--sim-shard`` rotates the
@@ -283,8 +285,8 @@ def _run(args: argparse.Namespace,
 
 def trace_lines(rec: trace.Recording, rounds: int) -> list:
     """One line per span name, in the order the names first began (calls,
-    host and device ms a round), and the link counters per imputation
-    round."""
+    host and device ms a round), the link counters per imputation round,
+    and the classifier graph's builds and reuses."""
     by_name: Dict[str, list] = {}
     for s in rec.spans:
         by_name.setdefault(s.name, []).append(s)
@@ -301,6 +303,10 @@ def trace_lines(rec: trace.Recording, rounds: int) -> list:
         lines.append(f"[fgl] links per imputation round ({imputing}): proposed "
                      f"{links['fgl.links_proposed'] / imputing:.1f}, wired "
                      f"{links['fgl.links_wired'] / imputing:.1f}")
+    built, reused = links.get("fgl.graph_built", 0), links.get("fgl.graph_reused", 0)
+    if built:
+        lines.append(f"[fgl] classifier graph: built {built:.0f}, reused {reused:.0f} "
+                     f"({100 * reused / (built + reused):.1f} % of forwards)")
     return lines
 
 

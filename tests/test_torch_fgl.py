@@ -71,7 +71,8 @@ class TestClassifier:
         want = jax.vmap(lambda p, x, a, m: jgnn.apply_sage(p, x, a, m))(
             jstate.params, b.x, b.adj, b.node_mask)
         ps = convert.state_from_reference(_host(jstate), device="cpu")
-        got = pgnn.apply_sage(ps.params, ps.batch.x, ps.batch.adj, ps.batch.node_mask)
+        got = pgnn.apply_classifier(ps.params, "sage", ps.batch.x, ps.batch.adj,
+                                    ps.batch.node_mask)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=OP_TOL)
 
     def test_client_loss_and_grads(self, spread_pair):

@@ -3,9 +3,10 @@
 - Off (no profiler, no recorder) a span is one shared no-op object, opens
   no ``record_function`` and records nothing.
 - The recorder sees every layer of a round under its parent and round, the
-  imputation's parts only on imputation rounds, and the two link counters
-  agree with the patched batch; the states it leaves are bitwise those of
-  a run without it.
+  imputation's parts only on imputation rounds, the classifier's graph built
+  (``fgl.graph``) in the first forward of each batch, and the two link
+  counters agree with the patched batch; the states it leaves are bitwise
+  those of a run without it.
 - Under ``torch.profiler`` the ranges nest in the Chrome trace as the
   layers do, and the ranges that moved onto ``trace.span``
   (``ring_topk.fold``, ``gossip.exchange``) still appear.
@@ -105,14 +106,19 @@ def test_recorder_sees_each_layer_under_its_parent_and_round(batch, method, k):
     rec = trace.drain()
     assert trace.drain().spans == []
     for t in range(2):
-        names = [s.name for s in rec.spans if s.round == t]
-        want = ["fgl.round", "fgl.local"]
+        got = [(s.name, s.parent) for s in rec.spans if s.round == t]
+        # The graph is built by a trainer's first forward and by the first
+        # after each imputation, which replaces the batch.
+        want = [(n, PARENT[n]) for n in ("fgl.round", "fgl.local")]
+        if t == 0:
+            want.append(("fgl.graph", "fgl.local"))
         if t % k == 0:
-            want += ["fgl.impute", *IMPUTE_PARTS]
-        want += ["fgl.aggregate", "fgl.evaluate"]
-        assert names == want, (t, names)
+            want += [(n, PARENT[n]) for n in ("fgl.impute", *IMPUTE_PARTS)]
+        want += [(n, PARENT[n]) for n in ("fgl.aggregate", "fgl.evaluate")]
+        if t % k == 0:
+            want.append(("fgl.graph", "fgl.evaluate"))
+        assert got == want, (t, got)
     for s in rec.spans:
-        assert s.parent == PARENT[s.name], s
         assert s.device_ms is None and s.host_end_ns >= s.host_start_ns
     imputed = [t for t in range(2) if t % k == 0]
     assert sorted(rec.counters["fgl.links_wired"]) == imputed
@@ -123,7 +129,8 @@ def test_fedsage_imputation_is_one_span(batch):
     with trace.recording():
         _rounds(tr, batch, 1)
     names = [s.name for s in trace.drain().spans]
-    assert names == ["fgl.round", "fgl.local", "fgl.impute", "fgl.aggregate", "fgl.evaluate"]
+    assert names == ["fgl.round", "fgl.local", "fgl.graph", "fgl.impute", "fgl.aggregate",
+                     "fgl.evaluate", "fgl.graph"]
 
 
 @pytest.mark.parametrize("method", ["SpreadFGL", "FedGL"])
@@ -216,6 +223,9 @@ def test_fgl_train_trace_prints_spans_and_links(capsys):
     assert "[fgl] span fgl.impute.generator: 2 calls, host " in out
     assert "device n/a ms a round" in out
     assert "[fgl] links per imputation round (2): proposed " in out
+    # 8 forwards: 3 rounds of one local step and an evaluation, 2 embeddings;
+    # built by the first and after each of the 2 imputations.
+    assert "[fgl] classifier graph: built 3, reused 5 (62.5 % of forwards)" in out
     assert not trace.recording_on() and trace.drain().spans == []
 
 
