@@ -36,9 +36,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from portbench import counts, data, judge, trace as trace_lib
+from portbench import counts, data, judge, peaks, trace as trace_lib
 from portbench.reference import fgl as ref_lib
 
+CHECKS = judge.NUMBERS
+TRAFFIC_KEYS = ("imputation_interval", "participation", "loop", "first_rounds")
 FAULTS = ("unchanged", "half_batch", "no_exchange", "altered_link")
 
 
@@ -298,11 +300,13 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device: str, start: flo
         torch.cuda.empty_cache()
     checks = reference_readings(cfg, traffic, plan, seed, device, snaps)
 
+    sh = shapes(cfg, plan, n)
     ctx = {"setup_s": setup_s, "round_times": times, "impute_flags": flags,
            "window_s": window_s, "peak_bytes": peak, "checks": checks,
            "attempted": len(times), "failed": failed,
-           "shapes": shapes(cfg, plan, n), "referenced_rows": referenced_rows(plan),
-           "config": cfg,
+           "model_flops": sum(counts.round_flops(sh, f) for f in flags),
+           "peak_flops": peaks.TF32_FLOPS,
+           "shapes": sh, "referenced_rows": referenced_rows(plan), "config": cfg,
            "device": {"platform": "gpu" if dev.type == "cuda" else dev.type,
                       "kind": torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu",
                       "count": 1, "memory_peak_bytes": int(peak)}}

@@ -5,14 +5,39 @@ files named after it, so that a later cell or metric is added by adding
 files and entries:
 
 - ``configs/<config>.json``: the deployment; its ``driver`` key names
-  ``drivers/<driver>.py``, whose ``run(cell, seed, seconds, trace,
-  device, start)`` returns the run's context (a dict);
+  ``drivers/<driver>.py``;
 - ``traffic/<traffic>.json``: the traffic mix's parameters;
 - ``limits/<workload>.json``: the numbers compared, each with its limit;
 - ``metrics/<metric>.py``: a reader, ``read(ctx) -> float | None``, for each
   metric; ``None`` leaves the metric out of the line. A per-layer reader
   may declare ``SPANS = {span: "module:attribute"}``: the calls the
   driver wraps in ``pb.<span>#<i>`` ranges in the profiled stretch.
+
+A driver declares ``CHECKS``, the names its judge can produce, and
+``TRAFFIC_KEYS``, the keys it reads from a traffic mix; :func:`load_cell`
+refuses, before any run, a cell whose limits name another check or whose
+traffic lacks one of those keys. Its ``run(cell, seed=, seconds=, trace=,
+device=, start=, readers=, fault=)`` returns the run's context, a dict. The
+shared readers (``setup_s``, ``round_s``, ``round_p90_s``, ``peak_mem_gb``,
+``mfu``, ``idle_share``) read only these keys of it, which every driver
+returns:
+
+- ``setup_s``: seconds from ``start`` to the window;
+- ``window_s``: the measured window's seconds;
+- ``round_times``: host seconds of each round of the window, one entry a
+  round; a round is the driver's unit of closed-loop work (a global round
+  for ``fgl``, an optimizer step for a training driver);
+- ``peak_bytes``: the device's peak allocation over set-up and window;
+- ``checks``: each number the judge compared, by name;
+- ``attempted``, ``failed``: rounds run, and those whose result was bad;
+- ``device``: the result line's ``device`` object;
+- with ``trace``: ``trace`` (a ``trace.Trace``: ``busy_s``, ``spans``) and
+  ``trace_flags`` (one entry per profiled round), ``model_flops`` (the model
+  FLOPs of the window's rounds, as the driver counts them) and
+  ``peak_flops`` (the card's dense peak in the cell's dtype, ``peaks.py``);
+  and optionally ``breakdown``.
+
+A driver adds what its own readers need beside these.
 """
 from __future__ import annotations
 
@@ -34,6 +59,7 @@ class Cell:
     config: Dict
     traffic: Dict
     limits: Dict[str, float]
+    driver: ModuleType
     end_to_end: List[Dict]
     per_layer: List[Dict]
     home: Path            # the directory holding configs/, traffic/, ...
@@ -68,19 +94,26 @@ def load_cell(root: Path, workload: str, home: Optional[Path] = None) -> Cell:
                          f"{', '.join(w['name'] for w in spec['workloads'])}")
     w = found[0]
     config = _json(home / "configs" / f"{w['config']}.json")
-    return Cell(name=workload, chips=int(w["chips"]), config=config,
-                traffic=_json(home / "traffic" / f"{w['traffic']}.json"),
-                limits=_json(home / "limits" / f"{workload}.json"),
-                end_to_end=spec["end_to_end"], per_layer=spec["per_layer"], home=home)
+    traffic = _json(home / "traffic" / f"{w['traffic']}.json")
+    limits = _json(home / "limits" / f"{workload}.json")
+    driver = load_module(home / "drivers" / f"{config['driver']}.py")
+    unknown = sorted(set(limits) - set(driver.CHECKS))
+    missing = [k for k in driver.TRAFFIC_KEYS if k not in traffic]
+    if unknown or missing:
+        raise SystemExit(f"portbench: workload {workload!r}: driver {config['driver']!r} "
+                         f"declares no check {unknown} (has {list(driver.CHECKS)}); traffic "
+                         f"{w['traffic']!r} lacks {missing}")
+    return Cell(name=workload, chips=int(w["chips"]), config=config, traffic=traffic,
+                limits=limits, driver=driver, end_to_end=spec["end_to_end"],
+                per_layer=spec["per_layer"], home=home)
 
 
 def run(cell: Cell, *, seed: int, seconds: float, trace: bool, device: str, start: float,
         fault: Optional[str] = None) -> Dict:
     """Run the cell's driver, then read its metrics and judge its numbers."""
-    driver = load_module(cell.home / "drivers" / f"{cell.config['driver']}.py")
     readers = cell.readers(trace)
-    ctx = driver.run(cell, seed=seed, seconds=seconds, trace=trace, device=device,
-                     start=start, readers=readers, fault=fault)
+    ctx = cell.driver.run(cell, seed=seed, seconds=seconds, trace=trace, device=device,
+                          start=start, readers=readers, fault=fault)
     metrics = {}
     units = {m["name"]: m["unit"] for m in cell.end_to_end + cell.per_layer}
     for name, reader in readers.items():

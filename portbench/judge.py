@@ -19,14 +19,21 @@ itself: ``gen_grad_gap``, ``xbar_gap_median``, ``link_gap`` and
 The numbers a cell compares are the keys of its ``limits/<workload>.json``:
 
 - ``loss_abs_gap``: max over rounds of the absolute gap of the evaluation
-  loss (the mean client loss of the aggregated classifiers, in nats);
+  loss (the mean client loss of the aggregated classifiers, in nats). On
+  a few seeds in a hundred the two sides' trajectories part by rounding
+  from the second round on (Adam at a small loss), with the first step's
+  gradients equal and every accuracy the same, and it reads up to ~1e-4;
 - ``grad_gap_clf``: over the classifier's leaves, the worst gap between
   the norms of the first local step's gradient on the two sides (the
   subject's as its optimizer holds it after that step), over the larger
   of the reference leaf's norm and the median leaf's;
 - ``gen_grad_gap``: the same for the first AE step's and the first
   assessor step's gradients on the first imputation round (servers
-  stacked), each network's leaves over its own median leaf's;
+  stacked), each network's leaves over its own median leaf's. It swings
+  from seed to seed: both steps follow Adam steps (the round's local
+  training, and the AE's steps before the assessor's), whose noise moves
+  the embeddings by up to a few 1e-3, so Eq. 13's mask (H > 1/c) can
+  differ in an entry that lies that close to the threshold;
 - ``change_gap_clf``: the same for each classifier leaf's change from the
   inputs' weights to the end of the first ``CHANGE_ROUNDS`` rounds (the
   later rounds' losses are compared, their changes not: on some seeds a

@@ -49,8 +49,7 @@ def test_generator_span_is_wired_into_the_traced_run(workload):
     cell = tiny.cell(workload)
     readers = cell.readers(trace=True)
     assert "generator_ms" in readers
-    driver = harness.load_module(cell.home / "drivers" / f"{cell.config['driver']}.py")
-    ctx = driver.run(cell, seed=31, seconds=0.2, trace=True, device="cpu",
+    ctx = cell.driver.run(cell, seed=31, seconds=0.2, trace=True, device="cpu",
                      start=time.perf_counter(), readers=readers)
     gen = ctx["trace"].spans["generator"]
     assert len(gen) == sum(ctx["trace_flags"]) == len(ctx["trace"].spans["impute"])
